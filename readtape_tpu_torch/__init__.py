@@ -3,15 +3,16 @@
 The JAX package (``readtape_tpu``) stays the reference; this package runs
 the same decode on an NVIDIA GPU. Module names mirror the JAX package's
 (``decode/common.py`` <- ``readtape_tpu/decode/common.py`` and so on) so
-each counterpart is easy to find. The package imports torch and never
-jax; it reuses the JAX package's jax-free modules (``formats``, ``synth``,
-``out``, ``native``).
+each counterpart is easy to find. The package imports torch, never jax,
+and nothing of the JAX package: it keeps its own copies of the jax-free
+modules it needs (``formats``, ``synth``, ``native``, ``version``).
 
-Ported so far: the 9/7-track NRZI main path (``decode.pipeline``), whose
-one device kernel is ``decode.fused.nrzi_fused_scan`` (CUDA C++ under
-``csrc/``, built by ``kernels.py``).
+Ported so far: the 9/7-track NRZI main path and the 9-track PE path
+(``decode.pipeline``), whose device kernels are
+``decode.fused.nrzi_fused_scan`` and ``decode.fused.pe_fused_scan`` (CUDA
+C++ under ``csrc/``, built by ``kernels.py``).
 """
 
-from readtape_tpu.version import __version__
+from .version import __version__
 
 __all__ = ["__version__"]

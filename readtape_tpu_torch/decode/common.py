@@ -178,10 +178,12 @@ def _ring_set(ring, ndx, val):
     return ring.scatter(-1, ndx.long().unsqueeze(-1), val.unsqueeze(-1))
 
 
-def adjust_agc(st, agc_alpha, agc_window):
+def adjust_agc(st, agc_alpha, agc_window, exp: bool = True):
     """One AGC update; returns the new state dict. Mirrors decoder.c:500-531:
     exponential smoothing when agc_alpha > 0, else min-of-window when
-    agc_window > 0, both capped at AGC_MAX_VALUE."""
+    agc_window > 0, both capped at AGC_MAX_VALUE. exp=False: the caller
+    knows no lane has agc_alpha > 0, so the exponential variant is not
+    computed (it would be selected nowhere)."""
     lastheight = st["v_lasttop"] - st["v_lastbot"]
     gain = st["agc_gain"]
     heights = st["v_heights"]
@@ -189,10 +191,12 @@ def adjust_agc(st, agc_alpha, agc_window):
     eps = _f32(1e-9, gain)
 
     # exponential variant
-    g_exp = fdiv(st["v_avg_height"], torch.maximum(lastheight, eps))
-    g_exp = fma(agc_alpha, g_exp, (1 - agc_alpha) * st["agc_gain"])
-    g_exp = torch.clamp_max(g_exp, AGC_MAX_VALUE)
     use_exp = (agc_alpha > 0) & (lastheight > 0)
+    if exp:
+        g_exp = fdiv(st["v_avg_height"], torch.maximum(lastheight, eps))
+        g_exp = fma(agc_alpha, g_exp, (1 - agc_alpha) * st["agc_gain"])
+        g_exp = torch.clamp_max(g_exp, AGC_MAX_VALUE)
+        gain = torch.where(use_exp, g_exp, gain)
 
     # min-of-window variant
     heights_w = _ring_set(heights, ndx, lastheight)
@@ -206,7 +210,6 @@ def adjust_agc(st, agc_alpha, agc_window):
         AGC_MAX_VALUE)
     use_win = (agc_window > 0) & (lastheight > 0)
 
-    gain = torch.where(use_exp, g_exp, gain)
     gain = torch.where(use_win, g_win, gain)
     heights = torch.where(use_win.unsqueeze(-1), heights_w, heights)
     ndx = torch.where(use_win, ndx_w, ndx)
@@ -261,28 +264,33 @@ def clkavg_init(spb: float, shape, device, clk_ring: int = CLKRATE_WINDOW):
     )
 
 
-def adjust_clock(c, delta, clk_window, clk_alpha, const_spb):
+def adjust_clock(c, delta, clk_window, clk_alpha, const_spb,
+                 win: bool = True, exp: bool = True):
     """Mirrors adjust_clock's three strategies: moving window (with the same
-    incremental-average update the C uses), exponential, constant."""
-    # moving window
-    old = c["t_bitspacing"].gather(-1, c["bitndx"].long().unsqueeze(-1))[..., 0]
-    spc_w = _ring_set(c["t_bitspacing"], c["bitndx"], delta)
-    ndx_w = torch.where(c["bitndx"] + 1 >= clk_window, 0,
-                        c["bitndx"] + 1).to(I32)
-    avg_w = c["t_bitspaceavg"] + fdiv(
-        delta - old, torch.clamp_min(torch.as_tensor(clk_window), 1).to(F32))
-    # exponential
-    avg_e = fma(clk_alpha, delta, (1 - clk_alpha) * c["t_bitspaceavg"])
-
+    incremental-average update the C uses), exponential, constant.
+    win=False / exp=False: the caller knows no lane uses that strategy,
+    so it is not computed (it would be selected nowhere)."""
     use_w = torch.as_tensor(clk_window > 0)
     use_e = (~use_w) & (clk_alpha > 0)
+    avg = _f32(const_spb, c["t_bitspaceavg"])
+    if exp:
+        avg_e = fma(clk_alpha, delta, (1 - clk_alpha) * c["t_bitspaceavg"])
+        avg = torch.where(use_e, avg_e, avg)
     out = dict(c)
-    out["t_bitspacing"] = torch.where(use_w.unsqueeze(-1), spc_w,
-                                      c["t_bitspacing"])
-    out["bitndx"] = torch.where(use_w, ndx_w, c["bitndx"])
-    out["t_bitspaceavg"] = torch.where(
-        use_w, avg_w, torch.where(use_e, avg_e,
-                                  _f32(const_spb, c["t_bitspaceavg"])))
+    if win:
+        old = c["t_bitspacing"].gather(
+            -1, c["bitndx"].long().unsqueeze(-1))[..., 0]
+        spc_w = _ring_set(c["t_bitspacing"], c["bitndx"], delta)
+        ndx_w = torch.where(c["bitndx"] + 1 >= clk_window, 0,
+                            c["bitndx"] + 1).to(I32)
+        avg_w = c["t_bitspaceavg"] + fdiv(
+            delta - old,
+            torch.clamp_min(torch.as_tensor(clk_window), 1).to(F32))
+        avg = torch.where(use_w, avg_w, avg)
+        out["t_bitspacing"] = torch.where(use_w.unsqueeze(-1), spc_w,
+                                          c["t_bitspacing"])
+        out["bitndx"] = torch.where(use_w, ndx_w, c["bitndx"])
+    out["t_bitspaceavg"] = avg
     return out
 
 

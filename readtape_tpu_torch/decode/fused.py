@@ -1,5 +1,5 @@
-"""The fused NRZI decode -- counterpart of the NRZI part of
-readtape_tpu/decode/pallas_fused.py.
+"""The fused NRZI and PE decodes -- counterparts of the NRZI and PE parts
+of readtape_tpu/decode/pallas_fused.py.
 
 ``nrzi_fused_scan`` runs window features, peak admission with AGC, the
 global bit-slot machine, ``-correct``'s column-0 flip, the bits, the peak
@@ -24,6 +24,20 @@ Outputs (``FusedOut``), typed, for B segments x P parmsets:
   trk_f f32   [B, P, T, 4]   TF_* per-track floats
   lane_i int32 [B, P, 6]     LI_* per-lane integers
 ``fused_state`` reads them out into the JAX package's fused_state dict.
+
+``pe_fused_scan`` does the same for PE (csrc/pe_fused.cu, plain version
+``pe_fused_scan_plain`` built from decode/pe.py). It computes what the
+JAX package's _pe_segment_device computes, the reference semantics its CPU
+tests and fuzzing hold: per-track admission with the PE state machine,
+each track's idle intervals, the lane's all-idle point tau, the records
+replayed up to tau, and the first candidates after it. Outputs
+(``PeOut``):
+  bits, faked int8  [B, P, T, maxb]
+  hist  int32 [B, P, T, 50]
+  trk_i int32 [B, P, T, 6]   PI_* per-track integers
+  trk_f f32   [B, P, T, 4]   TF_* per-track floats
+  lane_i int32 [B, P, 4]     PL_* per-lane integers
+``pe_fused_state`` reads them out for pe_finish and the pipeline.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch
 from .. import kernels
 from . import common as cm
 from . import nrzi as nrzi_mod
+from . import pe as pe_mod
 from . import trackscan
 from .common import F32, I32
 
@@ -42,6 +57,10 @@ N_TI = 5
 N_TF = 4
 (LI_MISSMID, LI_CORR, LI_FAKED, LI_CONSOVF, LI_ENDS, LI_NSLOT) = range(6)
 N_LI = 6
+(PI_DC, PI_PEAKCNT, PI_CORR, PI_TRKSUM, PI_INCOMP, PI_NTOTAL) = range(6)
+N_PI = 6
+(PL_TAU, PL_GAVEUP, PL_CAND_AFTER, PL_CAND_RACE) = range(4)
+N_PL = 4
 
 MAX_TRACKS = 16            # the kernel keeps per-track slot state in arrays
 MAX_AGC_RING = 16
@@ -101,6 +120,7 @@ def _check(volts, seg_lens, leads, Ws, rise_floor, K, maxb, max_slots,
                          "positive")
 
 
+@torch.inference_mode()
 def nrzi_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *,
                           Ws, rise_floor, min_floor, stat_lb: float,
                           stat_bw: float, expected_parity: int, spb: float,
@@ -228,3 +248,161 @@ def fused_state(out) -> dict:
         incomplete=ti[..., TI_INCOMP] > 0,
         bail=torch.zeros_like(li[..., LI_CONSOVF], dtype=torch.bool),
     )
+
+
+# ---------------------------------------------------------------------------
+# PE
+# ---------------------------------------------------------------------------
+
+def _check_pe(volts, seg_lens, leads, Ws, rise_floor, maxb, K, max_steps):
+    _check(volts, seg_lens, leads, Ws, rise_floor, K, maxb, 1, max_steps)
+    if K < max_steps:
+        raise ValueError("K must hold one record per step (K >= max_steps)")
+
+
+def _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor, min_floor):
+    """The union candidacy masked per window width W to each track's own
+    [lead + t + W - 1, seg_len): the reference's moving window refills
+    sample by sample after each track's staggered start. Returns
+    {W: nxt [B, T, S+1]}."""
+    B, T, S = volts.shape
+    nxt_union = _union_jump_table(volts, Ws, rise_floor, min_floor)
+    trk = torch.arange(T, device=volts.device)
+    return {W: _mask_jump_table(nxt_union, seg_lens,
+                                leads.long().view(B, 1) + trk + W - 1, S)
+            for W in sorted(set(Ws))}
+
+
+def pe_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                  rise_floor, min_floor, stat_lb: float, stat_bw: float,
+                  spb: float, maxb: int, max_steps: int):
+    """Per-width jump tables and window features, then the PE scan of
+    every (segment, parmset, track) lane (pe.pe_track_scan). Returns (the
+    scans' idle intervals, counts and record streams with lane axes
+    [B*P, T, ...], the smallest width's jump table [B, T, S+1])."""
+    dev = volts.device
+    B, T, S = volts.shape
+    P = len(Ws)
+    wset = sorted(set(Ws))
+    G = len(wset)
+    tables = _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor,
+                             min_floor)
+    nxt = torch.stack([tables[W] for W in wset]).reshape(G * B * T, S + 1)
+    feat = torch.stack([trackscan.precompute_window_features(volts, W)
+                        .transpose(-1, -2) for W in wset])   # [G,B,T,S,10]
+    feat = feat.reshape(G * B * T, S, trackscan.N_FEAT)
+
+    # lanes in (b, p, t) order
+    b_i = torch.arange(B, device=dev).view(B, 1, 1).expand(B, P, T)
+    p_i = torch.arange(P, device=dev).view(1, P, 1).expand(B, P, T)
+    t_i = torch.arange(T, device=dev).view(1, 1, T).expand(B, P, T)
+    grp = torch.as_tensor([wset.index(w) for w in Ws], device=dev)
+    src = ((grp[p_i] * B + b_i) * T + t_i).reshape(-1)
+    pl = p_i.reshape(-1)
+    lead_l = leads.to(dev).long()[b_i.reshape(-1)] + t_i.reshape(-1)
+    fin = pe_mod.pe_track_scan(
+        feat, src, nxt, src, torch.as_tensor(Ws, dtype=I32, device=dev)[pl],
+        S, max_steps, pa.pkww_rise[pl], pa.min_peak[pl], pa.agc_alpha[pl],
+        pa.agc_window[pl], pa.clk_window[pl], pa.clk_alpha[pl],
+        pa.clk_factor[pl], pa.pulse_adj[pl], spb, maxb, stat_lb, stat_bw,
+        t_lp_virtual=lead_l.to(F32), s_first_check=lead_l + 1,
+        clk_ring=max(int(pa.clk_window.max()), 1),
+        agc_ring=max(int(pa.agc_window.max()), 1))
+    keys = [k for k in fin if k.startswith("_st_")] + [
+        "ie_e", "ie_w", "n_ie", "ie_trail", "incomplete", "n_admitted"]
+    return ({k: fin[k].reshape((B * P, T) + fin[k].shape[1:])
+             for k in keys}, tables[wset[0]])
+
+
+@torch.inference_mode()
+def pe_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                        rise_floor, min_floor, stat_lb: float,
+                        stat_bw: float, spb: float, maxb: int, K: int,
+                        max_steps: int):
+    """The plain PyTorch version of the PE kernel (same arguments and
+    outputs as pe_fused_scan): the per-lane PE scans (pe_scan_lanes) ->
+    tau -> the replay truncated at tau -> the first candidates after
+    tau."""
+    pe_fused_scan_plain.calls += 1
+    _check_pe(volts, seg_lens, leads, Ws, rise_floor, maxb, K, max_steps)
+    B, T, S = volts.shape
+    P = len(Ws)
+    fin, first = pe_scan_lanes(
+        volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
+        maxb=maxb, max_steps=max_steps)
+    tau, gaveup = pe_mod.lane_tau(fin["ie_e"], fin["ie_w"], fin["n_ie"],
+                                  fin["ie_trail"])
+    tr = pe_mod.pe_apply_tau(fin, maxb, tau)
+
+    # first (smallest-W) candidates after tau and at tau - max(Ws)
+    first = first.long()
+    tau_b = tau.view(B, P).long()
+
+    def cand_at(x):
+        idx = torch.clamp(x, 0, S).unsqueeze(1).expand(B, T, P)
+        return first.gather(-1, idx).amin(dim=1)             # [B, P]
+    trk_i = torch.stack([tr["datacount"], tr["peakcount"],
+                         tr["corrected_bits"], tr["trksum"],
+                         tr["incomplete"].to(I32), tr["n_total"]], dim=-1)
+    trk_f = torch.stack([tr["t_firstbit"], tr["t_lastbit"],
+                         tr["max_agc_gain"], tr["min_agc_gain"]], dim=-1)
+    lane_i = torch.stack([tau_b, gaveup.view(B, P).long(),
+                          cand_at(tau_b + 1), cand_at(tau_b - max(Ws))],
+                         dim=-1)
+    return dict(bits=tr["bits"].reshape(B, P, T, maxb),
+                faked=tr["faked"].reshape(B, P, T, maxb),
+                hist=tr["hist"].reshape(B, P, T, 50),
+                trk_i=trk_i.reshape(B, P, T, N_PI).to(I32),
+                trk_f=trk_f.reshape(B, P, T, N_TF),
+                lane_i=lane_i.to(I32))
+
+
+pe_fused_scan_plain.calls = 0
+
+
+def pe_fused_scan(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                  rise_floor, min_floor, stat_lb: float, stat_bw: float,
+                  spb: float, maxb: int, K: int, max_steps: int):
+    """volts: [B, T, S] f32; seg_lens, leads: [B] int (track t's
+    candidates live in [lead + t + W - 1, seg_len)); pa: the P active
+    parmsets, Ws their window widths; rise_floor/min_floor: [T]
+    loose-candidate floors; stat_lb/stat_bw: peak-statistics bins in
+    samples; maxb: bit buffer length; K: record buffer entries per track
+    (>= max_steps); max_steps: admission step budget per track
+    (scan_step_budget). Returns PeOut (see module docstring)."""
+    args = dict(Ws=tuple(int(w) for w in Ws), rise_floor=rise_floor,
+                min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw,
+                spb=float(spb), maxb=int(maxb), K=int(K),
+                max_steps=int(max_steps))
+    if volts.device.type == "cpu":
+        return pe_fused_scan_plain(volts, seg_lens, leads, pa, **args)
+    if volts.device.type != "cuda":
+        raise ValueError(f"pe_fused_scan: no kernel for {volts.device}")
+    _check_pe(volts, seg_lens, leads, args["Ws"], rise_floor, maxb, K,
+              max_steps)
+    if int(pa.agc_window.max()) > MAX_AGC_RING or \
+            int(pa.clk_window.max()) > MAX_CLK_RING:
+        raise ValueError("agc_window/clk_window beyond the kernel's rings")
+    out = kernels.pe_fused(volts, seg_lens, leads, pa, **args)
+    pe_fused_scan.launches += 1
+    return out
+
+
+pe_fused_scan.launches = 0
+
+
+def pe_fused_state(out) -> dict:
+    """Per-track block state (pe_apply_tau's fields, for pe_finish) and
+    the lane fields of a PeOut, with leading [B, P] axes."""
+    ti, tf, li = out["trk_i"], out["trk_f"], out["lane_i"]
+    return dict(
+        bits=out["bits"], faked=out["faked"], hist=out["hist"],
+        datacount=ti[..., PI_DC], peakcount=ti[..., PI_PEAKCNT],
+        n_consumed=ti[..., PI_PEAKCNT], corrected_bits=ti[..., PI_CORR],
+        trksum=ti[..., PI_TRKSUM], incomplete=ti[..., PI_INCOMP] > 0,
+        n_total=ti[..., PI_NTOTAL],
+        t_firstbit=tf[..., TF_TFIRST], t_lastbit=tf[..., TF_TLAST],
+        max_agc_gain=tf[..., TF_MAXAGC], min_agc_gain=tf[..., TF_MINAGC],
+        tau=li[..., PL_TAU], tau_gaveup=li[..., PL_GAVEUP] > 0,
+        cand_after=li[..., PL_CAND_AFTER], cand_race=li[..., PL_CAND_RACE])

@@ -1,4 +1,4 @@
-"""Decode pipeline orchestrator -- the NRZI slice of
+"""Decode pipeline orchestrator -- the NRZI and PE slices of
 readtape_tpu/decode/pipeline.py.
 
 Host-side driver that turns a sample tensor into decoded blocks:
@@ -12,12 +12,13 @@ Host-side driver that turns a sample tensor into decoded blocks:
   4. staged retry: every block decodes with parmset 0 first, only
      imperfect blocks are re-decoded with all parmsets; best-pick over the
      reference's "tried" prefix (readtape.c:1755-1843),
-  5. re-dispatch the remainder of segments that hold more than one block,
-     emit blocks/tapemarks in tape order.
+  5. re-dispatch the remainder of segments that hold more than one block
+     (NRZI), or walk each PE segment block by block from its all-idle
+     point, emit blocks/tapemarks in tape order.
 
-Only 9/7-track NRZI without -zeros, -adjskew, -correctdbg, -parmscan and
-with a known density is ported; anything else raises NotImplementedError
-naming the option.
+9/7-track NRZI and 9-track PE, without -zeros, -adjskew, -correctdbg,
+-parmscan and with a known density, are ported; anything else raises
+NotImplementedError naming the option.
 """
 
 from __future__ import annotations
@@ -27,12 +28,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from readtape_tpu.formats import tbin as tb
-from readtape_tpu.formats.parms import ParmSets, builtin_parmsets
+from ..formats import tbin as tb
+from ..formats.parms import ParmSets, builtin_parmsets
 
 from . import common as cm
 from . import fused as fused_mod
 from . import nrzi as nrzi_mod
+from . import pe as pe_mod
 from . import segment as seg
 from .common import F32, I32, ParmArrays
 
@@ -103,7 +105,7 @@ class BlockResult:
 def check_supported(opts: DecodeOptions):
     """Raise NotImplementedError for what this slice of the port does not
     run yet."""
-    if opts.mode != tb.MODE_NRZI:
+    if opts.mode not in (tb.MODE_NRZI, tb.MODE_PE):
         raise NotImplementedError(
             f"mode {tb.MODE_NAMES.get(opts.mode, opts.mode)}")
     for flag, name in ((opts.find_zeros, "-zeros"),
@@ -170,6 +172,40 @@ def _nrzi_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     r["alltrk_max_agc"] = st["max_agc_gain"].amax(dim=-1)
     r["alltrk_min_agc"] = st["min_agc_gain"].amin(dim=-1)
     r["event_overflow"] = st["incomplete"].any(dim=-1)
+    return r
+
+
+def _pe_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
+                    skew_delay, pa: ParmArrays, spb, expected_parity,
+                    revparity, rise_floor, min_floor, stat_leftbin,
+                    stat_binwidth, *, S, T, maxb, max_steps, Ws,
+                    differentiate, spb_int, skew_on):
+    """One batch of PE segments: volts prep, the kernel (plain version on
+    a CPU tape), pe_fused_state and pe_finish, plus the fields the PE
+    walk reads -- _pe_segment_device's results, field for field. Returns
+    device tensors with leading [B, P] axes."""
+    idx = offsets.view(-1, 1) + torch.arange(S, device=tape.device)
+    v_i16 = tape[:, idx].permute(1, 0, 2)                     # [B, T, S]
+    volts = _prep_volts(v_i16, maxvolts, invert_sign, skew_delay,
+                        differentiate=differentiate, spb_int=spb_int,
+                        apply_skew=skew_on).contiguous()
+    out = fused_mod.pe_fused_scan(
+        volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, stat_lb=stat_leftbin, stat_bw=stat_binwidth,
+        spb=spb, maxb=maxb, K=max_steps, max_steps=max_steps)
+    st = fused_mod.pe_fused_state(out)
+    r = pe_mod.pe_finish(st, T, expected_parity, revparity, maxb)
+    B, P = st["tau"].shape
+    # any scan of the segment (every parmset) out of step budget
+    r["event_overflow"] = st["incomplete"].flatten(1).any(
+        dim=-1, keepdim=True).expand(B, P)
+    r["end_s"] = torch.minimum(st["tau"], seg_lens.view(B, 1)).to(I32)
+    r["tau_gaveup"] = st["tau_gaveup"]
+    r["scan_incomplete"] = st["incomplete"].any(dim=-1)
+    r["consumed"] = st["n_consumed"].sum(dim=-1).to(I32)
+    r["unconsumed"] = (st["n_total"] - st["n_consumed"]).sum(dim=-1).to(I32)
+    r["cand_after"] = st["cand_after"]
+    r["cand_race"] = st["cand_race"]
     return r
 
 
@@ -327,14 +363,27 @@ class TapeDecoder:
     def segments(self):
         opts = self.opts
         spb = opts.spb
-        # NRZI allows indefinite per-track idle; its blocks end via the
-        # global clock's post counter, handled by the multi-block re-dispatch
-        min_gap_secs = max(20 * spb * opts.deltat, 0.0015)
+        blank = 0
+        if opts.mode == tb.MODE_PE:
+            # a PE track goes idle 2.5 bit times after its last peak
+            # (decoder.c:868-877), so an all-track quiet run that long
+            # ends the block; the idle horizon plus PE_IBG_SECS is blanked
+            # after it
+            min_gap_secs = cm.PE_IDLE_FACTOR * spb * opts.deltat
+            blank = int(cm.PE_IDLE_FACTOR * spb +
+                        cm.PE_IBG_SECS / opts.deltat)
+            post_bits = 3.0
+        else:
+            # NRZI allows indefinite per-track idle; its blocks end via
+            # the global clock's post counter (~10 free-running slots),
+            # handled by the multi-block re-dispatch
+            min_gap_secs = max(20 * spb * opts.deltat, 0.0015)
+            post_bits = 13.0
         min_gap_chunks = max(2, int(min_gap_secs / (opts.deltat * seg.CHUNK)))
-        # post margin: ~10 free-running bit slots for the post counter
         return seg.find_segments(
             self._act, min_gap_chunks, self.n_samples,
-            pre_margin=int(2 * spb), post_margin=int(13.0 * spb))
+            pre_margin=int(2 * spb), post_margin=int(post_bits * spb),
+            blank=blank)
 
     # ---- per-segment decode ----
     def decode_segment(self, a: int, b: int, nparms=None):
@@ -390,17 +439,19 @@ class TapeDecoder:
             (T,), minp_min * scale / cm.AGC_MAX_VALUE * 0.8, dtype=F32,
             device=dev)
         lb, bw = _peakstat_bins(opts.mode, 1.0 / (opts.bpi * opts.ips))
-        return _nrzi_group_fused(
-            tape, offsets, seg_lens, leads, opts.maxvolts,
-            -1.0 if opts.invert else 1.0,
-            torch.as_tensor(self.skew, dtype=I32, device=dev), pa, spb,
-            opts.expected_parity, opts.revparity, rise_floor, min_floor,
-            float(np.float32(lb / opts.deltat)),
-            float(np.float32(bw / opts.deltat)),
-            S=S, T=T, maxb=maxb, max_slots=max_slots, K=K,
-            max_steps=max_steps, Ws=Ws,
-            do_correct=opts.do_correct, differentiate=opts.differentiate,
-            spb_int=int(spb), skew_on=bool(np.any(self.skew)))
+        args = (tape, offsets, seg_lens, leads, opts.maxvolts,
+                -1.0 if opts.invert else 1.0,
+                torch.as_tensor(self.skew, dtype=I32, device=dev), pa, spb,
+                opts.expected_parity, opts.revparity, rise_floor, min_floor,
+                float(np.float32(lb / opts.deltat)),
+                float(np.float32(bw / opts.deltat)))
+        kw = dict(S=S, T=T, maxb=maxb, max_steps=max_steps, Ws=Ws,
+                  differentiate=opts.differentiate, spb_int=int(spb),
+                  skew_on=bool(np.any(self.skew)))
+        if opts.mode == tb.MODE_PE:
+            return _pe_group_fused(*args, **kw)
+        return _nrzi_group_fused(*args, max_slots=max_slots, K=K,
+                                 do_correct=opts.do_correct, **kw)
 
     def decode_segment_batch(self, spans, bucket=None, nparms=None):
         """Decode a batch of same-bucket segments; host numpy results with
@@ -450,15 +501,20 @@ class TapeDecoder:
 
 def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device,
                 decoder: TapeDecoder = None):
-    """Decode a whole NRZI tape on `device` ("cuda" runs the kernel, "cpu"
-    the plain versions). Returns (blocks, stats dict). decoder: reuse a
-    TapeDecoder whose tape is already resident (its device wins)."""
+    """Decode a whole NRZI or PE tape on `device` ("cuda" runs the
+    kernels, "cpu" the plain versions). Returns (blocks, stats dict).
+    decoder: reuse a TapeDecoder whose tape is already resident (its
+    device wins)."""
     dec = (decoder if decoder is not None
            else TapeDecoder(samples, opts, device=device))
-    return _decode_tape_nrzi(dec, opts)
+    return _decode_tape_blocks(dec, opts)
 
 
-def _decode_tape_nrzi(dec: TapeDecoder, opts: DecodeOptions):
+def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
+    """The block decode of NRZI and PE tapes (the JAX package's
+    _decode_tape_nrzi_like): batched segment decodes with the staged
+    retry, then NRZI's remainder loop or PE's block walk, then block
+    emission in tape order."""
     segs = dec.segments()
     stats = dict(nblocks=0, ntapemarks=0, nerrblocks=0, nwarnblocks=0,
                  nunusable=0, nmismatched=0, nmidbiterr=0, ncorrected=0,
@@ -476,12 +532,14 @@ def _decode_tape_nrzi(dec: TapeDecoder, opts: DecodeOptions):
     if not segs:
         return [], stats
 
-    # one bucket for every segment, so tapemark-sized segments ride along
-    # with data blocks: the slot machine ends each block at its postamble
+    # NRZI: one bucket for every segment, so tapemark-sized segments ride
+    # along with data blocks (the slot machine ends each block at its
+    # postamble). PE scans have no in-scan block end, so they keep tight
+    # per-segment buckets.
     buckets = [seg.bucket_length(b - max(a - SEG_WARMUP, 0))
                for a, b in segs]
     maxbkt = max(buckets)
-    unified = maxbkt <= 65536
+    unified = opts.mode == tb.MODE_NRZI and maxbkt <= 65536
     if unified:
         buckets = [maxbkt] * len(buckets)
 
@@ -509,11 +567,30 @@ def _decode_tape_nrzi(dec: TapeDecoder, opts: DecodeOptions):
 
     results = [None] * len(segs)
 
+    def pe_unreliable(res, j, seg_len):
+        """A PE lane that never all-idled in its window, gave up on tau or
+        ran out of scan budget, and reports a block with errors and
+        minbits 0. Its reference counterpart is a giant merged scan with
+        data on every track, a non-stopping BS_BLOCK with errors, so its
+        minbits counts as 1."""
+        return ((int(res["end_s"][j]) >= seg_len
+                 or bool(res["tau_gaveup"][j])
+                 or bool(res["scan_incomplete"][j]))
+                and int(res["blktype"][j]) in (nrzi_mod.BS_BLOCK,
+                                               nrzi_mod.BS_BADBLOCK)
+                and int(res["minbits"][j]) == 0
+                and int(res["errcount"][j]) > 0)
+
     def stopper(i):
         res = results[i]
+        a, b = segs[i]
+        mb = int(res["minbits"][0])
+        if opts.mode == tb.MODE_PE and pe_unreliable(
+                res, 0, b - max(a - SEG_WARMUP, 0)):
+            mb = 1              # must not trip PE's dead-track stop rule
         return is_stopping_decode(
             int(res["blktype"][0]), int(res["errcount"][0]),
-            int(res["warncount"][0]), int(res["minbits"][0]), opts.mode)
+            int(res["warncount"][0]), mb, opts.mode)
 
     def decode_indices(idxs):
         # staged retry, the reference's sequential-try semantics
@@ -524,42 +601,162 @@ def _decode_tape_nrzi(dec: TapeDecoder, opts: DecodeOptions):
             retry = [i for i in idxs if not stopper(i)]
             collect(dispatch(retry, dec.P), results)
 
+    def add_segment(a, b, after):
+        """A new segment (a, b) placed right after `after` in tape order;
+        returns its index."""
+        j = len(segs)
+        segs.append((a, b))
+        buckets.append(maxbkt if unified else
+                       seg.bucket_length(b - max(a - SEG_WARMUP, 0)))
+        results.append(None)
+        order.insert(order.index(after) + 1, j)
+        return j
+
+    def nrzi_remainders():
+        """Multi-block segments: the slot scan self-terminates at the
+        block's postamble idle; if admitted transitions remain past that
+        point, the segment holds another block behind a sub-min_gap gap.
+        Re-dispatch the remainder as a fresh segment after the reference's
+        interblock blanking (decode_nrzi.c:112), the per-block re-entry
+        of readtape.c:1720-1882. Every spawn strictly advances its
+        chain's start, so the loop ends; the cap only guards against a
+        runaway."""
+        ibg_blank = int(cm.NRZI_IBG_SECS / opts.deltat)
+        frontier = order[:]
+        for _round in range(65536):
+            spawned = []
+            for i in frontier:
+                a, b = segs[i]
+                res = results[i]
+                p, _ = pick_best(res, len(res["blktype"]),
+                                 opts.multiple_tries, opts.mode)
+                if int(res["unconsumed"][p]) <= 0:
+                    continue
+                a0 = max(a - SEG_WARMUP, 0)
+                a_rem = a0 + int(res["end_s"][p]) + ibg_blank
+                if a_rem <= a or a_rem >= b - 4:
+                    continue
+                spawned.append(add_segment(a_rem, b, i))
+            if not spawned:
+                break
+            decode_indices(spawned)
+            frontier = spawned
+
+    def pe_walk():
+        """Multi-block segments (PE), the JAX package's PE walk: the
+        reference ends a PE block the moment ALL tracks go idle
+        (pe_end_of_block, decoder.c:868-877) and restarts the scan with
+        fresh track state right after (noise/tapemark: next sample; data
+        block: after PE_IBG_SECS of blanking). Each winner whose scan
+        left admissions or candidates beyond its all-idle point (end_s)
+        re-dispatches the rest, readtape.c:1720-1882's per-block loop;
+        hops with no peaks fast-forward to the next candidate. A lane
+        that never all-idled inside its window widens to the next
+        activity horizon (its reference scan merges across segments),
+        and at the tape end is the reference's EOF BS_NONE."""
+        ibg_blank = int(cm.PE_IBG_SECS / opts.deltat)
+        # re-anchor margin: a scan started ANCHOR samples before a peak
+        # sees it with a full moving window on every track (stagger + W)
+        # while its detection still lands inside the virtual idle horizon
+        maxW = max(cm.pkww_width_for(ps.pkww_bitfrac, opts.bpi, opts.ips,
+                                     opts.deltat)
+                   for ps in opts.parmsets.sets)
+        anchor = maxW + opts.ntrks - 2
+        n_total = dec.n_samples
+        orig_ends = sorted(b for _, b in (segs[i] for i in order))
+        consumed_until = -1
+        endfile = False
+
+        def tried_prefix(res, P_):
+            """Lanes the sequential retry would have consumed."""
+            if not opts.multiple_tries:
+                return 1
+            for j in range(P_):
+                if is_stopping_decode(int(res["blktype"][j]),
+                                      int(res["errcount"][j]),
+                                      int(res["warncount"][j]),
+                                      int(res["minbits"][j]), opts.mode):
+                    return j + 1
+            return P_
+
+        for i0 in order[:]:
+            if endfile or segs[i0][0] < consumed_until:
+                if i0 in order:
+                    order.remove(i0)     # consumed by an earlier chain
+                continue
+            cur = i0
+            for _hop in range(65536):
+                if results[cur] is None:
+                    decode_indices([cur])
+                res = results[cur]
+                a_c, b_c = segs[cur]
+                a0_ = max(a_c - SEG_WARMUP, 0)
+                seg_len_c = b_c - a0_
+                P_ = len(res["blktype"])
+                unrel = [j for j in range(P_)
+                         if pe_unreliable(res, j, seg_len_c)]
+                if unrel:
+                    res = dict(res, minbits=np.array(res["minbits"]))
+                    res["minbits"][unrel] = 1
+                    results[cur] = res
+                tp = tried_prefix(res, P_)
+                # gave-up and incomplete lanes are not proven never-idle:
+                # they count as finished at the segment end
+                unfinished = [j for j in range(tp)
+                              if int(res["end_s"][j]) >= seg_len_c
+                              and not bool(res["tau_gaveup"][j])
+                              and not bool(res["scan_incomplete"][j])]
+                if unfinished and b_c < n_total - 4:
+                    # widen to the next activity horizon
+                    nxt_b = next((e for e in orig_ends if e > b_c), n_total)
+                    nxt_b = max(nxt_b, min(2 * b_c - a_c, n_total))
+                    segs[cur] = (a_c, nxt_b)
+                    buckets[cur] = seg.bucket_length(nxt_b - a0_)
+                    results[cur] = None
+                    continue
+                p, _t = pick_best(res, P_, opts.multiple_tries, opts.mode)
+                if unfinished and p in unfinished:
+                    # tape end, and the best decode never all-idled: EOF,
+                    # the partial block is dropped and nothing follows
+                    if cur in order:
+                        order.remove(cur)
+                    endfile = True
+                    break
+                bt = int(res["blktype"][p])
+                end_s = int(res["end_s"][p])
+                cand = int(res["cand_after"][p])
+                cand_abs = a0_ + cand if cand < seg_len_c else None
+                if int(res["consumed"][p]) == 0 and bt == nrzi_mod.BS_NOISE:
+                    # zero-admission hop: candidates whose detection would
+                    # have landed past tau restart fully visible
+                    race = int(res["cand_race"][p])
+                    if race >= seg_len_c:
+                        break
+                    nxt_start = max(a_c + 1, a0_ + race - anchor)
+                else:
+                    # BS_BLOCK sets the interblock counter (decode_pe.c:95);
+                    # noise and tapemarks return at once
+                    step = (ibg_blank if bt in (nrzi_mod.BS_BLOCK,
+                                                nrzi_mod.BS_BADBLOCK)
+                            else 1)
+                    if cand_abs is None:
+                        break           # nothing beyond tau at all
+                    # skip empty hops: re-anchor at the next candidate
+                    nxt_start = max(a0_ + end_s + step, cand_abs - anchor)
+                if not (a_c < nxt_start < b_c - 4):
+                    break
+                # bound the hop to the next activity horizon
+                b_hop = next((e for e in orig_ends if e > nxt_start + 4), b_c)
+                b_hop = min(max(b_hop, nxt_start + 5), b_c)
+                cur = add_segment(nxt_start, b_hop, cur)
+            consumed_until = max(consumed_until, segs[cur][1])
+
     order = list(range(len(segs)))
     decode_indices(order[:])
-
-    # Multi-block segments: the slot scan self-terminates at the block's
-    # postamble idle; if admitted transitions remain past that point, the
-    # segment holds another block behind a sub-min_gap gap. Re-dispatch
-    # the remainder as a fresh segment after the reference's interblock
-    # blanking (decode_nrzi.c:112), the per-block re-entry of
-    # readtape.c:1720-1882. Every spawn strictly advances its chain's
-    # start, so the loop ends; the cap only guards against a runaway.
-    ibg_blank = int(cm.NRZI_IBG_SECS / opts.deltat)
-    frontier = order[:]
-    for _round in range(65536):
-        spawned = []
-        for i in frontier:
-            a, b = segs[i]
-            res = results[i]
-            p, _ = pick_best(res, len(res["blktype"]), opts.multiple_tries,
-                             opts.mode)
-            if int(res["unconsumed"][p]) <= 0:
-                continue
-            a0 = max(a - SEG_WARMUP, 0)
-            a_rem = a0 + int(res["end_s"][p]) + ibg_blank
-            if a_rem <= a or a_rem >= b - 4:
-                continue
-            j = len(segs)
-            segs.append((a_rem, b))
-            bkt = seg.bucket_length(b - max(a_rem - SEG_WARMUP, 0))
-            buckets.append(maxbkt if unified else bkt)
-            results.append(None)
-            order.insert(order.index(i) + 1, j)
-            spawned.append(j)
-        if not spawned:
-            break
-        decode_indices(spawned)
-        frontier = spawned
+    if opts.mode == tb.MODE_PE:
+        pe_walk()
+    else:
+        nrzi_remainders()
 
     blocks = []
     for i in order:

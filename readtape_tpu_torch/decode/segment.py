@@ -25,7 +25,7 @@ def host_activity(samples_i16: np.ndarray, maxvolts: float):
     compare is exact: |int16| -> f32 * scale is lossless and monotone, so
     comparing the per-chunk int max is the same as comparing every sample.
     The heavy sweep runs in the native scanner when available."""
-    from readtape_tpu import native
+    from .. import native
 
     n, t = samples_i16.shape
     scale = np.float32(maxvolts / 32767.0)

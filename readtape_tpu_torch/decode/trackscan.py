@@ -184,13 +184,15 @@ def run_jump_scan_seq(step_extra, init, ev_fn, nxt_fn, S: int,
     dead: they keep their state and emit inert outputs; a lane stopped by
     the budget ends `incomplete`. The loop ends when every lane is dead.
     Returns (final_state, outputs) with each output stacked along a
-    trailing step axis."""
+    trailing step axis of at least one step."""
     st = dict(init)
     st["pos"] = nxt_fn(torch.zeros_like(st["pos"])).long()
     outs = []
     k = 0
     while k < max_steps:
-        if k % CHECK_EVERY == 0 and not bool((st["pos"] < S).any()):
+        # the first step always runs (inert for a dead lane), so every
+        # output has at least one step
+        if k and k % CHECK_EVERY == 0 and not bool((st["pos"] < S).any()):
             break
         s = st["pos"]
         live = s < S
@@ -216,8 +218,6 @@ def run_jump_scan_seq(step_extra, init, ev_fn, nxt_fn, S: int,
         outs.append(out)
         k += 1
     st["incomplete"] = st["pos"] < S
-    if not outs:
-        return st, None
     return st, {name: torch.stack([o[name] for o in outs], dim=-1)
                 for name in outs[0]}
 
@@ -310,13 +310,6 @@ def nrzi_track_scan_pre(feat, src, nxt, nsrc, W, S: int, K: int,
     init = admission_init(W, (N,), device, agc_ring)
     final, outs = run_jump_scan_seq(extra, init, ev_fn, nxt_fn, S,
                                     rise_parm, min_parm, max_steps)
-    if outs is None:
-        final.update(
-            tr_s=torch.full((N, K), BIG_S, dtype=I32, device=device),
-            tr_t=torch.zeros((N, K), dtype=F32, device=device),
-            tr_agc=torch.ones((N, K), dtype=F32, device=device),
-            tr_top=torch.zeros((N, K), dtype=torch.bool, device=device))
-        return final
     final.update(compact_outputs(
         outs["admit"], K,
         tr_s=(outs["s_det"], BIG_S),

@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA card (marker `cuda`; they skip elsewhere).
-The CUDA kernel must equal its plain version on the card, and a decode on
-the card must equal the plain decode on the CPU block for block. Imports
-no JAX, so the card's machine runs it without the JAX package's test
-configuration:
+Each CUDA kernel must equal its plain version on the card, and an NRZI or
+PE decode on the card must equal the plain decode on the CPU block for
+block. Imports no JAX and nothing of the JAX package (the port carries its
+own synthesizer and formats), so the card's machine runs it without the
+JAX package's test configuration:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -12,10 +13,10 @@ import pytest
 import torch
 
 import chip_smoke
-from readtape_tpu.formats import tbin as tb
-from readtape_tpu.synth import default_spec, synthesize_tape
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
+from readtape_tpu_torch.formats import tbin as tb
+from readtape_tpu_torch.synth import default_spec, synthesize_tape
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +55,30 @@ def test_decode_on_card_equals_cpu(card):
     plain = tfu.nrzi_fused_scan_plain.calls
     out_gpu, st_gpu = tpl.decode_tape(samples, opts, device="cuda")
     assert tfu.nrzi_fused_scan_plain.calls == plain
+    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
+    assert out_gpu == out_cpu
+    for k in ("peak_hist", "tried", "chosen"):
+        np.testing.assert_array_equal(st_gpu[k], st_cpu[k])
+
+
+@pytest.mark.parametrize("nparms", [1, 8])
+def test_pe_kernel_equals_plain(card, nparms):
+    volts, seg_lens, leads, pa, kw = chip_smoke.pe_kernel_inputs(
+        16384, seed=11, nparms=nparms)
+    launches = tfu.pe_fused_scan.launches
+    got = tfu.pe_fused_scan(volts, seg_lens, leads, pa, **kw)
+    assert tfu.pe_fused_scan.launches == launches + 1
+    want = tfu.pe_fused_scan_plain(volts, seg_lens, leads, pa, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_pe_decode_on_card_equals_cpu(card):
+    hdr, samples = chip_smoke.pe_short_gap_tape()
+    opts = chip_smoke.tape_options(hdr, tb.MODE_PE, 1600)
+    plain = tfu.pe_fused_scan_plain.calls
+    out_gpu, st_gpu = tpl.decode_tape(samples, opts, device="cuda")
+    assert tfu.pe_fused_scan_plain.calls == plain
     out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
     assert out_gpu == out_cpu
     for k in ("peak_hist", "tried", "chosen"):

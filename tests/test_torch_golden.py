@@ -1,10 +1,10 @@
-"""The port end to end on the CPU: the four NRZI example tapes decode to
-the .tap files whose SHA-256 examples/golden.json records; importing the
-port imports no JAX; a CUDA decode on a host without a card raises
-instead of running on the CPU; options the port does not run yet raise
-NotImplementedError."""
+"""The port end to end on the CPU: the four NRZI and two PE example tapes
+(built by chip_smoke.py's recipe table with the port's own synthesizer)
+decode to the .tap files whose SHA-256 examples/golden.json records;
+importing the port imports no JAX; a CUDA decode on a host without a card
+raises instead of running on the CPU; options the port does not run yet
+raise NotImplementedError."""
 
-import hashlib
 import json
 import os
 import shutil
@@ -27,27 +27,12 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _load_examples():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "make_examples", os.path.join(REPO, "examples", "make_examples.py"))
-    mk = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mk)
-    return mk
-
-
-@pytest.mark.parametrize("name", chip_smoke.NRZI_CASES)
+@pytest.mark.parametrize("name", chip_smoke.GOLDEN_CASES)
 def test_golden_tap(name, tmp_path):
-    mk = _load_examples()
-    case = mk.CASES[name]
-    hdr, samples = mk.build_case(name, case)
-    opts = tpl.DecodeOptions(**chip_smoke.golden_options(case["args"], hdr))
-    blocks, _ = tpl.decode_tape(samples, opts, device="cpu")
-    path = tmp_path / "out.tap"
-    chip_smoke.write_tap(str(path), blocks)
+    _, digest = chip_smoke.decode_example(name, "cpu", str(tmp_path))
     with open(os.path.join(REPO, "examples", "golden.json")) as f:
         golden = json.load(f)
-    assert hashlib.sha256(path.read_bytes()).hexdigest() == golden[name]
+    assert digest == golden[name]
 
 
 def test_import_leaves_jax_out():
@@ -88,7 +73,8 @@ def test_kernel_build_raises_without_nvcc():
 
 
 @pytest.mark.parametrize("field,value,name", [
-    ("mode", tb.MODE_PE, "PE"), ("find_zeros", True, "-zeros"),
+    ("mode", tb.MODE_GCR, "GCR"), ("mode", tb.MODE_WW, "Whirlwind"),
+    ("find_zeros", True, "-zeros"),
     ("adjskew", True, "-adjskew"), ("do_correct_debug", True, "-correctdbg"),
     ("parmscan", True, "-parmscan"), ("bpi", 0.0, "density detection")])
 def test_unported_options_raise(field, value, name):
