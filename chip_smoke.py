@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NRZI and PE paths on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's NRZI, PE and GCR paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -19,18 +19,25 @@ non-zero:
               (B=4, 8 parmsets, S=16384: clean, noisy with a weak track, a
               dropout that forces fake bits, two blocks behind a short gap
               so that the all-idle point falls inside the window) and on
-              the first batch of phase 4's PE decode; both times
+              the first batch of phase 4's PE decode; gcr_fused_scan on
+              synthesized 9-track GCR segments (B=4, 5 parmsets, S=16384:
+              clean, noisy, one weak track, two blocks behind a short gap)
+              and on the first batch of phase 4's GCR decode; all timed
   4. main     decode_tape on the card at bench scale, each path with the
               launch counts set to 0 just before it and read just after:
-              NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026) and
-              PE (60 blocks of 1200 bytes, seed 4100), 8 parmsets, staged
-              retry, each run twice; every block against the synthesizer's
-              ground truth, and proof that the decode went through the
-              kernel. Then a noisy PE tape with short gaps (the all-idle
-              point, the block walk and the 8-parmset retry) decoded on the
-              card and on the CPU, block for block equal
-  5. golden   the four NRZI and two PE example tapes decoded on the card
-              and written as .tap; SHA-256 against examples/golden.json
+              NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026, 8
+              parmsets), PE (60 blocks of 1200 bytes, seed 4100, 8
+              parmsets) and GCR (40 blocks of 1200 bytes, seed 5100, 5
+              parmsets), staged retry, each run twice; every block against
+              the synthesizer's ground truth, and proof that the decode went
+              through the kernel. Then noisy PE and GCR tapes with short
+              gaps (the all-idle point, the PE walk, the all-parmset
+              retry) and a GCR tape whose segment holds two blocks (a
+              multi-block round) decoded on the card and on the CPU, block
+              for block equal
+  5. golden   the four NRZI, two PE and one GCR example tapes decoded on
+              the card and written as .tap; SHA-256 against
+              examples/golden.json
 
 Then one JSON line describing the kernels, the card's name and power
 limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
@@ -63,6 +70,9 @@ KERNELS = {
     "pe_fused_scan": dict(
         source="readtape_tpu_torch/csrc/pe_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:1760"),
+    "gcr_fused_scan": dict(
+        source="readtape_tpu_torch/csrc/gcr_fused.cu",
+        replaces="readtape_tpu/decode/pallas_fused.py:2326"),
 }
 # kernel vs plain: integers and bits equal; floats equal as well, since
 # both round every f32 operation in the same order (the kernels are built
@@ -100,6 +110,9 @@ EXAMPLES = {
     "9trk_PE/example2": dict(
         spec=("PE", {}), seed=108, mode="blocks", sizes=[512, 80, 200, 150],
         args=["-v", "-m", "-pe", "-bpi=1600", "-ips=50", "-tap"]),
+    "9trk_GCR/example": dict(
+        spec=("GCR", {}), seed=104, mode="blocks", sizes=[154, 100, 210],
+        args=["-v", "-m", "-gcr", "-ips=25", "-tap"]),
 }
 GOLDEN_CASES = tuple(EXAMPLES)
 
@@ -126,10 +139,9 @@ def sync():
 
 def reset_counts():
     from readtape_tpu_torch.decode import fused as tfu
-    for fn in (tfu.nrzi_fused_scan, tfu.pe_fused_scan):
-        fn.launches = 0
-    for fn in (tfu.nrzi_fused_scan_plain, tfu.pe_fused_scan_plain):
-        fn.calls = 0
+    for name in KERNELS:
+        getattr(tfu, name).launches = 0
+        getattr(tfu, name + "_plain").calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +293,53 @@ def pe_kernel_inputs(S, seed, nparms=8, device=DEVICE):
     return volts, seg_lens, leads, pa, kw
 
 
+def gcr_segments(S, seed):
+    """Four 9-track GCR segments cut to S samples, each starting 64 + 2
+    bits' worth of samples before its first block (the pipeline's warmup
+    lead and pre-margin): clean, noisy (0.05 V rms numpy noise), one weak
+    track (track 4 at x0.3), and two 150-byte blocks behind a 0.5 ms gap
+    (the all-idle point inside the window). Returns (int16 [4, S, 9],
+    h_est, deltat, maxvolts)."""
+    import numpy as np
+    from readtape_tpu_torch.decode import segment as seg
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(seed)
+    out = np.zeros((4, S, 9), np.int16)
+    for b in range(4):
+        spec = default_spec(tb.MODE_GCR, ibg_secs=0.0005 if b == 3 else 0.001,
+                            start_gap_secs=0.001, seed=seed + b)
+        n = 150 if b == 3 else 600
+        items = [("block", bytes(rng.integers(0, 256, n, dtype=np.uint8)))
+                 for _ in range(2 if b == 3 else 1)]
+        hdr, samples = synthesize_tape(spec, items)
+        deltat = hdr.tdelta_ns * 1e-9
+        st = int(0.001 / deltat) - 64 - int(2 / (9042 * 25 * deltat))
+        x = samples[st:st + S].astype(np.float64)
+        if b == 1:
+            x += rng.normal(0.0, 0.05 / hdr.maxvolts * 32767, x.shape)
+        if b == 2:
+            x[:, 4] *= 0.3
+        out[b, :len(x)] = np.clip(np.rint(x), -32767, 32767)
+    h_est, _ = seg.host_activity(out.reshape(-1, 9), hdr.maxvolts)
+    return out, h_est, deltat, hdr.maxvolts
+
+
+def gcr_kernel_inputs(S, seed, nparms=5, device=DEVICE):
+    """gcr_fused_scan's arguments for gcr_segments, the first nparms GCR
+    parmsets."""
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.formats import tbin as tb
+    raw, h_est, deltat, maxvolts = gcr_segments(S, seed)
+    volts, seg_lens, leads, pa, kw = _segment_args(
+        tb.MODE_GCR, raw, h_est, deltat, maxvolts, 9042.0, 25.0, nparms,
+        device)
+    spb = kw["spb"]
+    steps = tfu.scan_step_budget(int(S / spb * 3.2) + 64)
+    kw.update(K=steps, max_steps=steps)
+    return volts, seg_lens, leads, pa, kw
+
+
 def bench_tape(seed=2026, nblocks=160, blocksize=1200):
     """bench.py's NRZI tape: 160 random blocks, a tapemark in the middle
     and one at the end."""
@@ -333,9 +392,66 @@ def pe_short_gap_tape(seed=89, noise_v=0.06):
     return hdr, np.clip(np.rint(x), -32767, 32767).astype(np.int16)
 
 
-def tape_options(hdr, mode, bpi):
+def gcr_bench_tape(seed=5100, nblocks=40, blocksize=1200):
+    """bench.py's GCR tape: 40 random blocks of 1200 bytes, 9042 bpi, 25
+    ips."""
+    from dataclasses import replace
+
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    spec = default_spec(tb.MODE_GCR, ibg_secs=0.005, start_gap_secs=0.005)
+    rng = np.random.default_rng(seed)
+    blocks = [bytes(rng.integers(0, 256, blocksize, dtype=np.uint8))
+              for _ in range(nblocks)]
+    hdr, samples = synthesize_tape(replace(spec, seed=seed),
+                                   [("block", b) for b in blocks])
+    return blocks, hdr, samples
+
+
+def gcr_short_gap_tape(seed=7, noise_v=0.07):
+    """Three 80-byte GCR blocks behind 0.5 ms gaps and a 3 ms start gap
+    (tests/test_multiblock.py's GCR short-gap recipe) plus numpy noise of
+    noise_v V rms; blocks and noise from one generator seeded `seed`."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(seed)
+    blocks = [bytes(rng.integers(0, 256, 80, dtype=np.uint8))
+              for _ in range(3)]
+    spec = default_spec(tb.MODE_GCR, ibg_secs=0.0005, start_gap_secs=0.003)
+    hdr, samples = synthesize_tape(spec, [("block", b) for b in blocks])
+    x = samples.astype(np.float64) + rng.normal(
+        0.0, noise_v / hdr.maxvolts * 32767, samples.shape)
+    return hdr, np.clip(np.rint(x), -32767, 32767).astype(np.int16)
+
+
+def gcr_merged_tape():
+    """tests/test_multiblock.py's GCR short-gap tape (three 80-byte blocks,
+    seed 91) with a flat 0.5 V level on track 0 across the first gap: one
+    segment holds the first two blocks, the all-idle point ends the first
+    and a multi-block round decodes the second."""
+    import numpy as np
     from readtape_tpu_torch.decode import pipeline as tpl
-    return tpl.DecodeOptions(mode=mode, ntrks=hdr.ntrks, bpi=bpi, ips=50,
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(91)
+    blocks = [bytes(rng.integers(0, 256, 80, dtype=np.uint8))
+              for _ in range(3)]
+    spec = default_spec(tb.MODE_GCR, ibg_secs=0.0005, start_gap_secs=0.003)
+    hdr, samples = synthesize_tape(spec, [("block", b) for b in blocks])
+    opts = tape_options(hdr, tb.MODE_GCR, 9042, 25)
+    (_, b1), (a2, _) = tpl.TapeDecoder(samples, opts,
+                                       device="cpu").segments()[:2]
+    samples = np.array(samples)
+    samples[b1 - int(7 * opts.spb):a2 + int(opts.spb), 0] += np.int16(
+        0.5 / hdr.maxvolts * 32767)
+    return hdr, samples
+
+
+def tape_options(hdr, mode, bpi, ips=50.0):
+    from readtape_tpu_torch.decode import pipeline as tpl
+    return tpl.DecodeOptions(mode=mode, ntrks=hdr.ntrks, bpi=bpi, ips=ips,
                              deltat=hdr.tdelta_ns * 1e-9,
                              maxvolts=hdr.maxvolts)
 
@@ -395,7 +511,6 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     abs f32 error, kernel ms, plain ms and the bound."""
     import torch
     from readtape_tpu_torch.decode import fused as tfu
-    pe = kernel == "pe_fused_scan"
     kern = getattr(tfu, kernel)
     plain = getattr(tfu, kernel + "_plain")
     got = kern(volts, seg_lens, leads, pa, **kw)
@@ -414,10 +529,12 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     if not err <= F32_TOL:
         raise AssertionError(f"{name}: f32 fields differ by {err}")
     ti = want["trk_i"]
-    dc = ti[..., tfu.PI_DC if pe else tfu.TI_DC]
-    if int(dc.max()) < 150:
+    dc, nadm = {"nrzi_fused_scan": (tfu.TI_DC, tfu.TI_NADM),
+                "pe_fused_scan": (tfu.PI_DC, tfu.PI_NTOTAL),
+                "gcr_fused_scan": (tfu.GI_DC, tfu.GI_NTOTAL)}[kernel]
+    if int(ti[..., dc].max()) < 150:
         raise AssertionError(f"{name}: segments decoded too little")
-    n_adm = int(ti[..., tfu.PI_NTOTAL if pe else tfu.TI_NADM].sum())
+    n_adm = int(ti[..., nadm].sum())
     # kernel time: CUDA events around repeated launches after warmup
     for _ in range(2):
         kern(volts, seg_lens, leads, pa, **kw)
@@ -465,6 +582,15 @@ def phase_kernel():
     res["pe main"] = compare_kernel(
         "pe main", "pe_fused_scan", *main_path_inputs(
             "pe_fused", samples, tape_options(hdr, tb.MODE_PE, 1600)))
+    r = res["gcr 9trk"] = compare_kernel(
+        "gcr 9trk", "gcr_fused_scan", *gcr_kernel_inputs(16384, seed=5))
+    if not bool((r["out"]["lane_i"][3, :, tfu.GL_TAU] < 16384).all()):
+        raise AssertionError("gcr 9trk: the two-block segment's lanes did "
+                             "not reach their all-idle point")
+    _, hdr, samples = gcr_bench_tape()
+    res["gcr main"] = compare_kernel(
+        "gcr main", "gcr_fused_scan", *main_path_inputs(
+            "gcr_fused", samples, tape_options(hdr, tb.MODE_GCR, 9042, 25)))
     for r in res.values():
         del r["out"]
     torch.cuda.empty_cache()
@@ -512,30 +638,28 @@ def decode_bench(name, kernel, blocks, hdr, samples, opts, card, marks):
     return launches, wall, msps
 
 
-def phase_short_gap(card):
-    """The noisy short-gap PE tape on the card and on the CPU (plain
-    versions): block for block equal, with the run statistics."""
+def phase_short_gap(name, kernel, hdr, samples, opts, card):
+    """A noisy short-gap tape on the card and on the CPU (plain versions):
+    block for block equal, with the run statistics."""
     import numpy as np
     from readtape_tpu_torch.decode import fused as tfu
     from readtape_tpu_torch.decode import pipeline as tpl
-    from readtape_tpu_torch.formats import tbin as tb
-    hdr, samples = pe_short_gap_tape()
-    opts = tape_options(hdr, tb.MODE_PE, 1600)
     reset_counts()
     out_gpu, st_gpu = tpl.decode_tape(samples, opts, device=DEVICE)
     sync()
-    launches = tfu.pe_fused_scan.launches
-    if tfu.pe_fused_scan_plain.calls or not launches:
-        raise AssertionError("short gap: the card decode did not run on "
-                             "the kernel alone")
+    launches = getattr(tfu, kernel).launches
+    if getattr(tfu, kernel + "_plain").calls or not launches:
+        raise AssertionError(f"{name}: the card decode did not run on the "
+                             f"kernel alone")
     out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
     if out_gpu != out_cpu:
-        raise AssertionError(f"short gap: card {[b.kind for b in out_gpu]}"
+        raise AssertionError(f"{name}: card {[b.kind for b in out_gpu]}"
                              f" != cpu {[b.kind for b in out_cpu]}")
     for k in ("peak_hist", "tried", "chosen"):
         if not np.array_equal(st_gpu[k], st_cpu[k]):
-            raise AssertionError(f"short gap: {k} differs")
-    print(f"  PE short gap, 0.06 V noise: {len(out_gpu)} blocks, tried "
+            raise AssertionError(f"{name}: {k} differs")
+    print(f"  {name}: {len(out_gpu)} blocks "
+          f"{[(b.kind, len(b.data), b.errcount) for b in out_gpu]}, tried "
           f"{st_gpu['tried'].tolist()}, {launches} launches; card == cpu "
           f"({card})", flush=True)
 
@@ -553,8 +677,22 @@ def phase_main(card):
     blocks, hdr, samples = pe_bench_tape()
     pe = decode_bench("PE bench", "pe_fused_scan", blocks, hdr, samples,
                       tape_options(hdr, tb.MODE_PE, 1600), card, marks=0)
-    phase_short_gap(card)
-    return {"nrzi_fused_scan": nrzi, "pe_fused_scan": pe}
+    blocks, hdr, samples = gcr_bench_tape()
+    gcr = decode_bench("GCR bench", "gcr_fused_scan", blocks, hdr, samples,
+                       tape_options(hdr, tb.MODE_GCR, 9042, 25), card,
+                       marks=0)
+    hdr, samples = pe_short_gap_tape()
+    phase_short_gap("PE short gap, 0.06 V noise", "pe_fused_scan", hdr,
+                    samples, tape_options(hdr, tb.MODE_PE, 1600), card)
+    hdr, samples = gcr_short_gap_tape()
+    phase_short_gap("GCR short gap, 0.07 V noise", "gcr_fused_scan", hdr,
+                    samples, tape_options(hdr, tb.MODE_GCR, 9042, 25), card)
+    hdr, samples = gcr_merged_tape()
+    phase_short_gap("GCR merged blocks (multi-block round)",
+                    "gcr_fused_scan", hdr, samples,
+                    tape_options(hdr, tb.MODE_GCR, 9042, 25), card)
+    return {"nrzi_fused_scan": nrzi, "pe_fused_scan": pe,
+            "gcr_fused_scan": gcr}
 
 
 # ---------------------------------------------------------------------------
@@ -585,7 +723,8 @@ def golden_options(args, hdr):
     from readtape_tpu_torch.formats import tbin as tb
     kv = dict(a[1:].split("=", 1) for a in args if "=" in a)
     mode = (tb.MODE_PE if "-pe" in args else
-            tb.MODE_NRZI if "-nrzi" in args else hdr.mode)
+            tb.MODE_NRZI if "-nrzi" in args else
+            tb.MODE_GCR if "-gcr" in args else hdr.mode)
     bpi = float(kv.get("bpi", hdr.bpi or 0))
     if bpi <= 0:
         raise AssertionError("example header carries no density")
@@ -631,18 +770,19 @@ def time_steps(samples, opts):
     takes; returns (wall s, {step: [seconds, calls]})."""
     import torch
     from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.decode import gcr as gcr_mod
     from readtape_tpu_torch.decode import nrzi as nrzi_mod
     from readtape_tpu_torch.decode import pe as pe_mod
     from readtape_tpu_torch.decode import pipeline as tpl
     from readtape_tpu_torch.decode import segment as seg
     steps = {}
     spots = [(seg, "host_activity", "host activity scan"),
-             (tpl, "_prep_volts", "window gather + volts"),
-             (tfu, "nrzi_fused_scan", "kernel"), (tfu, "pe_fused_scan",
-                                                    "kernel"),
-             (nrzi_mod, "nrzi_finish", "finish"), (pe_mod, "pe_finish",
-                                                   "finish"),
-             (tpl, "_fetch", "fetch (D2H)")]
+             (tpl, "_prep_volts", "window gather + volts")]
+    spots += [(tfu, name, "kernel") for name in KERNELS]
+    spots += [(nrzi_mod, "nrzi_finish", "finish"),
+              (pe_mod, "pe_finish", "finish"),
+              (gcr_mod, "gcr_finish", "finish"),
+              (tpl, "_fetch", "fetch (D2H)")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in spots]
 
     def timed(fn, label):
@@ -708,6 +848,9 @@ def breakdown(card):
     tapes = [("NRZI bench", samples, tape_options(hdr, tb.MODE_NRZI, 800))]
     _, hdr, samples = pe_bench_tape()
     tapes.append(("PE bench", samples, tape_options(hdr, tb.MODE_PE, 1600)))
+    _, hdr, samples = gcr_bench_tape()
+    tapes.append(("GCR bench", samples,
+                  tape_options(hdr, tb.MODE_GCR, 9042, 25)))
     from readtape_tpu_torch.decode import pipeline as tpl
     for name, samples, opts in tapes:
         tpl.decode_tape(samples, opts, device=DEVICE)        # warm-up
@@ -757,8 +900,8 @@ def main():
         times = phase_kernel()
     except AssertionError as e:
         fail("kernel", str(e))
-    print(f"phase 3 kernel: ok, both kernels equal to plain ({card})",
-          flush=True)
+    print(f"phase 3 kernel: ok, all {len(KERNELS)} kernels equal to plain "
+          f"({card})", flush=True)
 
     try:
         runs = phase_main(card)
@@ -772,7 +915,7 @@ def main():
         phase_golden()
     except AssertionError as e:
         fail("golden", str(e))
-    print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI and PE .tap "
+    print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI, PE and GCR .tap "
           f"hashes match", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
@@ -780,7 +923,8 @@ def main():
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),
-                            ("pe_fused_scan", "pe main")):
+                            ("pe_fused_scan", "pe main"),
+                            ("gcr_fused_scan", "gcr main")):
         r = times[main_case]
         line.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],

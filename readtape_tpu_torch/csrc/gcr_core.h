@@ -1,0 +1,395 @@
+// The GCR decode state machine shared by the CUDA kernel (gcr_fused.cu)
+// and a host build used only by the tests. Every function is
+// __host__ __device__ and touches one (segment, parmset) lane.
+//
+// Semantics: the JAX package's _gcr_segment_device without -zeros
+// (readtape_tpu/decode/pipeline.py) over readtape_tpu/decode/gcr.py --
+// gcr_track_scan(pre=True, idle_out=True) and gcr_apply_tau -- and, for
+// the all-idle point, pe.pe_idle_tau, which the plain PyTorch version
+// (readtape_tpu_torch/decode/fused.py::gcr_fused_scan_plain) mirrors.
+// Phase 0 (the candidacy bitmask) and phase B (tau) are pe_core.h's.
+// Float expressions keep the reference's operation order; fmaf() stands
+// exactly where the plain version calls common.fma (XLA's CPU
+// contractions), and everything else rounds on its own (--fmad=false;
+// host: -ffp-contract=off).
+#pragma once
+
+#include "pe_core.h"
+
+#define GCR_IDLE_THRESH 6.0f
+#define GCR_MARK1 0x07
+#define GCR_MARK2 0x1C
+
+// per-track / per-lane output columns (decode/fused.py GI_*, GL_*)
+#define GI_DC 0
+#define GI_PEAKCNT 1
+#define GI_TRKSUM 2
+#define GI_INCOMP 3
+#define GI_NTOTAL 4
+#define N_GI 5
+#define GL_TAU 0
+#define GL_CAND_AFTER 1
+#define N_GL 2
+
+// one record per admitted peak: integer columns (the float columns are
+// pe_core.h's PRF_*)
+#define GR_SDET 0
+#define GR_WR0 1          // the step's three bit writes: 0, 0, then the 1
+#define GR_HB 4           // histogram code: 0..49, 52/53 out of range, 50 none
+#define N_GR 5
+
+// Everything one launch needs. Pointers are device pointers for the
+// kernel and host pointers for the host build. Lane = b * P + p.
+struct GcrArgs {
+  const float* volts;        // [B, T, S]
+  const int32_t* seg_len;    // [B]
+  const int32_t* lead;       // [B]
+  const int32_t* p_w;        // [P] window width
+  const int32_t* p_agc_window;
+  const int32_t* p_clk_window;
+  const float* p_rise;
+  const float* p_minp;
+  const float* p_agc_alpha;
+  const float* p_clk_alpha;
+  const float* p_z1pt;
+  const float* p_z2pt;
+  const float* p_pulse_adj;
+  const int32_t* wset;       // [G] distinct window widths, ascending
+  const float* rise_floor;   // [T]
+  const float* min_floor;    // [T]
+  uint32_t* cand;            // scratch [B*P, T, NW] candidate bit words
+  int32_t* rec_i;            // scratch [B*P, T, K, N_GR]
+  float* rec_f;              // scratch [B*P, T, K, N_PRF]
+  int32_t* ie;               // scratch [B*P, T, PE_IDLE_CAP, 2] (entry, wake)
+  int32_t* scan;             // scratch [B*P, T, N_PS]
+  int8_t* bits;              // [B*P, T, maxb]
+  int32_t* hist;             // [B*P, T, 50]
+  int32_t* trk_i;            // [B*P, T, N_GI]
+  float* trk_f;              // [B*P, T, N_TF]
+  int32_t* lane_i;           // [B*P, N_GL]
+  int32_t B, P, T, S, G, K, maxb, max_steps;
+  float spb, stat_lb, stat_bw;
+};
+
+// gcr.gcr_idle_entry_sample: the first integer sample >= s_floor where
+// f32(s) > t_lp + GCR_IDLE_THRESH * b (the threshold added to the peak
+// time, not PE's subtracted gap; XLA contracts the sum into an FMA), by
+// four probes around its floor
+NRZI_HD int gcr_idle_entry(float t_lp, float b, int s_floor) {
+  const float x = fmaf(GCR_IDLE_THRESH, b, t_lp);
+  const int c = nrzi_f2i(floorf(x));
+  int e = c + 2;
+  for (int k = 3; k >= 0; --k)
+    if ((float)(c - 1 + k) > x) e = c - 1 + k;
+  return pe_imax(e, s_floor);
+}
+
+// the per-track clock (common.clkavg_init / adjust_clock / force_clock)
+struct GcrClock {
+  float ring[NRZI_MAX_CLK_RING];
+  int ndx;
+  float avg;
+};
+
+NRZI_HD void gcr_adjust_clock(GcrClock& c, float delta, int cwin, float ca,
+                              float spb) {
+  if (cwin > 0) {
+    const float old = c.ring[c.ndx];
+    c.ring[c.ndx] = delta;
+    c.ndx = c.ndx + 1 >= cwin ? 0 : c.ndx + 1;
+    c.avg = c.avg + (delta - old) / (float)cwin;
+  } else if (ca > 0.0f) {
+    c.avg = fmaf(ca, delta, (1.0f - ca) * c.avg);
+  } else {
+    c.avg = spb;
+  }
+}
+
+// the bit-recovery state of gcr.gcr_bit_state_init
+struct GcrBits {
+  GcrClock clk;
+  float t_pulse_adj, t_peakdelta, t_firstbit, t_lastbit, t_lastpeak;
+  bool datablock;
+  int dc, lastbits, rsc;
+};
+
+// one gcr_addbit (decode_gcr.c:731-787): write, shift the pattern
+// register, resync detection at 5-bit boundaries, the mid-resync
+// force_clock; returns the write index (maxb = none)
+NRZI_HD int gcr_add_bit(GcrBits& g, int bitval, bool enable, float tpd_new,
+                        int maxb) {
+  if (!enable) return maxb;
+  const int w = pe_imin(g.dc, maxb - 1);
+  g.dc = pe_imin(g.dc + 1, maxb);
+  g.lastbits = ((g.lastbits << 1) | bitval) & 0xFF;
+  if (g.dc % 5 == 0) {
+    const int code = g.lastbits & 0x1F;
+    if (code == GCR_MARK2) g.rsc = 1;
+    else if (code == GCR_MARK1 && g.rsc > 0) g.rsc = 0;
+  }
+  if (g.rsc > 0) {
+    if (g.rsc == 5) {
+      for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) g.clk.ring[k] = tpd_new;
+      g.clk.avg = tpd_new;
+    }
+    g.rsc += 1;
+  }
+  return w;
+}
+
+// gcr.gcr_bit_step for one admitted transition at t_this: up to two
+// inferred zeros, the three-ones clock adjust (pattern register read
+// before the 1-bit), the pulse adjustment from the adjusted clock, then
+// the 1-bit
+NRZI_HD void gcr_bit_step(GcrBits& g, float t_this, float z1, float z2,
+                          float padj, int cwin, float ca, float spb, int maxb,
+                          int32_t* wr) {
+  const float b = g.clk.avg;
+  const float delta = t_this - g.t_lastpeak;
+  const bool in_blk = g.datablock;
+  const bool zero1 = in_blk && (delta - g.t_pulse_adj > z1 * b);
+  const bool zero2 = zero1 && (delta - g.t_pulse_adj > z2 * b);
+  const int numbits = 1 + (int)zero1 + (int)zero2;
+  const float tpd_new = in_blk ? delta : g.t_peakdelta;
+  const int dc0 = g.dc;
+  wr[0] = gcr_add_bit(g, 0, zero1, tpd_new, maxb);
+  wr[1] = gcr_add_bit(g, 0, zero2, tpd_new, maxb);
+  const int prev2 = g.dc >= 2 ? (g.lastbits >> 1) & 1 : 0;
+  if (in_blk && g.dc > 3 && numbits == 1 && prev2 == 1)
+    gcr_adjust_clock(g.clk, g.t_peakdelta, cwin, ca, spb);
+  if (in_blk) g.t_pulse_adj = padj * fmaf((float)numbits, g.clk.avg, -delta);
+  wr[2] = gcr_add_bit(g, 1, true, tpd_new, maxb);
+  g.t_peakdelta = tpd_new;
+  g.datablock = true;
+  if (dc0 == 0) g.t_firstbit = t_this;
+  g.t_lastbit = t_this;
+  g.t_lastpeak = t_this;
+}
+
+// ---------------------------------------------------------------------------
+// phase A: one track's admission scan (trackscan.run_jump_scan_seq with
+// nrzi_agc_policy, then gcr.gcr_track_scan's step). Non-admitting steps
+// leave the state untouched, so only admissions run it; each admission
+// appends one record and, when the track had gone idle before it, one
+// idle interval (entry, wake).
+// ---------------------------------------------------------------------------
+
+NRZI_HD void gcr_admit_track(const GcrArgs& a, int lane, int t) {
+  const int b = lane / a.P, p = lane % a.P, S = a.S, maxb = a.maxb;
+  const int nw = pe_nwords(a);
+  const float* v = a.volts + ((int64_t)b * a.T + t) * S;
+  const uint32_t* cw = a.cand + ((int64_t)lane * a.T + t) * nw;
+  const int64_t row = (int64_t)lane * a.T + t;
+  int32_t* rec_i = a.rec_i + row * a.K * N_GR;
+  float* rec_f = a.rec_f + row * a.K * N_PRF;
+  int32_t* ie = a.ie + row * PE_IDLE_CAP * 2;
+  const int W = a.p_w[p], aw = a.p_agc_window[p], cwin = a.p_clk_window[p];
+  const float rise = a.p_rise[p], minp = a.p_minp[p], aa = a.p_agc_alpha[p];
+  const float ca = a.p_clk_alpha[p], z1 = a.p_z1pt[p], z2 = a.p_z2pt[p];
+  const float padj = a.p_pulse_adj[p], spb = a.spb;
+
+  // admission + AGC state (trackscan.admission_init, common.agc_state_init)
+  float agc = 1.0f, vah = 4.0f, vah_sum = 0.0f;
+  int vah_cnt = 0, hndx = 0, peakcount = 0, n_adm = 0;
+  float max_agc = 0.0f, min_agc = NRZI_FLT_MAX;
+  float v_lasttop = 0.0f, v_lastbot = 0.0f, v_top = 0.0f, v_bot = 0.0f;
+  float heights[NRZI_MAX_AGC_RING];
+  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
+  GcrBits g;
+  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) g.clk.ring[k] = spb;
+  g.clk.ndx = 0;
+  g.clk.avg = spb;
+  g.t_pulse_adj = g.t_peakdelta = g.t_firstbit = g.t_lastbit = 0.0f;
+  g.t_lastpeak = 0.0f;
+  g.datablock = false;
+  g.dc = g.lastbits = g.rsc = 0;
+  bool had_data = false;
+  int s_lastdet = a.lead[b] + t + 1, n_ie = 0;
+
+  int pos = nrzi_next_cand(cw, nw, S, 0);
+  int steps = 0;
+  while (pos < S && steps < a.max_steps) {
+    const int s = pos;
+    steps += 1;
+    if (!((cw[s >> 5] >> (s & 31)) & 1u)) {
+      pos = nrzi_next_cand(cw, nw, S, s + 1);
+      continue;
+    }
+    NrziFeat f;
+    nrzi_features(v, S, s, W, f);
+    // admission_test (decoder.c:781-810)
+    float scale = vah / 4.0f;
+    float rise_t = rise * scale / agc;
+    float rmin = minp * scale / agc;
+    bool no_min = minp == 0.0f;
+    bool is_top = (f.wmax > f.vleft + rise_t) && (f.wmax > f.vright + rise_t) &&
+                  (no_min || f.wmax > rmin);
+    bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
+                  (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
+    if (!is_top && !is_bot) {
+      pos = nrzi_next_cand(cw, nw, S, s + 1);
+      continue;
+    }
+    // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
+    int L = is_top ? f.ltop : f.lbot;
+    float val = is_top ? f.wmax : f.wmin;
+    float prv = is_top ? f.prevmax : f.prevmin;
+    float nxt = is_top ? f.nextmax : f.nextmin;
+    float thr0 = 0.005f / agc;
+    float ref = is_top ? val - thr0 : val + thr0;
+    bool pclose = is_top ? prv > ref : prv < ref;
+    bool nclose = is_top ? nxt > ref : nxt < ref;
+    float adj = (pclose && !nclose) ? -0.5f : ((nclose && !pclose) ? 0.5f : 0.0f);
+    const float t_this = (float)s + (-((float)(W - L) - adj));
+    if (is_top) v_top = val; else v_bot = val;
+    if (g.dc == 0) max_agc = agc;      // the first bit (gcr_addbit)
+
+    // nrzi_agc_policy
+    const int pc = peakcount + 1;
+    const float height = v_top - v_bot;
+    if (is_top && pc >= 5 && pc <= 15) {            // accumulate_baseline
+      vah_sum = vah_sum + height;
+      vah_cnt += 1;
+      heights[hndx] = height;
+      hndx = (hndx + 1 >= aw) ? 0 : hndx + 1;
+    } else if (is_top && pc > 15 && vah_cnt > 0) {  // finish_baseline
+      vah = vah_sum / (float)(vah_cnt > 1 ? vah_cnt : 1);
+      vah_cnt = 0;
+    } else if (pc > 15 && vah_cnt == 0) {           // adjust_agc
+      const float lastheight = v_lasttop - v_lastbot;
+      float g_exp = vah / nrzi_maxf(lastheight, 1e-9f);
+      g_exp = fmaf(aa, g_exp, (1.0f - aa) * agc);
+      g_exp = nrzi_minf(g_exp, 2.0f);
+      const bool use_exp = aa > 0.0f && lastheight > 0.0f;
+      const bool use_win = aw > 0 && lastheight > 0.0f;
+      float gain = agc;
+      if (use_exp) gain = g_exp;
+      if (use_win) {
+        heights[hndx] = lastheight;
+        hndx = (hndx + 1 >= aw) ? 0 : hndx + 1;
+        float minh = NRZI_FLT_MAX;
+        for (int k = 0; k < NRZI_MAX_AGC_RING && k < aw; ++k)
+          minh = nrzi_minf(minh, heights[k]);
+        gain = nrzi_minf(vah / nrzi_maxf(minh, 1e-9f), 2.0f);
+      }
+      if (use_exp || use_win) {
+        if (gain > max_agc) max_agc = gain;
+        if (gain < min_agc) min_agc = gain;
+      }
+      agc = gain;
+    }
+    peakcount = pc;
+    if (is_top) v_lasttop = f.wmax; else v_lastbot = f.wmin;
+
+    // peak statistics once the track has ever had data (decode_gcr.c:839)
+    int hb = 50;
+    if (had_data) {
+      const int bkt = nrzi_f2i(((t_this - g.t_lastpeak) - a.stat_lb) / a.stat_bw);
+      hb = bkt < 0 ? 52 : (bkt > 49 ? 53 : bkt);
+    }
+    // mid-scan idle (decoder.c:879-888): an idle entry before this
+    // detection drops datablock, so this admission re-seeds the block;
+    // compact_outputs' overflow rule keeps the last interval in the last
+    // slot
+    const int entry = gcr_idle_entry(g.t_lastpeak, g.clk.avg, s_lastdet);
+    if (g.datablock && entry <= s - 1) {
+      const int slot = n_ie < PE_IDLE_CAP - 1 ? n_ie : PE_IDLE_CAP - 1;
+      ie[2 * slot] = entry;
+      ie[2 * slot + 1] = s;
+      n_ie += 1;
+      g.datablock = false;
+    }
+    s_lastdet = s;
+    had_data = true;
+
+    // the record (K >= max_steps: one per step at most, never overflows)
+    int32_t* ri = rec_i + (int64_t)n_adm * N_GR;
+    float* rf = rec_f + (int64_t)n_adm * N_PRF;
+    gcr_bit_step(g, t_this, z1, z2, padj, cwin, ca, spb, maxb, ri + GR_WR0);
+    ri[GR_SDET] = s;
+    ri[GR_HB] = hb;
+    rf[PRF_TFB] = g.t_firstbit;
+    rf[PRF_TLB] = g.t_lastbit;
+    rf[PRF_AGCMX] = max_agc;
+    rf[PRF_AGCMN] = min_agc;
+    n_adm += 1;
+    // blind until the peak leaves the window: the next step tests s + L + 1
+    pos = s + L + 1;
+  }
+  int32_t* sc = a.scan + row * N_PS;
+  sc[PS_NADM] = n_adm;
+  sc[PS_INCOMP] = pos < S;
+  sc[PS_NIE] = n_ie;
+  // a dead or never-written track never goes idle (decoder.c:879)
+  sc[PS_TRAIL] = g.datablock ? gcr_idle_entry(g.t_lastpeak, g.clk.avg, s_lastdet)
+                             : PE_BIG_TAU;
+}
+
+// ---------------------------------------------------------------------------
+// phase C: one track's records replayed up to tau (gcr.gcr_apply_tau) and
+// its first candidate after tau
+// ---------------------------------------------------------------------------
+
+NRZI_HD int gcr_apply_track(const GcrArgs& a, int lane, int t, int tau) {
+  const int64_t row = (int64_t)lane * a.T + t;
+  const int maxb = a.maxb;
+  const int32_t* rec_i = a.rec_i + row * a.K * N_GR;
+  const float* rec_f = a.rec_f + row * a.K * N_PRF;
+  int8_t* bits = a.bits + row * maxb;
+  int32_t* hist = a.hist + row * 50;
+  const int n_adm = a.scan[row * N_PS + PS_NADM];
+
+  // records are in detection order: the kept ones are a prefix
+  int n_keep = 0;
+  while (n_keep < n_adm && rec_i[(int64_t)n_keep * N_GR + GR_SDET] < tau) ++n_keep;
+  int nwr = 0, trksum = 0;
+  for (int r = 0; r < n_keep; ++r) {
+    const int32_t* ri = rec_i + (int64_t)r * N_GR;
+    for (int j = 0; j < 3; ++j) {
+      const int w = ri[GR_WR0 + j];
+      if (w < maxb) {
+        bits[w] = (int8_t)(j == 2);        // the last write wins
+        nwr += 1;
+      }
+    }
+    const int hb = ri[GR_HB];
+    if (hb != 50) hist[hb == 52 ? 0 : (hb == 53 ? 49 : hb)] += 1;
+    if (hb <= 49) trksum += 1;
+  }
+  int32_t* ti = a.trk_i + row * N_GI;
+  float* tf = a.trk_f + row * N_TF;
+  ti[GI_DC] = pe_imin(nwr, maxb);
+  ti[GI_PEAKCNT] = n_keep;
+  ti[GI_TRKSUM] = trksum;
+  ti[GI_INCOMP] = a.scan[row * N_PS + PS_INCOMP];
+  ti[GI_NTOTAL] = n_adm;
+  // the state after the last kept admission (or the initial state)
+  tf[TF_TFIRST] = 0.0f;
+  tf[TF_TLAST] = 0.0f;
+  tf[TF_MAXAGC] = 0.0f;
+  tf[TF_MINAGC] = NRZI_FLT_MAX;
+  if (n_keep > 0) {
+    const float* last = rec_f + (int64_t)(n_keep - 1) * N_PRF;
+    tf[TF_TFIRST] = last[PRF_TFB];
+    tf[TF_TLAST] = last[PRF_TLB];
+    tf[TF_MAXAGC] = last[PRF_AGCMX];
+    tf[TF_MINAGC] = last[PRF_AGCMN];
+  }
+  return pe_first_cand(a, lane, t, pe_imax(0, pe_imin(tau + 1, a.S)));
+}
+
+NRZI_HD void gcr_write_lane(const GcrArgs& a, int lane, int tau, bool overflow,
+                            int cand_after) {
+  int32_t* li = a.lane_i + (int64_t)lane * N_GL;
+  li[GL_TAU] = overflow ? PE_BIG_TAU : tau;
+  li[GL_CAND_AFTER] = cand_after;
+}
+
+// zero one lane's bit and histogram buffers (threads tid of n)
+NRZI_HD void gcr_zero_lane(const GcrArgs& a, int lane, int tid, int n) {
+  const int64_t nb = (int64_t)a.T * a.maxb;
+  int8_t* bits = a.bits + (int64_t)lane * nb;
+  for (int64_t i = tid; i < nb; i += n) bits[i] = 0;
+  int32_t* hist = a.hist + (int64_t)lane * a.T * 50;
+  for (int i = tid; i < a.T * 50; i += n) hist[i] = 0;
+}

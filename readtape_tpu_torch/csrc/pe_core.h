@@ -88,7 +88,12 @@ struct PeArgs {
   float spb, stat_lb, stat_bw;
 };
 
-NRZI_HD int pe_nwords(const PeArgs& a) { return (a.S + 31) >> 5; }
+// Phase 0 and phase B below also serve the GCR kernel (gcr_core.h): they
+// are templates over the argument block, which must have the fields they
+// read (volts, seg_len, lead, p_w, wset, rise_floor, min_floor, cand, ie,
+// scan, B, P, T, S, G) with PeArgs' meaning and layouts.
+template <class A>
+NRZI_HD int pe_nwords(const A& a) { return (a.S + 31) >> 5; }
 
 NRZI_HD int pe_imin(int x, int y) { return x < y ? x : y; }
 NRZI_HD int pe_imax(int x, int y) { return x > y ? x : y; }
@@ -100,14 +105,16 @@ NRZI_HD int pe_imax(int x, int y) { return x > y ? x : y; }
 // (pipeline.py _pe_segment_device, _mask_jump_table per window width)
 // ---------------------------------------------------------------------------
 
-NRZI_HD bool pe_union_at(const PeArgs& a, const float* v, int t, int s) {
+template <class A>
+NRZI_HD bool pe_union_at(const A& a, const float* v, int t, int s) {
   bool c = false;
   for (int g = 0; g < a.G && !c; ++g)
     c = nrzi_loose_at(v, s, a.wset[g], a.rise_floor[t], a.min_floor[t]);
   return c;
 }
 
-NRZI_HD uint32_t pe_cand_word(const PeArgs& a, int lane, int t, int w) {
+template <class A>
+NRZI_HD uint32_t pe_cand_word(const A& a, int lane, int t, int w) {
   const int b = lane / a.P, p = lane % a.P;
   const float* v = a.volts + ((int64_t)b * a.T + t) * a.S;
   const int lo = a.lead[b] + t + a.p_w[p] - 1;
@@ -358,8 +365,9 @@ NRZI_HD void pe_admit_track(const PeArgs& a, int lane, int t) {
 // ---------------------------------------------------------------------------
 
 // interval c of track t: (entry, wake); c == n_c is the trailing entry
-NRZI_HD void pe_interval(const PeArgs& a, int lane, int t, int c, int n_c,
-                         int& e, int& w) {
+template <class A>
+NRZI_HD void pe_interval(const A& a, int lane, int t, int c, int n_c, int& e,
+                         int& w) {
   const int64_t row = (int64_t)lane * a.T + t;
   if (c < n_c) {
     e = a.ie[(row * PE_IDLE_CAP + c) * 2];
@@ -370,7 +378,8 @@ NRZI_HD void pe_interval(const PeArgs& a, int lane, int t, int c, int n_c,
   }
 }
 
-NRZI_HD int pe_count(const PeArgs& a, int lane, int t) {
+template <class A>
+NRZI_HD int pe_count(const A& a, int lane, int t) {
   return pe_imin(a.scan[((int64_t)lane * a.T + t) * N_PS + PS_NIE], PE_IDLE_CAP);
 }
 
@@ -378,7 +387,8 @@ NRZI_HD int pe_count(const PeArgs& a, int lane, int t) {
 // construction (each entry is no earlier than the detection that woke the
 // previous interval), so the last interval starting at or before s
 // decides: a binary search gives pe_idle_tau's any-over-intervals.
-NRZI_HD bool pe_idle_at(const PeArgs& a, int lane, int t, int s) {
+template <class A>
+NRZI_HD bool pe_idle_at(const A& a, int lane, int t, int s) {
   const int n_c = pe_count(a, lane, t);
   const int nv = n_c < PE_IDLE_CAP ? n_c + 1 : n_c;   // valid intervals
   int lo = 0, hi = nv - 1, found = -1;
@@ -396,7 +406,8 @@ NRZI_HD bool pe_idle_at(const PeArgs& a, int lane, int t, int s) {
 
 // the smallest firing candidate among candidates tid, tid + n, ... of the
 // lane's T * ECAP (track i, entry s): tracks k < i idle at s, k > i at s-1
-NRZI_HD int pe_tau_part(const PeArgs& a, int lane, int tid, int n) {
+template <class A>
+NRZI_HD int pe_tau_part(const A& a, int lane, int tid, int n) {
   int best = PE_BIG_TAU;
   for (int q = tid; q < a.T * PE_IDLE_ECAP; q += n) {
     const int i = q / PE_IDLE_ECAP, c = q % PE_IDLE_ECAP;
@@ -415,7 +426,8 @@ NRZI_HD int pe_tau_part(const PeArgs& a, int lane, int tid, int n) {
 
 // overflow: some track's intervals did not fit; deep: some track has more
 // intervals than the candidate horizon
-NRZI_HD void pe_lane_flags(const PeArgs& a, int lane, bool& overflow, bool& deep) {
+template <class A>
+NRZI_HD void pe_lane_flags(const A& a, int lane, bool& overflow, bool& deep) {
   overflow = false;
   deep = false;
   for (int t = 0; t < a.T; ++t) {
@@ -432,7 +444,8 @@ NRZI_HD void pe_lane_flags(const PeArgs& a, int lane, bool& overflow, bool& deep
 
 // first union candidate >= x on track t masked to [lead + t + Wmin - 1,
 // seg_len) (the smallest-W jump table of _pe_segment_device), or S
-NRZI_HD int pe_first_cand(const PeArgs& a, int lane, int t, int x) {
+template <class A>
+NRZI_HD int pe_first_cand(const A& a, int lane, int t, int x) {
   const int b = lane / a.P, p = lane % a.P, S = a.S;
   const float* v = a.volts + ((int64_t)b * a.T + t) * S;
   const int hi = pe_imin(a.seg_len[b], S);

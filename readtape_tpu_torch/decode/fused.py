@@ -1,5 +1,5 @@
-"""The fused NRZI and PE decodes -- counterparts of the NRZI and PE parts
-of readtape_tpu/decode/pallas_fused.py.
+"""The fused NRZI, PE and GCR decodes -- counterparts of those parts of
+readtape_tpu/decode/pallas_fused.py.
 
 ``nrzi_fused_scan`` runs window features, peak admission with AGC, the
 global bit-slot machine, ``-correct``'s column-0 flip, the bits, the peak
@@ -38,6 +38,20 @@ replayed up to tau, and the first candidates after it. Outputs
   trk_f f32   [B, P, T, 4]   TF_* per-track floats
   lane_i int32 [B, P, 4]     PL_* per-lane integers
 ``pe_fused_state`` reads them out for pe_finish and the pipeline.
+
+``gcr_fused_scan`` does the same for GCR (csrc/gcr_fused.cu, plain version
+``gcr_fused_scan_plain`` built from decode/gcr.py), computing what the
+JAX package's _gcr_segment_device computes without -zeros: per-track
+admission with the GCR bit machine, idle intervals, tau, the records
+replayed up to tau and the first candidates after it. The group-level
+postprocess (gcr_finish) stays outside, in plain PyTorch. Outputs
+(``GcrOut``):
+  bits  int8  [B, P, T, maxb]
+  hist  int32 [B, P, T, 50]
+  trk_i int32 [B, P, T, 5]   GI_* per-track integers
+  trk_f f32   [B, P, T, 4]   TF_* per-track floats
+  lane_i int32 [B, P, 2]     GL_* per-lane integers
+``gcr_fused_state`` reads them out for gcr_finish and the pipeline.
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ import torch
 
 from .. import kernels
 from . import common as cm
+from . import gcr as gcr_mod
 from . import nrzi as nrzi_mod
 from . import pe as pe_mod
 from . import trackscan
@@ -61,6 +76,10 @@ N_LI = 6
 N_PI = 6
 (PL_TAU, PL_GAVEUP, PL_CAND_AFTER, PL_CAND_RACE) = range(4)
 N_PL = 4
+(GI_DC, GI_PEAKCNT, GI_TRKSUM, GI_INCOMP, GI_NTOTAL) = range(5)
+N_GI = 5
+(GL_TAU, GL_CAND_AFTER) = range(2)
+N_GL = 2
 
 MAX_TRACKS = 16            # the kernel keeps per-track slot state in arrays
 MAX_AGC_RING = 16
@@ -100,6 +119,21 @@ def scan_step_budget(nsteps: int, chunk: int = 512) -> int:
     nsteps) steps, ceil(nsteps / chunk) of them."""
     ch = max(1, min(chunk, nsteps))
     return -(-nsteps // ch) * ch
+
+
+def _dispatch(name, plain, launch, check, volts, seg_lens, leads, pa, args):
+    """A wrapper's body: the plain version on a CPU tensor; on a CUDA
+    tensor the kernel, after check() and the ring sizes, or raise.
+    Returns (outputs, launched)."""
+    if volts.device.type == "cpu":
+        return plain(volts, seg_lens, leads, pa, **args), False
+    if volts.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {volts.device}")
+    check()
+    if int(pa.agc_window.max()) > MAX_AGC_RING or \
+            int(pa.clk_window.max()) > MAX_CLK_RING:
+        raise ValueError("agc_window/clk_window beyond the kernel's rings")
+    return launch(volts, seg_lens, leads, pa, **args), True
 
 
 def _check(volts, seg_lens, leads, Ws, rise_floor, K, maxb, max_slots,
@@ -208,17 +242,12 @@ def nrzi_fused_scan(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                 do_correct=bool(do_correct), maxb=int(maxb),
                 max_slots=int(max_slots), K=int(K),
                 max_steps=int(max_steps))
-    if volts.device.type == "cpu":
-        return nrzi_fused_scan_plain(volts, seg_lens, leads, pa, **args)
-    if volts.device.type != "cuda":
-        raise ValueError(f"nrzi_fused_scan: no kernel for {volts.device}")
-    _check(volts, seg_lens, leads, args["Ws"], rise_floor, K, maxb,
-           max_slots, max_steps)
-    if int(pa.agc_window.max()) > MAX_AGC_RING or \
-            int(pa.clk_window.max()) > MAX_CLK_RING:
-        raise ValueError("agc_window/clk_window beyond the kernel's rings")
-    out = kernels.nrzi_fused(volts, seg_lens, leads, pa, **args)
-    nrzi_fused_scan.launches += 1
+    out, launched = _dispatch(
+        "nrzi_fused_scan", nrzi_fused_scan_plain, kernels.nrzi_fused,
+        lambda: _check(volts, seg_lens, leads, args["Ws"], rise_floor, K,
+                       maxb, max_slots, max_steps),
+        volts, seg_lens, leads, pa, args)
+    nrzi_fused_scan.launches += launched
     return out
 
 
@@ -260,6 +289,20 @@ def _check_pe(volts, seg_lens, leads, Ws, rise_floor, maxb, K, max_steps):
         raise ValueError("K must hold one record per step (K >= max_steps)")
 
 
+def _idle_scan(name, plain, launch, volts, seg_lens, leads, pa, *, Ws,
+               rise_floor, min_floor, stat_lb, stat_bw, spb, maxb, K,
+               max_steps):
+    """pe_fused_scan's and gcr_fused_scan's body (their arguments are the
+    same): _dispatch with the arguments normalized."""
+    args = dict(Ws=tuple(int(w) for w in Ws), rise_floor=rise_floor,
+                min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw,
+                spb=float(spb), maxb=int(maxb), K=int(K),
+                max_steps=int(max_steps))
+    return _dispatch(name, plain, launch, lambda: _check_pe(
+        volts, seg_lens, leads, args["Ws"], rise_floor, maxb, K, max_steps),
+        volts, seg_lens, leads, pa, args)
+
+
 def _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor, min_floor):
     """The union candidacy masked per window width W to each track's own
     [lead + t + W - 1, seg_len): the reference's moving window refills
@@ -273,13 +316,13 @@ def _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor, min_floor):
             for W in sorted(set(Ws))}
 
 
-def pe_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
-                  rise_floor, min_floor, stat_lb: float, stat_bw: float,
-                  spb: float, maxb: int, max_steps: int):
-    """Per-width jump tables and window features, then the PE scan of
-    every (segment, parmset, track) lane (pe.pe_track_scan). Returns (the
-    scans' idle intervals, counts and record streams with lane axes
-    [B*P, T, ...], the smallest width's jump table [B, T, S+1])."""
+def _track_lanes(volts, seg_lens, leads, Ws, rise_floor, min_floor):
+    """What the per-track scans of PE and GCR share: per-width jump
+    tables and window features, and every (segment, parmset, track) lane
+    in (b, p, t) order. Returns (feat [G*B*T, S, 10], nxt [G*B*T, S+1],
+    src [N] (each lane's row of both), pl [N] (its parmset), lead_l [N]
+    (its track's staggered start lead + t), the smallest width's jump
+    table [B, T, S+1])."""
     dev = volts.device
     B, T, S = volts.shape
     P = len(Ws)
@@ -291,15 +334,34 @@ def pe_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
     feat = torch.stack([trackscan.precompute_window_features(volts, W)
                         .transpose(-1, -2) for W in wset])   # [G,B,T,S,10]
     feat = feat.reshape(G * B * T, S, trackscan.N_FEAT)
-
-    # lanes in (b, p, t) order
     b_i = torch.arange(B, device=dev).view(B, 1, 1).expand(B, P, T)
     p_i = torch.arange(P, device=dev).view(1, P, 1).expand(B, P, T)
     t_i = torch.arange(T, device=dev).view(1, 1, T).expand(B, P, T)
     grp = torch.as_tensor([wset.index(w) for w in Ws], device=dev)
     src = ((grp[p_i] * B + b_i) * T + t_i).reshape(-1)
-    pl = p_i.reshape(-1)
     lead_l = leads.to(dev).long()[b_i.reshape(-1)] + t_i.reshape(-1)
+    return feat, nxt, src, p_i.reshape(-1), lead_l, tables[wset[0]]
+
+
+def _lane_streams(fin, B, P, T):
+    """A per-track scan's idle intervals, counts and record streams with
+    lane axes [B*P, T, ...]."""
+    keys = [k for k in fin if k.startswith("_st_")] + [
+        "ie_e", "ie_w", "n_ie", "ie_trail", "incomplete", "n_admitted"]
+    return {k: fin[k].reshape((B * P, T) + fin[k].shape[1:]) for k in keys}
+
+
+def pe_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                  rise_floor, min_floor, stat_lb: float, stat_bw: float,
+                  spb: float, maxb: int, max_steps: int):
+    """The PE scan of every (segment, parmset, track) lane
+    (pe.pe_track_scan). Returns (the scans' idle intervals, counts and
+    record streams with lane axes [B*P, T, ...], the smallest width's
+    jump table [B, T, S+1])."""
+    dev = volts.device
+    B, T, S = volts.shape
+    feat, nxt, src, pl, lead_l, first = _track_lanes(
+        volts, seg_lens, leads, Ws, rise_floor, min_floor)
     fin = pe_mod.pe_track_scan(
         feat, src, nxt, src, torch.as_tensor(Ws, dtype=I32, device=dev)[pl],
         S, max_steps, pa.pkww_rise[pl], pa.min_peak[pl], pa.agc_alpha[pl],
@@ -308,10 +370,7 @@ def pe_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
         t_lp_virtual=lead_l.to(F32), s_first_check=lead_l + 1,
         clk_ring=max(int(pa.clk_window.max()), 1),
         agc_ring=max(int(pa.agc_window.max()), 1))
-    keys = [k for k in fin if k.startswith("_st_")] + [
-        "ie_e", "ie_w", "n_ie", "ie_trail", "incomplete", "n_admitted"]
-    return ({k: fin[k].reshape((B * P, T) + fin[k].shape[1:])
-             for k in keys}, tables[wset[0]])
+    return _lane_streams(fin, B, len(Ws), T), first
 
 
 @torch.inference_mode()
@@ -371,21 +430,12 @@ def pe_fused_scan(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
     samples; maxb: bit buffer length; K: record buffer entries per track
     (>= max_steps); max_steps: admission step budget per track
     (scan_step_budget). Returns PeOut (see module docstring)."""
-    args = dict(Ws=tuple(int(w) for w in Ws), rise_floor=rise_floor,
-                min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw,
-                spb=float(spb), maxb=int(maxb), K=int(K),
-                max_steps=int(max_steps))
-    if volts.device.type == "cpu":
-        return pe_fused_scan_plain(volts, seg_lens, leads, pa, **args)
-    if volts.device.type != "cuda":
-        raise ValueError(f"pe_fused_scan: no kernel for {volts.device}")
-    _check_pe(volts, seg_lens, leads, args["Ws"], rise_floor, maxb, K,
-              max_steps)
-    if int(pa.agc_window.max()) > MAX_AGC_RING or \
-            int(pa.clk_window.max()) > MAX_CLK_RING:
-        raise ValueError("agc_window/clk_window beyond the kernel's rings")
-    out = kernels.pe_fused(volts, seg_lens, leads, pa, **args)
-    pe_fused_scan.launches += 1
+    out, launched = _idle_scan(
+        "pe_fused_scan", pe_fused_scan_plain, kernels.pe_fused, volts,
+        seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
+        maxb=maxb, K=K, max_steps=max_steps)
+    pe_fused_scan.launches += launched
     return out
 
 
@@ -406,3 +456,96 @@ def pe_fused_state(out) -> dict:
         max_agc_gain=tf[..., TF_MAXAGC], min_agc_gain=tf[..., TF_MINAGC],
         tau=li[..., PL_TAU], tau_gaveup=li[..., PL_GAVEUP] > 0,
         cand_after=li[..., PL_CAND_AFTER], cand_race=li[..., PL_CAND_RACE])
+
+
+# ---------------------------------------------------------------------------
+# GCR
+# ---------------------------------------------------------------------------
+
+def gcr_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                   rise_floor, min_floor, stat_lb: float, stat_bw: float,
+                   spb: float, maxb: int, max_steps: int):
+    """The GCR scan of every (segment, parmset, track) lane
+    (gcr.gcr_track_scan). Returns what pe_scan_lanes returns."""
+    dev = volts.device
+    B, T, S = volts.shape
+    feat, nxt, src, pl, lead_l, first = _track_lanes(
+        volts, seg_lens, leads, Ws, rise_floor, min_floor)
+    fin = gcr_mod.gcr_track_scan(
+        feat, src, nxt, src, torch.as_tensor(Ws, dtype=I32, device=dev)[pl],
+        S, max_steps, pa.pkww_rise[pl], pa.min_peak[pl], pa.agc_alpha[pl],
+        pa.agc_window[pl], pa.clk_window[pl], pa.clk_alpha[pl],
+        pa.z1pt[pl], pa.z2pt[pl], pa.pulse_adj[pl], spb, maxb, stat_lb,
+        stat_bw, s_first_check=lead_l + 1,
+        clk_ring=max(int(pa.clk_window.max()), 1),
+        agc_ring=max(int(pa.agc_window.max()), 1))
+    return _lane_streams(fin, B, len(Ws), T), first
+
+
+@torch.inference_mode()
+def gcr_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                         rise_floor, min_floor, stat_lb: float,
+                         stat_bw: float, spb: float, maxb: int, K: int,
+                         max_steps: int):
+    """The plain PyTorch version of the GCR kernel (same arguments and
+    outputs as gcr_fused_scan): the per-lane GCR scans (gcr_scan_lanes) ->
+    tau (an overflowing interval stream gives none) -> the replay
+    truncated at tau -> the first candidates after tau."""
+    gcr_fused_scan_plain.calls += 1
+    _check_pe(volts, seg_lens, leads, Ws, rise_floor, maxb, K, max_steps)
+    B, T, S = volts.shape
+    P = len(Ws)
+    fin, first = gcr_scan_lanes(
+        volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
+        maxb=maxb, max_steps=max_steps)
+    tau, _ = pe_mod.lane_tau(fin["ie_e"], fin["ie_w"], fin["n_ie"],
+                             fin["ie_trail"])
+    tr = gcr_mod.gcr_apply_tau(fin, maxb, tau)
+    tau_b = tau.view(B, P).long()
+    idx = torch.clamp(tau_b + 1, 0, S).unsqueeze(1).expand(B, T, P)
+    cand_after = first.long().gather(-1, idx).amin(dim=1)       # [B, P]
+    trk_i = torch.stack([tr["datacount"], tr["peakcount"], tr["trksum"],
+                         tr["incomplete"].to(I32), tr["n_total"]], dim=-1)
+    trk_f = torch.stack([tr["t_firstbit"], tr["t_lastbit"],
+                         tr["max_agc_gain"], tr["min_agc_gain"]], dim=-1)
+    return dict(bits=tr["bits"].reshape(B, P, T, maxb),
+                hist=tr["hist"].reshape(B, P, T, 50),
+                trk_i=trk_i.reshape(B, P, T, N_GI).to(I32),
+                trk_f=trk_f.reshape(B, P, T, N_TF),
+                lane_i=torch.stack([tau_b, cand_after], dim=-1).to(I32))
+
+
+gcr_fused_scan_plain.calls = 0
+
+
+def gcr_fused_scan(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
+                   rise_floor, min_floor, stat_lb: float, stat_bw: float,
+                   spb: float, maxb: int, K: int, max_steps: int):
+    """Arguments as pe_fused_scan's (track t's candidates live in
+    [lead + t + W - 1, seg_len); K >= max_steps). Returns GcrOut (see
+    module docstring)."""
+    out, launched = _idle_scan(
+        "gcr_fused_scan", gcr_fused_scan_plain, kernels.gcr_fused, volts,
+        seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
+        maxb=maxb, K=K, max_steps=max_steps)
+    gcr_fused_scan.launches += launched
+    return out
+
+
+gcr_fused_scan.launches = 0
+
+
+def gcr_fused_state(out) -> dict:
+    """Per-track block state (gcr_apply_tau's fields, for gcr_finish) and
+    the lane fields of a GcrOut, with leading [B, P] axes."""
+    ti, tf, li = out["trk_i"], out["trk_f"], out["lane_i"]
+    return dict(
+        bits=out["bits"], hist=out["hist"], datacount=ti[..., GI_DC],
+        peakcount=ti[..., GI_PEAKCNT], n_consumed=ti[..., GI_PEAKCNT],
+        trksum=ti[..., GI_TRKSUM], incomplete=ti[..., GI_INCOMP] > 0,
+        n_total=ti[..., GI_NTOTAL],
+        t_firstbit=tf[..., TF_TFIRST], t_lastbit=tf[..., TF_TLAST],
+        max_agc_gain=tf[..., TF_MAXAGC], min_agc_gain=tf[..., TF_MINAGC],
+        tau=li[..., GL_TAU], cand_after=li[..., GL_CAND_AFTER])

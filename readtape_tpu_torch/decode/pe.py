@@ -298,6 +298,17 @@ def lane_tau(ie_e, ie_w, n_ie, ie_trail):
     return torch.where(overflow, BIG_TAU, tau).to(I32), gaveup
 
 
+def peak_hist(hb):
+    """Histogram codes hb [..., steps] (0..49 in range, 52/53 out of range
+    low/high, 50 none) -> (hist [..., 50], trksum [...]): the out-of-range
+    codes land in the end buckets and count nothing toward trksum."""
+    hb2 = torch.where(hb == 52, 0, torch.where(hb == 53, 49, hb)).long()
+    hist = torch.zeros(hb.shape[:-1] + (51,), dtype=I32,
+                       device=hb.device).scatter_add(
+        -1, hb2, torch.ones_like(hb2, dtype=I32))[..., :50]
+    return hist, (hb <= 49).sum(dim=-1).to(I32)
+
+
 def pe_replay_streams(recs, maxb: int, mask):
     """Replay streamed bit/run/stat records ([..., steps]) into the block
     buffers (bits, faked, hist, trksum); records where mask is False never
@@ -313,10 +324,7 @@ def pe_replay_streams(recs, maxb: int, mask):
     last = last.scatter_reduce(-1, widx, steps, "amax")[..., :maxb]
     bits = torch.where(last >= 0, recs["bitval"].gather(
         -1, last.clamp_min(0)), 0).to(torch.int8)
-    hb2 = torch.where(hb == 52, 0, torch.where(hb == 53, 49, hb)).long()
-    hist = torch.zeros(lead + (51,), dtype=I32, device=dev).scatter_add(
-        -1, hb2, torch.ones_like(hb2, dtype=I32))[..., :50]
-    trksum = (hb <= 49).sum(dim=-1).to(I32)
+    hist, trksum = peak_hist(hb)
     runs = trackscan.compact_outputs(
         run_valid, RUN_CAP, run_start=(recs["run_start"], 0),
         run_len=(recs["run_len"], 0), run_bit=(recs["run_bit"], 0))

@@ -1,4 +1,4 @@
-"""Decode pipeline orchestrator -- the NRZI and PE slices of
+"""Decode pipeline orchestrator -- the NRZI, PE and GCR slices of
 readtape_tpu/decode/pipeline.py.
 
 Host-side driver that turns a sample tensor into decoded blocks:
@@ -7,18 +7,20 @@ Host-side driver that turns a sample tensor into decoded blocks:
   2. upload the int16 tape to the device once,
   3. per batch of segments: cut each segment's window from the resident
      tape, prepare volts, run the fused decode (decode/fused.py) for all
-     active parmsets at once, finish the blocks (nrzi_finish) and fetch
-     the results in one round trip,
+     active parmsets at once, finish the blocks (nrzi_finish, pe_finish,
+     gcr_finish) and fetch the results in one round trip,
   4. staged retry: every block decodes with parmset 0 first, only
      imperfect blocks are re-decoded with all parmsets; best-pick over the
      reference's "tried" prefix (readtape.c:1755-1843),
   5. re-dispatch the remainder of segments that hold more than one block
-     (NRZI), or walk each PE segment block by block from its all-idle
+     (NRZI after the slot machine's block end, GCR after the all-idle
+     point), or walk each PE segment block by block from its all-idle
      point, emit blocks/tapemarks in tape order.
 
-9/7-track NRZI and 9-track PE, without -zeros, -adjskew, -correctdbg,
--parmscan and with a known density, are ported; anything else raises
-NotImplementedError naming the option.
+9/7-track NRZI, 9-track PE and 9-track GCR, without -zeros, -adjskew,
+-correctdbg, -parmscan and with a known density, are ported; anything
+else raises NotImplementedError naming the option. The entry points run
+on the card ("cuda") unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..formats.parms import ParmSets, builtin_parmsets
 
 from . import common as cm
 from . import fused as fused_mod
+from . import gcr as gcr_mod
 from . import nrzi as nrzi_mod
 from . import pe as pe_mod
 from . import segment as seg
@@ -63,6 +66,7 @@ class DecodeOptions:
     parmsets: ParmSets = None
     multiple_tries: bool = True
     do_correct: bool = False
+    do_correct2: bool = False         # GCR: 2-track erasure correction
     # NRZI -correct with the reference's DEBUG-build parity-index semantics
     do_correct_debug: bool = False
     expected_parity: int = 1          # 1 = odd (default), 0 = even
@@ -105,7 +109,7 @@ class BlockResult:
 def check_supported(opts: DecodeOptions):
     """Raise NotImplementedError for what this slice of the port does not
     run yet."""
-    if opts.mode not in (tb.MODE_NRZI, tb.MODE_PE):
+    if opts.mode not in (tb.MODE_NRZI, tb.MODE_PE, tb.MODE_GCR):
         raise NotImplementedError(
             f"mode {tb.MODE_NAMES.get(opts.mode, opts.mode)}")
     for flag, name in ((opts.find_zeros, "-zeros"),
@@ -144,6 +148,17 @@ def _prep_volts(v_i16, maxvolts, invert_sign, skew_delay, *,
     return torch.gather(v, -1, idx.expand(v.shape))
 
 
+def _segment_volts(tape, offsets, S, maxvolts, invert_sign, skew_delay,
+                   differentiate, spb_int, skew_on):
+    """The batch's segment windows [B, T, S] cut from the resident tape
+    [T, N] at offsets [B], as contiguous float32 volts."""
+    idx = offsets.view(-1, 1) + torch.arange(S, device=tape.device)
+    v_i16 = tape[:, idx].permute(1, 0, 2)
+    return _prep_volts(v_i16, maxvolts, invert_sign, skew_delay,
+                       differentiate=differentiate, spb_int=spb_int,
+                       apply_skew=skew_on).contiguous()
+
+
 def _nrzi_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
                       skew_delay, pa: ParmArrays, spb, expected_parity,
                       revparity, rise_floor, min_floor, stat_leftbin,
@@ -154,11 +169,8 @@ def _nrzi_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     kernel (plain version on a CPU tape), fused_state and nrzi_finish.
     tape [T, N] int16 on the device; offsets/seg_lens/leads [B]. Returns
     device tensors with leading [B, P] axes."""
-    idx = offsets.view(-1, 1) + torch.arange(S, device=tape.device)
-    v_i16 = tape[:, idx].permute(1, 0, 2)                     # [B, T, S]
-    volts = _prep_volts(v_i16, maxvolts, invert_sign, skew_delay,
-                        differentiate=differentiate, spb_int=spb_int,
-                        apply_skew=skew_on).contiguous()
+    volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
+                           skew_delay, differentiate, spb_int, skew_on)
     out = fused_mod.nrzi_fused_scan(
         volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, stat_lb=stat_leftbin, stat_bw=stat_binwidth,
@@ -184,11 +196,8 @@ def _pe_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     a CPU tape), pe_fused_state and pe_finish, plus the fields the PE
     walk reads -- _pe_segment_device's results, field for field. Returns
     device tensors with leading [B, P] axes."""
-    idx = offsets.view(-1, 1) + torch.arange(S, device=tape.device)
-    v_i16 = tape[:, idx].permute(1, 0, 2)                     # [B, T, S]
-    volts = _prep_volts(v_i16, maxvolts, invert_sign, skew_delay,
-                        differentiate=differentiate, spb_int=spb_int,
-                        apply_skew=skew_on).contiguous()
+    volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
+                           skew_delay, differentiate, spb_int, skew_on)
     out = fused_mod.pe_fused_scan(
         volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, stat_lb=stat_leftbin, stat_bw=stat_binwidth,
@@ -206,6 +215,35 @@ def _pe_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     r["unconsumed"] = (st["n_total"] - st["n_consumed"]).sum(dim=-1).to(I32)
     r["cand_after"] = st["cand_after"]
     r["cand_race"] = st["cand_race"]
+    return r
+
+
+def _gcr_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
+                     skew_delay, pa: ParmArrays, spb, expected_parity,
+                     revparity, rise_floor, min_floor, stat_leftbin,
+                     stat_binwidth, *, S, T, maxb, max_steps, Ws,
+                     do_correct, do_correct2, differentiate, spb_int,
+                     skew_on):
+    """One batch of GCR segments: volts prep, the kernel (plain version
+    on a CPU tape), gcr_fused_state and gcr_finish, plus the fields the
+    multi-block rounds read -- _gcr_segment_device's results, field for
+    field. Returns device tensors with leading [B, P] axes."""
+    volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
+                           skew_delay, differentiate, spb_int, skew_on)
+    out = fused_mod.gcr_fused_scan(
+        volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, stat_lb=stat_leftbin, stat_bw=stat_binwidth,
+        spb=spb, maxb=maxb, K=max_steps, max_steps=max_steps)
+    st = fused_mod.gcr_fused_state(out)
+    r = gcr_mod.gcr_finish(st, T, expected_parity, revparity, do_correct,
+                           maxb, do_correct2=do_correct2)
+    B, P = st["tau"].shape
+    r["event_overflow"] = st["incomplete"].flatten(1).any(
+        dim=-1, keepdim=True).expand(B, P)
+    r["end_s"] = torch.minimum(st["tau"], seg_lens.view(B, 1)).to(I32)
+    r["consumed"] = st["n_consumed"].sum(dim=-1).to(I32)
+    r["unconsumed"] = (st["n_total"] - st["n_consumed"]).sum(dim=-1).to(I32)
+    r["cand_after"] = st["cand_after"]
     return r
 
 
@@ -338,7 +376,8 @@ class TapeDecoder:
     The int16 tape uploads once, [T, N] on `device`; activity and the
     height estimate come from the host (segment.host_activity)."""
 
-    def __init__(self, samples: np.ndarray, opts: DecodeOptions, *, device):
+    def __init__(self, samples: np.ndarray, opts: DecodeOptions, *,
+                 device="cuda"):
         check_supported(opts)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -373,6 +412,13 @@ class TapeDecoder:
             blank = int(cm.PE_IDLE_FACTOR * spb +
                         cm.PE_IBG_SECS / opts.deltat)
             post_bits = 3.0
+        elif opts.mode == tb.MODE_GCR:
+            # a GCR track goes idle GCR_IDLE_THRESH bit times after its
+            # last peak (decoder.c:879-888); likewise blanked after
+            min_gap_secs = cm.GCR_IDLE_THRESH * spb * opts.deltat
+            blank = int(cm.GCR_IDLE_THRESH * spb +
+                        cm.GCR_IBG_SECS / opts.deltat)
+            post_bits = 7.0
         else:
             # NRZI allows indefinite per-track idle; its blocks end via
             # the global clock's post counter (~10 free-running slots),
@@ -450,6 +496,9 @@ class TapeDecoder:
                   skew_on=bool(np.any(self.skew)))
         if opts.mode == tb.MODE_PE:
             return _pe_group_fused(*args, **kw)
+        if opts.mode == tb.MODE_GCR:
+            return _gcr_group_fused(*args, do_correct=opts.do_correct,
+                                    do_correct2=opts.do_correct2, **kw)
         return _nrzi_group_fused(*args, max_slots=max_slots, K=K,
                                  do_correct=opts.do_correct, **kw)
 
@@ -499,9 +548,9 @@ class TapeDecoder:
         return True
 
 
-def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device,
+def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device="cuda",
                 decoder: TapeDecoder = None):
-    """Decode a whole NRZI or PE tape on `device` ("cuda" runs the
+    """Decode a whole NRZI, PE or GCR tape on `device` ("cuda" runs the
     kernels, "cpu" the plain versions). Returns (blocks, stats dict).
     decoder: reuse a TapeDecoder whose tape is already resident (its
     device wins)."""
@@ -511,10 +560,10 @@ def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device,
 
 
 def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
-    """The block decode of NRZI and PE tapes (the JAX package's
+    """The block decode of NRZI, PE and GCR tapes (the JAX package's
     _decode_tape_nrzi_like): batched segment decodes with the staged
-    retry, then NRZI's remainder loop or PE's block walk, then block
-    emission in tape order."""
+    retry, then NRZI's or GCR's remainder rounds or PE's block walk, then
+    block emission in tape order."""
     segs = dec.segments()
     stats = dict(nblocks=0, ntapemarks=0, nerrblocks=0, nwarnblocks=0,
                  nunusable=0, nmismatched=0, nmidbiterr=0, ncorrected=0,
@@ -534,8 +583,8 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
 
     # NRZI: one bucket for every segment, so tapemark-sized segments ride
     # along with data blocks (the slot machine ends each block at its
-    # postamble). PE scans have no in-scan block end, so they keep tight
-    # per-segment buckets.
+    # postamble). PE and GCR scans have no in-scan block end, so they keep
+    # tight per-segment buckets.
     buckets = [seg.bucket_length(b - max(a - SEG_WARMUP, 0))
                for a, b in segs]
     maxbkt = max(buckets)
@@ -612,16 +661,14 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
         order.insert(order.index(after) + 1, j)
         return j
 
-    def nrzi_remainders():
-        """Multi-block segments: the slot scan self-terminates at the
-        block's postamble idle; if admitted transitions remain past that
-        point, the segment holds another block behind a sub-min_gap gap.
-        Re-dispatch the remainder as a fresh segment after the reference's
-        interblock blanking (decode_nrzi.c:112), the per-block re-entry
-        of readtape.c:1720-1882. Every spawn strictly advances its
-        chain's start, so the loop ends; the cap only guards against a
-        runaway."""
-        ibg_blank = int(cm.NRZI_IBG_SECS / opts.deltat)
+    def remainder_rounds(next_start):
+        """Multi-block segments (NRZI, GCR), round by round:
+        next_start(res, p, seg_len) gives the window offset where the
+        rest of a segment starts after its winner p's block, or None; each
+        rest is decoded as a fresh segment right after its parent in tape
+        order, the per-block re-entry of readtape.c:1720-1882. Every spawn
+        strictly advances its chain's start, so the loop ends; the cap
+        only guards against a runaway."""
         frontier = order[:]
         for _round in range(65536):
             spawned = []
@@ -630,17 +677,44 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
                 res = results[i]
                 p, _ = pick_best(res, len(res["blktype"]),
                                  opts.multiple_tries, opts.mode)
-                if int(res["unconsumed"][p]) <= 0:
-                    continue
                 a0 = max(a - SEG_WARMUP, 0)
-                a_rem = a0 + int(res["end_s"][p]) + ibg_blank
-                if a_rem <= a or a_rem >= b - 4:
-                    continue
-                spawned.append(add_segment(a_rem, b, i))
+                off = next_start(res, p, b - a0)
+                if off is not None and a < a0 + off < b - 4:
+                    spawned.append(add_segment(a0 + off, b, i))
             if not spawned:
                 break
             decode_indices(spawned)
             frontier = spawned
+
+    def nrzi_next(res, p, seg_len):
+        """NRZI: the slot scan self-terminates at the block's postamble
+        idle; admitted transitions left past that point are another block
+        behind a sub-min_gap gap, after the interblock blanking
+        (decode_nrzi.c:112)."""
+        if int(res["unconsumed"][p]) <= 0:
+            return None
+        return int(res["end_s"][p]) + int(cm.NRZI_IBG_SECS / opts.deltat)
+
+    def gcr_next(res, p, seg_len):
+        """GCR: the block ends where every track's datablock has dropped
+        (all-idle, decoder.c:879-888); the rest starts after the
+        interblock blanking that only a clean block (gcr_postprocess)
+        sets (decode_gcr.c:673), pulled up to `anchor` samples before the
+        first candidate behind the block, so that a scan sees it with a
+        full window on every track (stagger + W). A GCR track goes idle
+        only after it has data, so a stretch without admissions never
+        ends a block: unlike PE's walk, no hop needs a race re-anchor."""
+        anchor = max(cm.pkww_width_for(ps.pkww_bitfrac, opts.bpi, opts.ips,
+                                       opts.deltat)
+                     for ps in opts.parmsets.sets) + opts.ntrks - 2
+        bt = int(res["blktype"][p])
+        end_s = int(res["end_s"][p])
+        cand = int(res["cand_after"][p])
+        if end_s >= seg_len or bt == nrzi_mod.BS_NONE or cand >= seg_len:
+            return None
+        step = (int(cm.GCR_IBG_SECS / opts.deltat)
+                if bt == nrzi_mod.BS_BLOCK else 1)
+        return max(end_s + step, cand - anchor)
 
     def pe_walk():
         """Multi-block segments (PE), the JAX package's PE walk: the
@@ -756,7 +830,7 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
     if opts.mode == tb.MODE_PE:
         pe_walk()
     else:
-        nrzi_remainders()
+        remainder_rounds(gcr_next if opts.mode == tb.MODE_GCR else nrzi_next)
 
     blocks = []
     for i in order:

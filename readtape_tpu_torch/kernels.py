@@ -57,8 +57,32 @@ class PeArgs(ctypes.Structure):
             "B", "P", "T", "S", "G", "K", "maxb", "max_steps")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
-# pe_core.h's record and scan-buffer shapes
+
+class GcrArgs(ctypes.Structure):
+    """csrc/gcr_core.h::GcrArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "volts", "seg_len", "lead", "p_w", "p_agc_window", "p_clk_window",
+        "p_rise", "p_minp", "p_agc_alpha", "p_clk_alpha", "p_z1pt",
+        "p_z2pt", "p_pulse_adj", "wset", "rise_floor", "min_floor", "cand",
+        "rec_i", "rec_f", "ie", "scan", "bits", "hist", "trk_i", "trk_f",
+        "lane_i")] + [
+        (n, ctypes.c_int32) for n in (
+            "B", "P", "T", "S", "G", "K", "maxb", "max_steps")] + [
+        (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
+
+
+# the record and scan-buffer widths of pe_core.h and gcr_core.h
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
+GCR_N_GR = 5
+# the launch functions of the library and their argument blocks
+LAUNCHES = {"nrzi_fused_launch": NrziArgs, "pe_fused_launch": PeArgs,
+            "gcr_fused_launch": GcrArgs}
+# the parmset knobs every kernel reads: argument field -> ParmArrays field
+_KNOBS = dict(p_agc_window="agc_window", p_clk_window="clk_window",
+              p_rise="pkww_rise", p_minp="min_peak",
+              p_agc_alpha="agc_alpha", p_clk_alpha="clk_alpha",
+              p_pulse_adj="pulse_adj")
+I32, F32, I8 = torch.int32, torch.float32, torch.int8
 
 
 def _nvcc() -> str:
@@ -121,136 +145,137 @@ def build() -> tuple:
 @functools.lru_cache(maxsize=None)
 def load():
     lib = ctypes.CDLL(build()[0])
-    lib.nrzi_fused_launch.argtypes = [ctypes.POINTER(NrziArgs),
-                                      ctypes.c_void_p]
-    lib.nrzi_fused_launch.restype = ctypes.c_int
-    lib.pe_fused_launch.argtypes = [ctypes.POINTER(PeArgs), ctypes.c_void_p]
-    lib.pe_fused_launch.restype = ctypes.c_int
+    for name, struct in LAUNCHES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
+             min_floor, knobs, scratch, out, **scalars):
+    """Allocate one launch's scratch and outputs on volts' device and fill
+    its argument block `struct`. knobs: the kernel's own parmset knobs
+    (argument field -> ParmArrays field) beside _KNOBS; scratch, out:
+    name -> (shape, dtype); scalars: the block's remaining integer and
+    float fields. Returns (args, outputs, keep): `keep` holds every tensor
+    the launch reads, alive until it is enqueued."""
+    dev = volts.device
+    B, T, S = volts.shape
+    wset = sorted(set(Ws))
+
+    def put(x, dt):
+        return torch.as_tensor(x, dtype=dt, device=dev).contiguous()
+    ins = dict(volts=volts.contiguous(), seg_len=put(seg_lens, I32),
+               lead=put(leads, I32), p_w=put(list(Ws), I32),
+               wset=put(wset, I32), rise_floor=put(rise_floor, F32),
+               min_floor=put(min_floor, F32))
+    for field, name in dict(_KNOBS, **knobs).items():
+        x = getattr(pa, name)
+        ins[field] = put(x, x.dtype)
+    scratch = {k: torch.empty(shape, dtype=dt, device=dev)
+               for k, (shape, dt) in scratch.items()}
+    out = {k: torch.empty(shape, dtype=dt, device=dev)
+           for k, (shape, dt) in out.items()}
+    ptrs = {k: v.data_ptr() for d in (ins, scratch, out) for k, v in d.items()}
+    args = struct(**ptrs, B=B, P=len(Ws), T=T, S=S, G=len(wset), **scalars)
+    return args, out, (ins, scratch)
+
+
+def _launch(name, prepare, volts, seg_lens, leads, pa, kw):
+    """Prepare and launch csrc/<name>.cu on volts' CUDA device, on
+    PyTorch's current stream (no synchronisation); raise if the launch is
+    refused."""
+    lib = load()
+    with torch.cuda.device(volts.device):
+        args, out, keep = prepare(volts, seg_lens, leads, pa, **kw)
+        stream = torch.cuda.current_stream(volts.device).cuda_stream
+        rc = getattr(lib, name + "_launch")(ctypes.byref(args), stream)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def nrzi_prepare(volts, seg_lens, leads, pa, *, Ws, rise_floor, min_floor,
                  stat_lb, stat_bw, expected_parity, spb, do_correct, maxb,
                  max_slots, K, max_steps):
-    """Allocate the outputs and scratch of one nrzi_fused launch on volts'
-    device and fill the NrziArgs block. Returns (args, outputs, keep):
-    `keep` holds every tensor the launch reads, alive until it is
-    enqueued."""
-    dev = volts.device
+    """The NrziArgs block, outputs and scratch of one nrzi_fused launch
+    (_prepare's return)."""
     B, T, S = volts.shape
-    P = len(Ws)
-    wset = sorted(set(Ws))
-    N = B * P
-    nw = (S + 31) // 32
-
-    def i32(x):
-        return torch.as_tensor(x, dtype=torch.int32, device=dev).contiguous()
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
-
-    ins = dict(volts=volts.contiguous(), seg_len=i32(seg_lens),
-               lead=i32(leads), p_w=i32(list(Ws)),
-               p_agc_window=i32(pa.agc_window),
-               p_clk_window=i32(pa.clk_window), p_rise=f32(pa.pkww_rise),
-               p_minp=f32(pa.min_peak), p_agc_alpha=f32(pa.agc_alpha),
-               p_clk_alpha=f32(pa.clk_alpha), p_pulse_adj=f32(pa.pulse_adj),
-               p_midbit=f32(pa.midbit), wset=i32(wset),
-               rise_floor=f32(rise_floor), min_floor=f32(min_floor))
-    scratch = dict(
-        cand=torch.empty((N, T, nw), dtype=torch.int32, device=dev),
-        tr_s=torch.empty((N, T, K), dtype=torch.int32, device=dev),
-        tr_t=torch.empty((N, T, K), dtype=torch.float32, device=dev),
-        tr_agc=torch.empty((N, T, K), dtype=torch.float32, device=dev))
-    out = dict(
-        bits=torch.empty((B, P, T, maxb), dtype=torch.int8, device=dev),
-        hist=torch.empty((B, P, T, 50), dtype=torch.int32, device=dev),
-        trk_i=torch.empty((B, P, T, 5), dtype=torch.int32, device=dev),
-        trk_f=torch.empty((B, P, T, 4), dtype=torch.float32, device=dev),
-        lane_i=torch.empty((B, P, 6), dtype=torch.int32, device=dev))
-    ptrs = {k: v.data_ptr() for d in (ins, scratch, out) for k, v in d.items()}
-    args = NrziArgs(**ptrs, B=B, P=P, T=T, S=S, G=len(wset), K=K, maxb=maxb,
-                    max_slots=max_slots, max_steps=max_steps,
-                    do_correct=int(bool(do_correct)),
-                    exp_par=int(expected_parity), spb=float(spb),
-                    stat_lb=float(stat_lb), stat_bw=float(stat_bw))
-    return args, out, (ins, scratch)
+    N, P = B * len(Ws), len(Ws)
+    return _prepare(
+        NrziArgs, volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, knobs=dict(p_midbit="midbit"),
+        scratch=dict(cand=((N, T, (S + 31) // 32), I32),
+                     tr_s=((N, T, K), I32), tr_t=((N, T, K), F32),
+                     tr_agc=((N, T, K), F32)),
+        out=dict(bits=((B, P, T, maxb), I8), hist=((B, P, T, 50), I32),
+                 trk_i=((B, P, T, 5), I32), trk_f=((B, P, T, 4), F32),
+                 lane_i=((B, P, 6), I32)),
+        K=K, maxb=maxb, max_slots=max_slots, max_steps=max_steps,
+        do_correct=int(bool(do_correct)), exp_par=int(expected_parity),
+        spb=float(spb), stat_lb=float(stat_lb), stat_bw=float(stat_bw))
 
 
 def nrzi_fused(volts, seg_lens, leads, pa, **kw):
-    """Launch csrc/nrzi_fused.cu on volts' CUDA device, on PyTorch's
-    current stream (no synchronisation). Arguments and outputs as
+    """Launch csrc/nrzi_fused.cu. Arguments and outputs as
     decode.fused.nrzi_fused_scan."""
-    lib = load()
-    with torch.cuda.device(volts.device):
-        args, out, keep = nrzi_prepare(volts, seg_lens, leads, pa, **kw)
-        stream = torch.cuda.current_stream(volts.device).cuda_stream
-        rc = lib.nrzi_fused_launch(ctypes.byref(args), stream)
-    del keep
-    if rc != 0:
-        raise RuntimeError(f"nrzi_fused kernel launch failed: CUDA error {rc}")
-    return out
+    return _launch("nrzi_fused", nrzi_prepare, volts, seg_lens, leads, pa,
+                   kw)
 
 
-def pe_prepare(volts, seg_lens, leads, pa, *, Ws, rise_floor, min_floor,
-               stat_lb, stat_bw, spb, maxb, K, max_steps):
-    """Allocate the outputs and scratch of one pe_fused launch on volts'
-    device and fill the PeArgs block. Returns (args, outputs, keep) as
-    nrzi_prepare does."""
-    dev = volts.device
+def _idle_prepare(struct, knobs, n_rec_i, out, volts, seg_lens, leads, pa,
+                  *, Ws, rise_floor, min_floor, stat_lb, stat_bw, spb, maxb,
+                  K, max_steps):
+    """_prepare for the PE and GCR kernels, which share their scratch
+    layout: candidacy words, n_rec_i integer and PE_N_PRF float columns
+    per record, the idle intervals and the per-track scan results. out:
+    the kernel's outputs beyond bits and hist, shapes after [B, P]."""
     B, T, S = volts.shape
-    P = len(Ws)
-    wset = sorted(set(Ws))
-    N = B * P
-    nw = (S + 31) // 32
+    N, P = B * len(Ws), len(Ws)
+    outs = dict(bits=((B, P, T, maxb), I8), hist=((B, P, T, 50), I32))
+    outs.update({k: ((B, P) + tail, dt) for k, (tail, dt) in out.items()})
+    return _prepare(
+        struct, volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
+        min_floor=min_floor, knobs=knobs,
+        scratch=dict(cand=((N, T, (S + 31) // 32), I32),
+                     rec_i=((N, T, K, n_rec_i), I32),
+                     rec_f=((N, T, K, PE_N_PRF), F32),
+                     ie=((N, T, PE_IDLE_CAP, 2), I32),
+                     scan=((N, T, PE_N_PS), I32)),
+        out=outs, K=K, maxb=maxb, max_steps=max_steps, spb=float(spb),
+        stat_lb=float(stat_lb), stat_bw=float(stat_bw))
 
-    def i32(x):
-        return torch.as_tensor(x, dtype=torch.int32, device=dev).contiguous()
 
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
-
-    ins = dict(volts=volts.contiguous(), seg_len=i32(seg_lens),
-               lead=i32(leads), p_w=i32(list(Ws)),
-               p_agc_window=i32(pa.agc_window),
-               p_clk_window=i32(pa.clk_window), p_rise=f32(pa.pkww_rise),
-               p_minp=f32(pa.min_peak), p_agc_alpha=f32(pa.agc_alpha),
-               p_clk_alpha=f32(pa.clk_alpha),
-               p_clk_factor=f32(pa.clk_factor),
-               p_pulse_adj=f32(pa.pulse_adj), wset=i32(wset),
-               rise_floor=f32(rise_floor), min_floor=f32(min_floor))
-    scratch = dict(
-        cand=torch.empty((N, T, nw), dtype=torch.int32, device=dev),
-        rec_i=torch.empty((N, T, K, PE_N_PR), dtype=torch.int32, device=dev),
-        rec_f=torch.empty((N, T, K, PE_N_PRF), dtype=torch.float32,
-                          device=dev),
-        ie=torch.empty((N, T, PE_IDLE_CAP, 2), dtype=torch.int32,
-                       device=dev),
-        scan=torch.empty((N, T, PE_N_PS), dtype=torch.int32, device=dev))
-    out = dict(
-        bits=torch.empty((B, P, T, maxb), dtype=torch.int8, device=dev),
-        faked=torch.empty((B, P, T, maxb), dtype=torch.int8, device=dev),
-        hist=torch.empty((B, P, T, 50), dtype=torch.int32, device=dev),
-        trk_i=torch.empty((B, P, T, 6), dtype=torch.int32, device=dev),
-        trk_f=torch.empty((B, P, T, 4), dtype=torch.float32, device=dev),
-        lane_i=torch.empty((B, P, 4), dtype=torch.int32, device=dev))
-    ptrs = {k: v.data_ptr() for d in (ins, scratch, out) for k, v in d.items()}
-    args = PeArgs(**ptrs, B=B, P=P, T=T, S=S, G=len(wset), K=K, maxb=maxb,
-                  max_steps=max_steps, spb=float(spb),
-                  stat_lb=float(stat_lb), stat_bw=float(stat_bw))
-    return args, out, (ins, scratch)
+def pe_prepare(volts, seg_lens, leads, pa, **kw):
+    """The PeArgs block, outputs and scratch of one pe_fused launch
+    (_prepare's return)."""
+    T = volts.shape[1]
+    return _idle_prepare(
+        PeArgs, dict(p_clk_factor="clk_factor"), PE_N_PR,
+        dict(faked=((T, kw["maxb"]), I8), trk_i=((T, 6), I32),
+             trk_f=((T, 4), F32), lane_i=((4,), I32)),
+        volts, seg_lens, leads, pa, **kw)
 
 
 def pe_fused(volts, seg_lens, leads, pa, **kw):
-    """Launch csrc/pe_fused.cu on volts' CUDA device, on PyTorch's current
-    stream (no synchronisation). Arguments and outputs as
+    """Launch csrc/pe_fused.cu. Arguments and outputs as
     decode.fused.pe_fused_scan."""
-    lib = load()
-    with torch.cuda.device(volts.device):
-        args, out, keep = pe_prepare(volts, seg_lens, leads, pa, **kw)
-        stream = torch.cuda.current_stream(volts.device).cuda_stream
-        rc = lib.pe_fused_launch(ctypes.byref(args), stream)
-    del keep
-    if rc != 0:
-        raise RuntimeError(f"pe_fused kernel launch failed: CUDA error {rc}")
-    return out
+    return _launch("pe_fused", pe_prepare, volts, seg_lens, leads, pa, kw)
+
+
+def gcr_prepare(volts, seg_lens, leads, pa, **kw):
+    """The GcrArgs block, outputs and scratch of one gcr_fused launch
+    (_prepare's return)."""
+    T = volts.shape[1]
+    return _idle_prepare(
+        GcrArgs, dict(p_z1pt="z1pt", p_z2pt="z2pt"), GCR_N_GR,
+        dict(trk_i=((T, 5), I32), trk_f=((T, 4), F32), lane_i=((2,), I32)),
+        volts, seg_lens, leads, pa, **kw)
+
+
+def gcr_fused(volts, seg_lens, leads, pa, **kw):
+    """Launch csrc/gcr_fused.cu. Arguments and outputs as
+    decode.fused.gcr_fused_scan."""
+    return _launch("gcr_fused", gcr_prepare, volts, seg_lens, leads, pa, kw)

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA card (marker `cuda`; they skip elsewhere).
-Each CUDA kernel must equal its plain version on the card, and an NRZI or
-PE decode on the card must equal the plain decode on the CPU block for
-block. Imports no JAX and nothing of the JAX package (the port carries its
+Each CUDA kernel must equal its plain version on the card, and an NRZI,
+PE or GCR decode on the card must equal the plain decode on the CPU block
+for block. Imports no JAX and nothing of the JAX package (the port carries its
 own synthesizer and formats), so the card's machine runs it without the
 JAX package's test configuration:
 
@@ -79,6 +79,30 @@ def test_pe_decode_on_card_equals_cpu(card):
     plain = tfu.pe_fused_scan_plain.calls
     out_gpu, st_gpu = tpl.decode_tape(samples, opts, device="cuda")
     assert tfu.pe_fused_scan_plain.calls == plain
+    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
+    assert out_gpu == out_cpu
+    for k in ("peak_hist", "tried", "chosen"):
+        np.testing.assert_array_equal(st_gpu[k], st_cpu[k])
+
+
+def test_gcr_kernel_equals_plain(card):
+    volts, seg_lens, leads, pa, kw = chip_smoke.gcr_kernel_inputs(
+        16384, seed=11)
+    launches = tfu.gcr_fused_scan.launches
+    got = tfu.gcr_fused_scan(volts, seg_lens, leads, pa, **kw)
+    assert tfu.gcr_fused_scan.launches == launches + 1
+    want = tfu.gcr_fused_scan_plain(volts, seg_lens, leads, pa, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_gcr_decode_on_card_equals_cpu(card):
+    hdr, samples = chip_smoke.gcr_short_gap_tape()
+    opts = chip_smoke.tape_options(hdr, tb.MODE_GCR, 9042, 25)
+    opts.do_correct = True
+    plain = tfu.gcr_fused_scan_plain.calls
+    out_gpu, st_gpu = tpl.decode_tape(samples, opts, device="cuda")
+    assert tfu.gcr_fused_scan_plain.calls == plain
     out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
     assert out_gpu == out_cpu
     for k in ("peak_hist", "tried", "chosen"):

@@ -1,9 +1,9 @@
-"""The port end to end on the CPU: the four NRZI and two PE example tapes
-(built by chip_smoke.py's recipe table with the port's own synthesizer)
-decode to the .tap files whose SHA-256 examples/golden.json records;
-importing the port imports no JAX; a CUDA decode on a host without a card
-raises instead of running on the CPU; options the port does not run yet
-raise NotImplementedError."""
+"""The port end to end on the CPU: the four NRZI, two PE and one GCR
+example tapes (built by chip_smoke.py's recipe table with the port's own
+synthesizer) decode to the .tap files whose SHA-256 examples/golden.json
+records; importing the port imports no JAX; a decode on a host without a
+card, by default or asked for "cuda", raises instead of running on the
+CPU; options the port does not run yet raise NotImplementedError."""
 
 import json
 import os
@@ -62,6 +62,8 @@ def test_cuda_decode_raises_without_a_card():
     calls = tfu.nrzi_fused_scan_plain.calls
     with pytest.raises(RuntimeError, match="cuda"):
         tpl.decode_tape(samples, opts, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpl.decode_tape(samples, opts)          # the card is the default
     assert tfu.nrzi_fused_scan_plain.calls == calls
 
 
@@ -72,15 +74,17 @@ def test_kernel_build_raises_without_nvcc():
         kernels.build()
 
 
-@pytest.mark.parametrize("field,value,name", [
-    ("mode", tb.MODE_GCR, "GCR"), ("mode", tb.MODE_WW, "Whirlwind"),
-    ("find_zeros", True, "-zeros"),
-    ("adjskew", True, "-adjskew"), ("do_correct_debug", True, "-correctdbg"),
-    ("parmscan", True, "-parmscan"), ("bpi", 0.0, "density detection")])
-def test_unported_options_raise(field, value, name):
+@pytest.mark.parametrize("over,name", [
+    (dict(mode=tb.MODE_GCR, bpi=9042, ips=25, find_zeros=True), "-zeros"),
+    (dict(mode=tb.MODE_WW), "Whirlwind"), (dict(find_zeros=True), "-zeros"),
+    (dict(adjskew=True), "-adjskew"),
+    (dict(do_correct_debug=True), "-correctdbg"),
+    (dict(parmscan=True), "-parmscan"),
+    (dict(bpi=0.0), "density detection")])
+def test_unported_options_raise(over, name):
     hdr, samples = _tape()
     kw = dict(mode=tb.MODE_NRZI, ntrks=9, bpi=800, ips=50,
               deltat=hdr.tdelta_ns * 1e-9, maxvolts=hdr.maxvolts)
-    kw[field] = value
+    kw.update(over)
     with pytest.raises(NotImplementedError, match=name):
         tpl.decode_tape(samples, tpl.DecodeOptions(**kw), device="cpu")
