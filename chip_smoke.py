@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NRZI, PE and GCR paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -22,22 +22,32 @@ non-zero:
               the first batch of phase 4's PE decode; gcr_fused_scan on
               synthesized 9-track GCR segments (B=4, 5 parmsets, S=16384:
               clean, noisy, one weak track, two blocks behind a short gap)
-              and on the first batch of phase 4's GCR decode; all timed
+              and on the first batch of phase 4's GCR decode;
+              ww_fused_scan on a noisy 6-track Whirlwind tape (about
+              160,000 samples, one weak track, -fluxdir=auto) as decode_tape
+              hands it, and again with a rolling-base span of 2^14 samples
+              so that the base moves, and on the Whirlwind bench tape as
+              decode_tape hands it, there against the plain version run
+              on a host copy of the same inputs (on the card its
+              ~300,000 events would take many minutes); all timed
   4. main     decode_tape on the card at bench scale, each path with the
               launch counts set to 0 just before it and read just after:
               NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026, 8
               parmsets), PE (60 blocks of 1200 bytes, seed 4100, 8
-              parmsets) and GCR (40 blocks of 1200 bytes, seed 5100, 5
-              parmsets), staged retry, each run twice; every block against
+              parmsets), GCR (40 blocks of 1200 bytes, seed 5100, 5
+              parmsets) and Whirlwind (12 blocks of 400 words, seed 6100,
+              -fluxdir=neg, one pass), each run twice; every block against
               the synthesizer's ground truth, and proof that the decode went
-              through the kernel. Then noisy PE and GCR tapes with short
-              gaps (the all-idle point, the PE walk, the all-parmset
-              retry) and a GCR tape whose segment holds two blocks (a
-              multi-block round) decoded on the card and on the CPU, block
-              for block equal
-  5. golden   the four NRZI, two PE and one GCR example tapes decoded on
-              the card and written as .tap; SHA-256 against
-              examples/golden.json
+              through the kernel. Then a Whirlwind tape of 24 such blocks
+              (beyond 2^22 samples, so the rolling base moves) against its
+              ground truth; noisy PE and GCR tapes with short gaps (the
+              all-idle point, the PE walk, the all-parmset retry), a GCR
+              tape whose segment holds two blocks (a multi-block round) and
+              a skewed Whirlwind tape under -deskew (two passes) decoded on
+              the card and on the CPU, block for block equal
+  5. golden   the four NRZI, two PE, one GCR and one Whirlwind example
+              tapes decoded on the card and written as .tap; SHA-256
+              against examples/golden.json
 
 Then one JSON line describing the kernels, the card's name and power
 limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
@@ -73,6 +83,9 @@ KERNELS = {
     "gcr_fused_scan": dict(
         source="readtape_tpu_torch/csrc/gcr_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:2326"),
+    "ww_fused_scan": dict(
+        source="readtape_tpu_torch/csrc/ww_fused.cu",
+        replaces="readtape_tpu/decode/pallas_fused.py:3104"),
 }
 # kernel vs plain: integers and bits equal; floats equal as well, since
 # both round every f32 operation in the same order (the kernels are built
@@ -113,6 +126,9 @@ EXAMPLES = {
     "9trk_GCR/example": dict(
         spec=("GCR", {}), seed=104, mode="blocks", sizes=[154, 100, 210],
         args=["-v", "-m", "-gcr", "-ips=25", "-tap"]),
+    "6trk_Whirlwind/example": dict(
+        spec=("WW", {}), seed=105, mode="words", sizes=[24, 8],
+        args=["-v", "-whirlwind", "-fluxdir=auto", "-tap"]),
 }
 GOLDEN_CASES = tuple(EXAMPLES)
 
@@ -160,9 +176,13 @@ def build_example(name):
     rng = np.random.default_rng(case["seed"])
     items = []
     for n in case["sizes"]:
-        hi = 64 if case["mode"] == "blocks6" else 256
-        items.append(("block", bytes(rng.integers(0, hi, n,
-                                                  dtype=np.uint8))))
+        if case["mode"] == "words":           # Whirlwind: 16-bit words
+            items.append(("block", [int(w) for w in
+                                    rng.integers(0, 65536, n)]))
+        else:
+            hi = 64 if case["mode"] == "blocks6" else 256
+            items.append(("block", bytes(rng.integers(0, hi, n,
+                                                      dtype=np.uint8))))
         items.append(("tapemark",))
     return synthesize_tape(spec, items)
 
@@ -456,26 +476,103 @@ def tape_options(hdr, mode, bpi, ips=50.0):
                              maxvolts=hdr.maxvolts)
 
 
+def _words_bytes(words):
+    return b"".join(bytes([w >> 8, w & 0xFF]) for w in words)
+
+
+def ww_tape(seed=61, sizes=(64, 120, 96)):
+    """A 6-track Whirlwind tape for phase 3 (about 160,000 samples): blocks
+    of `sizes` words with a tapemark after the first, numpy noise of 0.05
+    V rms and a weak track 2 (the primary LSB, x0.6: still above min_peak,
+    so it is admitted), from one generator seeded `seed`. Returns
+    (expected data blocks, header, int16 samples)."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(seed)
+    words = [[int(w) for w in rng.integers(0, 65536, n)] for n in sizes]
+    items = [("block", words[0]), ("tapemark",)]
+    items += [("block", w) for w in words[1:]]
+    hdr, samples = synthesize_tape(default_spec(tb.MODE_WW, seed=seed),
+                                   items)
+    x = samples.astype(np.float64)
+    x[:, 2] *= 0.6
+    x += rng.normal(0.0, 0.05 / hdr.maxvolts * 32767, x.shape)
+    return ([_words_bytes(w) for w in words], hdr,
+            np.clip(np.rint(x), -32767, 32767).astype(np.int16))
+
+
+def ww_bench_tape(seed=6100, nblocks=12, nwords=400):
+    """bench.py's Whirlwind tape: 12 random blocks of 400 words, 5 ms
+    gaps (about 2.6 million samples). nblocks=24 makes the long tape,
+    beyond the rolling base's span of 2^22 samples."""
+    from dataclasses import replace
+
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    spec = default_spec(tb.MODE_WW, ibg_secs=0.005, start_gap_secs=0.005)
+    rng = np.random.default_rng(seed)
+    words = [[int(w) for w in rng.integers(0, 65536, nwords)]
+             for _ in range(nblocks)]
+    hdr, samples = synthesize_tape(replace(spec, seed=seed),
+                                   [("block", w) for w in words])
+    return [_words_bytes(w) for w in words], hdr, samples
+
+
+def ww_deskew_tape():
+    """Two blocks of 32 and 16 words and a tapemark with per-track skews
+    of up to 7 samples, for -deskew."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(44)
+    w = [int(x) for x in rng.integers(0, 65536, 32)]
+    spec = default_spec(tb.MODE_WW, skew_samples=(0, 4, 2, 7, 1, 3))
+    return synthesize_tape(spec, [("block", w), ("tapemark",),
+                                  ("block", w[:16])])
+
+
+def ww_options(hdr, fluxdir="neg", **kw):
+    """decode_tape's options for a synthesized Whirlwind tape, as the
+    command line -whirlwind -fluxdir=<fluxdir> resolves them."""
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import tbin as tb
+    return tpl.DecodeOptions(mode=tb.MODE_WW, ntrks=6, bpi=100, ips=30,
+                             deltat=hdr.tdelta_ns * 1e-9,
+                             maxvolts=hdr.maxvolts,
+                             ww_order=hdr.trkorder or "CMLcml",
+                             fluxdir=fluxdir, multiple_tries=False, **kw)
+
+
+def first_call(module, name, samples, opts):
+    """(args, kwargs) of the first call of module.<name> that decode_tape
+    makes on `samples`: the shape the main path gives it. The function is
+    wrapped only for this one decode."""
+    from readtape_tpu_torch.decode import pipeline as tpl
+    seen = []
+    fn = getattr(module, name)
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return fn(*args, **kw)
+    setattr(module, name, record)
+    try:
+        tpl.decode_tape(samples, opts, device=DEVICE)
+    finally:
+        setattr(module, name, fn)
+    if not seen:
+        raise AssertionError(f"decode_tape never reached {name}")
+    return seen[0]
+
+
 def main_path_inputs(launcher, samples, opts):
     """The arguments of the first launch of kernels.<launcher> that
     decode_tape makes on `samples`: the shape the main path gives that
     kernel. The launcher is wrapped only for this one decode."""
     from readtape_tpu_torch import kernels
-    from readtape_tpu_torch.decode import pipeline as tpl
-    seen = []
-    launch = getattr(kernels, launcher)
-
-    def record(*args, **kw):
-        seen.append((args, kw))
-        return launch(*args, **kw)
-    setattr(kernels, launcher, record)
-    try:
-        tpl.decode_tape(samples, opts, device=DEVICE)
-    finally:
-        setattr(kernels, launcher, launch)
-    if not seen:
-        raise AssertionError(f"decode_tape never reached {launcher}")
-    (volts, seg_lens, leads, pa), kw = seen[0]
+    (volts, seg_lens, leads, pa), kw = first_call(kernels, launcher, samples,
+                                                  opts)
     return volts, seg_lens, leads, pa, kw
 
 
@@ -503,6 +600,21 @@ def kernel_ops(volts, kw, n_steps):
     B, T, S = volts.shape
     P = len(kw["Ws"])
     return 2 * B * P * T * S * sum(set(kw["Ws"])) + 60 * n_steps
+
+
+def time_launches(fn, reps):
+    """Mean ms of one fn() on the card: CUDA events around reps calls
+    after one warm-up call."""
+    import torch
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
@@ -535,18 +647,7 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     if int(ti[..., dc].max()) < 150:
         raise AssertionError(f"{name}: segments decoded too little")
     n_adm = int(ti[..., nadm].sum())
-    # kernel time: CUDA events around repeated launches after warmup
-    for _ in range(2):
-        kern(volts, seg_lens, leads, pa, **kw)
-    reps = 10
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        kern(volts, seg_lens, leads, pa, **kw)
-    e1.record()
-    torch.cuda.synchronize()
-    t_kern = e0.elapsed_time(e1) / reps
+    t_kern = time_launches(lambda: kern(volts, seg_lens, leads, pa, **kw), 10)
     b_ms, b_by = bound(name, volts, want, kernel_ops(volts, kw, n_adm))
     B, T, S = volts.shape
     print(f"  {name} (B={B} P={len(kw['Ws'])} T={T} S={S}): kernel "
@@ -554,6 +655,91 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
           f"({b_by}), equal (max f32 err {err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by, out=want)
+
+
+def ww_ops(volts, out, W):
+    """f32 operations of one ww_fused_scan call on its inputs: the
+    candidacy pass (a running max and min over the window at every sample
+    of every track), ~60 per admission (thresholds, refinement, AGC) and
+    ~100 per merged event (merge, pulse/clock/blockmark machine), counted
+    from this run's admissions and events."""
+    from readtape_tpu_torch.decode import fused as tfu
+    T, S = volts.shape
+    n_adm = int(out["trk_i"][:, tfu.WT_NADM].sum())
+    n_ev = int(out["scal"][tfu.WS_NEVENTS])
+    return 2 * T * S * W + 60 * n_adm + 100 * n_ev
+
+
+def compare_ww(name, volts, kw, plain_device=DEVICE):
+    """One ww_fused_scan launch on the card against ww_fused_scan_plain
+    on the same inputs, copied to `plain_device` first: every output
+    equal, integers, characters and floats (F32_TOL). Returns
+    compare_kernel's dict."""
+    import torch
+    from readtape_tpu_torch.decode import fused as tfu
+    got = tfu.ww_fused_scan(volts, **kw)
+    sync()
+    got = {k: v.to(plain_device) for k, v in got.items()}
+    p_volts = volts.to(plain_device)
+    p_kw = {k: v.to(plain_device) if torch.is_tensor(v) else v
+            for k, v in kw.items()}
+    t0 = time.perf_counter()
+    want = tfu.ww_fused_scan_plain(p_volts, **p_kw)
+    sync()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    for k in want:
+        if k in ("blk_f", "trk_f"):
+            continue
+        if not torch.equal(got[k], want[k]):
+            bad = (got[k] != want[k]).nonzero()[:5].tolist()
+            raise AssertionError(f"{name}: {k} differs at {bad}")
+    err = max(float((got[k] - want[k]).abs().max()) for k in ("blk_f",
+                                                              "trk_f"))
+    if not err <= F32_TOL:
+        raise AssertionError(f"{name}: f32 fields differ by {err}")
+    sc = want["scal"]
+    if int(sc[tfu.WS_NBLOCKS]) < 3 or int(sc[tfu.WS_DATACOUNT]) < 1000:
+        raise AssertionError(f"{name}: the tape decoded too little")
+    t_kern = time_launches(lambda: tfu.ww_fused_scan(volts, **kw), 3)
+    b_ms, b_by = bound(name, volts, want, ww_ops(volts, want, kw["W"]))
+    T, S = volts.shape
+    print(f"  {name} (T={T} S={S} span={kw['span']}): kernel {t_kern:.3f} "
+          f"ms, plain on {plain_device} {t_plain:.1f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}), {int(sc[tfu.WS_NEVENTS])} events, base "
+          f"{int(sc[tfu.WS_BASE])}, equal (max f32 err {err})", flush=True)
+    return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, out=want)
+
+
+def phase_ww_kernel():
+    """B4: kernel vs plain on ww_tape, once as the decode gives it
+    (-fluxdir=auto) and once with a rolling-base span of 2^14 samples,
+    the plain version on the card; then on the bench tape as decode_tape
+    hands it (the main path's shape), with the plain version on a host
+    copy of the same inputs: it makes a host round trip per event, and on
+    the card its ~300,000 events would take about 7 minutes, on the host
+    about 1.5. Its f32 operations round alike on both devices (common.fma
+    and common.fdiv)."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.decode import fused as tfu
+    res = {}
+    _, hdr, samples = ww_tape()
+    (volts,), kw = first_call(kernels, "ww_fused", samples,
+                              ww_options(hdr, "auto"))
+    res["ww noisy"] = compare_ww("ww noisy", volts, kw)
+    span = 1 << 14
+    r = res["ww rebase"] = compare_ww("ww rebase", volts, dict(kw, span=span))
+    # events are never more than 2,000 samples apart on this tape, so each
+    # move of the base lands within span + 2,000 of the last one
+    if int(r["out"]["scal"][tfu.WS_BASE]) <= 2 * (span + 2000):
+        raise AssertionError("ww rebase: the base moved fewer than 3 times")
+    _, hdr, samples = ww_bench_tape()
+    (volts,), kw = first_call(kernels, "ww_fused", samples, ww_options(hdr))
+    t0 = time.perf_counter()
+    res["ww main"] = compare_ww("ww main", volts, kw, plain_device="cpu")
+    print(f"  ww main: the comparison took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
 
 
 def phase_kernel():
@@ -591,8 +777,9 @@ def phase_kernel():
     res["gcr main"] = compare_kernel(
         "gcr main", "gcr_fused_scan", *main_path_inputs(
             "gcr_fused", samples, tape_options(hdr, tb.MODE_GCR, 9042, 25)))
+    res.update(phase_ww_kernel())
     for r in res.values():
-        del r["out"]
+        r.pop("out", None)
     torch.cuda.empty_cache()
     return res
 
@@ -691,8 +878,21 @@ def phase_main(card):
     phase_short_gap("GCR merged blocks (multi-block round)",
                     "gcr_fused_scan", hdr, samples,
                     tape_options(hdr, tb.MODE_GCR, 9042, 25), card)
+    blocks, hdr, samples = ww_bench_tape()
+    ww = decode_bench("WW bench", "ww_fused_scan", blocks, hdr, samples,
+                      ww_options(hdr), card, marks=0)
+    # 24 blocks: about 5.2 million samples, so the machine's rolling base
+    # moves (its span is 2^22 samples)
+    blocks, hdr, samples = ww_bench_tape(nblocks=24)
+    if samples.shape[0] <= (1 << 22) + 200_000:
+        raise AssertionError("the long WW tape is too short")
+    decode_bench("WW long tape", "ww_fused_scan", blocks, hdr, samples,
+                 ww_options(hdr), card, marks=0)
+    hdr, samples = ww_deskew_tape()
+    phase_short_gap("WW -deskew (two passes)", "ww_fused_scan", hdr,
+                    samples, ww_options(hdr, deskew=True), card)
     return {"nrzi_fused_scan": nrzi, "pe_fused_scan": pe,
-            "gcr_fused_scan": gcr}
+            "gcr_fused_scan": gcr, "ww_fused_scan": ww}
 
 
 # ---------------------------------------------------------------------------
@@ -717,22 +917,27 @@ def write_tap(path, blocks):
 def golden_options(args, hdr):
     """DecodeOptions fields for an example's command line, resolved the
     way readtape_tpu.cli.process_file does: the mode, -ntrks, -bpi and
-    -ips from the command line, else the .tbin header's; deltat and
-    maxvolts from the header. Every example header carries its density,
-    so no density detection (bpi <= 0) is needed."""
+    -ips from the command line, else the .tbin header's (-whirlwind sets
+    100 bpi); deltat, maxvolts and the Whirlwind track order from the
+    header ("CMLcml" without one); -fluxdir= and -reverse. Every example
+    carries its density, so no density detection (bpi <= 0) is needed."""
     from readtape_tpu_torch.formats import tbin as tb
     kv = dict(a[1:].split("=", 1) for a in args if "=" in a)
+    ww = "-whirlwind" in args
     mode = (tb.MODE_PE if "-pe" in args else
             tb.MODE_NRZI if "-nrzi" in args else
-            tb.MODE_GCR if "-gcr" in args else hdr.mode)
-    bpi = float(kv.get("bpi", hdr.bpi or 0))
+            tb.MODE_GCR if "-gcr" in args else
+            tb.MODE_WW if ww else hdr.mode)
+    bpi = float(kv.get("bpi", 100 if ww else hdr.bpi or 0))
     if bpi <= 0:
         raise AssertionError("example header carries no density")
     return dict(mode=mode, ntrks=int(kv.get("ntrks", hdr.ntrks)),
                 bpi=bpi, ips=float(kv.get("ips", hdr.ips or 50.0)),
                 deltat=hdr.tdelta_ns * 1e-9, maxvolts=hdr.maxvolts,
                 multiple_tries="-m" in args, deskew="-deskew" in args,
-                t0_seconds=hdr.tstart_ns * 1e-9)
+                t0_seconds=hdr.tstart_ns * 1e-9,
+                fluxdir=kv.get("fluxdir", "neg"), reverse="-reverse" in args,
+                ww_order=hdr.trkorder or "CMLcml")
 
 
 def decode_example(name, device, directory):
@@ -775,6 +980,8 @@ def time_steps(samples, opts):
     from readtape_tpu_torch.decode import pe as pe_mod
     from readtape_tpu_torch.decode import pipeline as tpl
     from readtape_tpu_torch.decode import segment as seg
+    from readtape_tpu_torch.decode import ww as ww_mod
+    from readtape_tpu_torch.formats import tbin as tb
     steps = {}
     spots = [(seg, "host_activity", "host activity scan"),
              (tpl, "_prep_volts", "window gather + volts")]
@@ -782,6 +989,8 @@ def time_steps(samples, opts):
     spots += [(nrzi_mod, "nrzi_finish", "finish"),
               (pe_mod, "pe_finish", "finish"),
               (gcr_mod, "gcr_finish", "finish"),
+              (tfu, "ww_fused_state", "read-out"),
+              (ww_mod, "assemble_ww_blocks", "block assembly (host)"),
               (tpl, "_fetch", "fetch (D2H)")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in spots]
 
@@ -802,9 +1011,12 @@ def time_steps(samples, opts):
     try:
         sync()
         t0 = time.perf_counter()
-        dec = tpl.TapeDecoder(samples, opts, device=DEVICE)
-        sync()
-        steps["TapeDecoder (scan + upload)"] = [time.perf_counter() - t0, 1]
+        dec = None
+        if opts.mode != tb.MODE_WW:       # a Whirlwind tape decodes whole
+            dec = tpl.TapeDecoder(samples, opts, device=DEVICE)
+            sync()
+            steps["TapeDecoder (scan + upload)"] = [time.perf_counter() - t0,
+                                                    1]
         tpl.decode_tape(samples, opts, device=DEVICE, decoder=dec)
         sync()
         wall = time.perf_counter() - t0
@@ -851,6 +1063,8 @@ def breakdown(card):
     _, hdr, samples = gcr_bench_tape()
     tapes.append(("GCR bench", samples,
                   tape_options(hdr, tb.MODE_GCR, 9042, 25)))
+    _, hdr, samples = ww_bench_tape()
+    tapes.append(("WW bench", samples, ww_options(hdr)))
     from readtape_tpu_torch.decode import pipeline as tpl
     for name, samples, opts in tapes:
         tpl.decode_tape(samples, opts, device=DEVICE)        # warm-up
@@ -915,8 +1129,8 @@ def main():
         phase_golden()
     except AssertionError as e:
         fail("golden", str(e))
-    print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI, PE and GCR .tap "
-          f"hashes match", flush=True)
+    print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI, PE, GCR and "
+          f"Whirlwind .tap hashes match", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
         fail("golden", "jax or the JAX package was imported")
@@ -924,7 +1138,8 @@ def main():
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),
                             ("pe_fused_scan", "pe main"),
-                            ("gcr_fused_scan", "gcr main")):
+                            ("gcr_fused_scan", "gcr main"),
+                            ("ww_fused_scan", "ww main")):
         r = times[main_case]
         line.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],

@@ -7,10 +7,11 @@ each counterpart is easy to find. The package imports torch, never jax,
 and nothing of the JAX package: it keeps its own copies of the jax-free
 modules it needs (``formats``, ``synth``, ``native``, ``version``).
 
-Ported so far: the 9/7-track NRZI main path and the 9-track PE path
-(``decode.pipeline``), whose device kernels are
-``decode.fused.nrzi_fused_scan`` and ``decode.fused.pe_fused_scan`` (CUDA
-C++ under ``csrc/``, built by ``kernels.py``).
+Ported so far: the 9/7-track NRZI main path, the 9-track PE and GCR
+paths and the 6-track Whirlwind path (``decode.pipeline``), whose device
+kernels are ``decode.fused.nrzi_fused_scan``, ``pe_fused_scan``,
+``gcr_fused_scan`` and ``ww_fused_scan`` (CUDA C++ under ``csrc/``, built
+by ``kernels.py``).
 """
 
 from .version import __version__

@@ -178,12 +178,13 @@ def _ring_set(ring, ndx, val):
     return ring.scatter(-1, ndx.long().unsqueeze(-1), val.unsqueeze(-1))
 
 
-def adjust_agc(st, agc_alpha, agc_window, exp: bool = True):
+def adjust_agc(st, agc_alpha, agc_window, exp: bool = True,
+               win: bool = True):
     """One AGC update; returns the new state dict. Mirrors decoder.c:500-531:
     exponential smoothing when agc_alpha > 0, else min-of-window when
-    agc_window > 0, both capped at AGC_MAX_VALUE. exp=False: the caller
-    knows no lane has agc_alpha > 0, so the exponential variant is not
-    computed (it would be selected nowhere)."""
+    agc_window > 0, both capped at AGC_MAX_VALUE. exp=False / win=False:
+    the caller knows no lane has agc_alpha > 0 / agc_window > 0, so that
+    variant is not computed (it would be selected nowhere)."""
     lastheight = st["v_lasttop"] - st["v_lastbot"]
     gain = st["agc_gain"]
     heights = st["v_heights"]
@@ -199,20 +200,20 @@ def adjust_agc(st, agc_alpha, agc_window, exp: bool = True):
         gain = torch.where(use_exp, g_exp, gain)
 
     # min-of-window variant
-    heights_w = _ring_set(heights, ndx, lastheight)
-    ndx_w = torch.where(ndx + 1 >= agc_window, 0, ndx + 1).to(I32)
-    lane = torch.arange(heights.shape[-1], device=heights.device)
-    aw = torch.as_tensor(agc_window, device=heights.device)
-    minheight = torch.where(lane < aw.unsqueeze(-1), heights_w,
-                            FLT_MAX).amin(dim=-1)
-    g_win = torch.clamp_max(
-        fdiv(st["v_avg_height"], torch.maximum(minheight, eps)),
-        AGC_MAX_VALUE)
     use_win = (agc_window > 0) & (lastheight > 0)
-
-    gain = torch.where(use_win, g_win, gain)
-    heights = torch.where(use_win.unsqueeze(-1), heights_w, heights)
-    ndx = torch.where(use_win, ndx_w, ndx)
+    if win:
+        heights_w = _ring_set(heights, ndx, lastheight)
+        ndx_w = torch.where(ndx + 1 >= agc_window, 0, ndx + 1).to(I32)
+        lane = torch.arange(heights.shape[-1], device=heights.device)
+        aw = torch.as_tensor(agc_window, device=heights.device)
+        minheight = torch.where(lane < aw.unsqueeze(-1), heights_w,
+                                FLT_MAX).amin(dim=-1)
+        g_win = torch.clamp_max(
+            fdiv(st["v_avg_height"], torch.maximum(minheight, eps)),
+            AGC_MAX_VALUE)
+        gain = torch.where(use_win, g_win, gain)
+        heights = torch.where(use_win.unsqueeze(-1), heights_w, heights)
+        ndx = torch.where(use_win, ndx_w, ndx)
     changed = use_exp | use_win
     out = dict(st)
     out["agc_gain"] = gain

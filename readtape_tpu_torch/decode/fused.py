@@ -1,5 +1,5 @@
-"""The fused NRZI, PE and GCR decodes -- counterparts of those parts of
-readtape_tpu/decode/pallas_fused.py.
+"""The fused NRZI, PE, GCR and Whirlwind decodes -- counterparts of those
+parts of readtape_tpu/decode/pallas_fused.py.
 
 ``nrzi_fused_scan`` runs window features, peak admission with AGC, the
 global bit-slot machine, ``-correct``'s column-0 flip, the bits, the peak
@@ -52,6 +52,27 @@ postprocess (gcr_finish) stays outside, in plain PyTorch. Outputs
   trk_f f32   [B, P, T, 4]   TF_* per-track floats
   lane_i int32 [B, P, 2]     GL_* per-lane integers
 ``gcr_fused_state`` reads them out for gcr_finish and the pipeline.
+
+``ww_fused_scan`` runs the whole Whirlwind decode of one tape (one lane,
+one parmset) in one call (csrc/ww_fused.cu, plain version
+``ww_fused_scan_plain`` built from decode/ww.py): per-track admission with
+WW's AGC policy, the merge of every track's transitions in detection
+order, and the pulse/clock/blockmark machine with its rolling integer
+time base and trailing flush -- the JAX package's XLA recipe
+(run_pass_single), not its TPU kernel, but without the XLA scan's
+admission step budget: like the TPU kernel, each track's scan runs to the
+end of the tape. The XLA path pools 3.2 steps per bit over the whole tape
+and a Whirlwind clock track takes ~3.7 per character, so on a tape
+that is nearly all blocks (bench.py's) it stops early and loses the rest
+of the tape. Outputs (``WwOut``):
+  chars  int8  [maxchars]          2-bit characters
+  blk_i  int32 [maxblocks, 6]      WB_* block records
+  blk_f  f32   [maxblocks, 2]      WBF_* block times and bit spacing
+  hist   int32 [T, 50]
+  trk_i  int32 [T, 4]              WT_* per-track integers
+  trk_f  f32   [T]                 h_sum, the pulse heights' sum
+  scal   int32 [6]                 WS_* scalars
+``ww_fused_state`` reads them out into run_pass_single's fields.
 """
 
 from __future__ import annotations
@@ -64,6 +85,7 @@ from . import gcr as gcr_mod
 from . import nrzi as nrzi_mod
 from . import pe as pe_mod
 from . import trackscan
+from . import ww as ww_mod
 from .common import F32, I32
 
 (TI_DC, TI_KVIS, TI_NADM, TI_TRKSUM, TI_INCOMP) = range(5)
@@ -80,6 +102,17 @@ N_PL = 4
 N_GI = 5
 (GL_TAU, GL_CAND_AFTER) = range(2)
 N_GL = 2
+(WB_START, WB_END, WB_TYPE, WB_TBASE, WB_MISS1, WB_MISSCLK) = range(6)
+N_WB = 6
+(WBF_TEND, WBF_BITSPACE) = range(2)
+N_WBF = 2
+# WT_STEPS, the admission steps a track took, feeds no decode: the tests
+# read it to show where the XLA scan's step budget would have bound
+(WT_TRKSUM, WT_NADM, WT_HCNT, WT_STEPS) = range(4)
+N_WT = 4
+(WS_DATACOUNT, WS_NBLOCKS, WS_FLUX, WS_NFLUX, WS_BASE, WS_NEVENTS) = range(6)
+N_WS = 6
+WW_MAX_SAMPLES = 1 << 30   # positions stay int32 below the BIG_S sentinel
 
 MAX_TRACKS = 16            # the kernel keeps per-track slot state in arrays
 MAX_AGC_RING = 16
@@ -549,3 +582,141 @@ def gcr_fused_state(out) -> dict:
         t_firstbit=tf[..., TF_TFIRST], t_lastbit=tf[..., TF_TLAST],
         max_agc_gain=tf[..., TF_MAXAGC], min_agc_gain=tf[..., TF_MINAGC],
         tau=li[..., GL_TAU], cand_after=li[..., GL_CAND_AFTER])
+
+
+# ---------------------------------------------------------------------------
+# Whirlwind
+# ---------------------------------------------------------------------------
+
+def _check_ww(volts, W, rise_floor, v_avg_height, parms, K, maxchars,
+              maxblocks, fluxdir, roles, span):
+    if volts.dim() != 2 or volts.dtype != F32:
+        raise ValueError("volts must be float32 [T, S]")
+    T, S = volts.shape
+    if not 1 <= T <= MAX_TRACKS:
+        raise ValueError(f"{T} tracks (at most {MAX_TRACKS})")
+    if not 1 <= W <= S or S >= WW_MAX_SAMPLES:
+        raise ValueError(f"window width {W} or length {S} out of range")
+    if tuple(rise_floor.shape) != (T,) or tuple(v_avg_height.shape) != (T,):
+        raise ValueError("rise_floor/min_floor/v_avg_height must be [T]")
+    if min(K, maxchars, maxblocks, span) < 1:
+        raise ValueError("K, maxchars, maxblocks and span must be positive")
+    if not 0 <= parms.agc_window <= cm.AGC_MAX_WINDOW or \
+            not 0 <= parms.clk_window <= cm.CLKRATE_WINDOW:
+        raise ValueError("agc_window/clk_window beyond the parmset limits")
+    if fluxdir not in (ww_mod.FLUX_POS, ww_mod.FLUX_NEG, ww_mod.FLUX_AUTO):
+        raise ValueError(f"bad flux direction {fluxdir}")
+    if len(roles) != len(ww_mod.ROLES) or not all(-1 <= r < T
+                                                   for r in roles):
+        raise ValueError(f"bad track roles {roles}")
+
+
+@torch.inference_mode()
+def ww_fused_scan_plain(volts, *, W, rise_floor, min_floor, v_avg_height,
+                        parms, spb: float, stat_lb: float, stat_bw: float,
+                        K: int, maxchars: int, fluxdir: int, roles,
+                        maxblocks: int = ww_mod.MAXBLOCKS,
+                        span: int = ww_mod.REBASE_SPAN):
+    """The plain PyTorch version of the WW kernel (same arguments and
+    outputs as ww_fused_scan): jump tables and window features ->
+    ww_track_scan -> merge_transitions -> ww_global_scan, as the JAX
+    package's run_pass_single composes them."""
+    ww_fused_scan_plain.calls += 1
+    _check_ww(volts, W, rise_floor, v_avg_height, parms, K, maxchars,
+              maxblocks, fluxdir, roles, span)
+    dev = volts.device
+    T, S = volts.shape
+    nxt = trackscan.loose_jump_table(volts, W, rise_floor, min_floor)
+    feat = trackscan.precompute_window_features(volts, W).transpose(
+        -1, -2).contiguous()                                  # [T, S, 10]
+
+    def knob(x, dt=F32):
+        return torch.full((T,), x, dtype=dt, device=dev)
+    # every step moves a cursor forward: S + 1 steps never bind
+    fin = ww_mod.ww_track_scan(
+        feat, nxt, W, S, S + 1, K, knob(parms.pkww_rise),
+        knob(parms.min_peak), knob(parms.agc_alpha),
+        knob(parms.agc_window, I32), v_avg_height)
+    del feat, nxt
+    counts = fin["n_admitted"]
+    keep = torch.arange(K, device=dev) < counts.unsqueeze(-1)
+    trans = dict(
+        s_det=torch.where(keep, fin["tr_s"], trackscan.BIG_S),
+        t_peak=torch.where(keep, fin["tr_t"], 0.0),
+        t_frac=torch.where(keep, fin["tr_frac"], 0.0),
+        is_top=keep & fin["tr_top"])
+    cap = min(T * K, int(counts.sum()) + 16)
+    mg = ww_mod.merge_transitions(trans, T, cap)
+    res = ww_mod.ww_global_scan(
+        mg["trk"], mg["t_peak"], mg["s_det"], mg["is_top"], mg["valid"],
+        parms.clk_window, parms.clk_alpha, spb, stat_lb, stat_bw,
+        T=T, maxchars=maxchars, maxblocks=maxblocks, fluxdir_req=fluxdir,
+        m_frac=mg["t_frac"], span=span, **dict(zip(ww_mod.ROLES, roles)))
+    blk_i = torch.stack([res["b_start"], res["b_end"], res["b_type"],
+                         res["b_t_base"], res["b_missing1"],
+                         res["b_missingclk"]], dim=-1)
+    trk_i = torch.stack([res["trksums"], counts, fin["h_cnt"],
+                         fin["steps"]], dim=-1)
+    scal = torch.stack([res["datacount"], res["nblocks"], res["flux"],
+                        res["num_flux_changes"], res["base"],
+                        res["n_events"]])
+    return dict(chars=res["chars"], blk_i=blk_i.to(I32),
+                blk_f=torch.stack([res["b_t_end"], res["b_bitspace"]],
+                                  dim=-1),
+                hist=res["hist"], trk_i=trk_i.to(I32), trk_f=fin["h_sum"],
+                scal=scal.to(I32))
+
+
+ww_fused_scan_plain.calls = 0
+
+
+def ww_fused_scan(volts, *, W, rise_floor, min_floor, v_avg_height, parms,
+                  spb: float, stat_lb: float, stat_bw: float, K: int,
+                  maxchars: int, fluxdir: int, roles,
+                  maxblocks: int = ww_mod.MAXBLOCKS,
+                  span: int = ww_mod.REBASE_SPAN):
+    """volts: [T, S] f32, the whole prepared tape; W: the window width;
+    rise_floor/min_floor: [T] loose-candidate floors; v_avg_height: [T]
+    nominal pulse heights; parms: the parmset (formats.parms.Parms);
+    stat_lb/stat_bw: skew-histogram bins in samples; K: transition buffer
+    entries per track; maxchars/maxblocks: character and block record
+    capacity; fluxdir: ww.FLUX_*; roles: the track of each of ww.ROLES
+    (-1 = none); span: the rolling base's span. Returns WwOut (see module
+    docstring)."""
+    args = dict(W=int(W), rise_floor=rise_floor, min_floor=min_floor,
+                v_avg_height=v_avg_height, parms=parms, spb=float(spb),
+                stat_lb=float(stat_lb), stat_bw=float(stat_bw), K=int(K),
+                maxchars=int(maxchars),
+                fluxdir=int(fluxdir), roles=tuple(int(r) for r in roles),
+                maxblocks=int(maxblocks), span=int(span))
+    if volts.device.type == "cpu":
+        return ww_fused_scan_plain(volts, **args)
+    if volts.device.type != "cuda":
+        raise ValueError(f"ww_fused_scan: no kernel for {volts.device}")
+    _check_ww(volts, args["W"], rise_floor, v_avg_height, parms, K, maxchars,
+              maxblocks, args["fluxdir"], args["roles"], span)
+    out = kernels.ww_fused(volts, **args)
+    ww_fused_scan.launches += 1
+    return out
+
+
+ww_fused_scan.launches = 0
+
+
+def ww_fused_state(out) -> dict:
+    """run_pass_single's (res, finals) fields of a WwOut: chars,
+    datacount, nblocks, the b_* block records, hist, trksums, flux,
+    num_flux_changes, base, and per track n_admitted, h_sum, h_cnt and
+    the admission steps taken."""
+    bi, bf, ti, sc = out["blk_i"], out["blk_f"], out["trk_i"], out["scal"]
+    return dict(
+        chars=out["chars"], hist=out["hist"], datacount=sc[WS_DATACOUNT],
+        nblocks=sc[WS_NBLOCKS], flux=sc[WS_FLUX],
+        num_flux_changes=sc[WS_NFLUX], base=sc[WS_BASE],
+        n_events=sc[WS_NEVENTS],
+        b_start=bi[:, WB_START], b_end=bi[:, WB_END], b_type=bi[:, WB_TYPE],
+        b_t_base=bi[:, WB_TBASE], b_missing1=bi[:, WB_MISS1],
+        b_missingclk=bi[:, WB_MISSCLK], b_t_end=bf[:, WBF_TEND],
+        b_bitspace=bf[:, WBF_BITSPACE], trksums=ti[:, WT_TRKSUM],
+        n_admitted=ti[:, WT_NADM], h_cnt=ti[:, WT_HCNT],
+        steps=ti[:, WT_STEPS], h_sum=out["trk_f"])

@@ -1,5 +1,5 @@
-"""Decode pipeline orchestrator -- the NRZI, PE and GCR slices of
-readtape_tpu/decode/pipeline.py.
+"""Decode pipeline orchestrator -- the NRZI, PE, GCR and Whirlwind slices
+of readtape_tpu/decode/pipeline.py.
 
 Host-side driver that turns a sample tensor into decoded blocks:
 
@@ -17,10 +17,14 @@ Host-side driver that turns a sample tensor into decoded blocks:
      point), or walk each PE segment block by block from its all-idle
      point, emit blocks/tapemarks in tape order.
 
-9/7-track NRZI, 9-track PE and 9-track GCR, without -zeros, -adjskew,
--correctdbg, -parmscan and with a known density, are ported; anything
-else raises NotImplementedError naming the option. The entry points run
-on the card ("cuda") unless the caller asks for the CPU.
+Whirlwind tapes decode whole, in one pass (``_decode_tape_ww``): one
+ww_fused_scan call over the prepared tape, then block assembly on the
+host; ``-deskew`` adds a calibration pass before it.
+
+9/7-track NRZI, 9-track PE, 9-track GCR and 6-track Whirlwind, without
+-zeros, -adjskew, -correctdbg, -parmscan and with a known density, are
+ported; anything else raises NotImplementedError naming the option. The
+entry points run on the card ("cuda") unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from . import gcr as gcr_mod
 from . import nrzi as nrzi_mod
 from . import pe as pe_mod
 from . import segment as seg
+from . import ww as ww_mod
 from .common import F32, I32, ParmArrays
 
 # Window warmup: each segment's device slice starts this many samples early
@@ -78,7 +83,10 @@ class DecodeOptions:
     skew: tuple = None                # per-track delays in samples, or None
     add_parity: bool = False
     head_to_trk: tuple = None         # permutation; None = identity
+    reverse: bool = False             # ww: reverse each block's characters
     adjskew: bool = False             # NRZI: per-block +-1 skew nudging
+    fluxdir: str = "neg"              # ww: "pos" | "neg" | "auto"
+    ww_order: str = "CMLcml"
     blklimit: int = 2 ** 31 - 1
     t0_seconds: float = 0.0
     parmscan: bool = False        # GCR: grid-scan parms on the first block
@@ -109,7 +117,7 @@ class BlockResult:
 def check_supported(opts: DecodeOptions):
     """Raise NotImplementedError for what this slice of the port does not
     run yet."""
-    if opts.mode not in (tb.MODE_NRZI, tb.MODE_PE, tb.MODE_GCR):
+    if opts.mode not in (tb.MODE_NRZI, tb.MODE_PE, tb.MODE_GCR, tb.MODE_WW):
         raise NotImplementedError(
             f"mode {tb.MODE_NAMES.get(opts.mode, opts.mode)}")
     for flag, name in ((opts.find_zeros, "-zeros"),
@@ -379,12 +387,10 @@ class TapeDecoder:
     def __init__(self, samples: np.ndarray, opts: DecodeOptions, *,
                  device="cuda"):
         check_supported(opts)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but "
-                               "torch.cuda.is_available() is false")
-        if samples.dtype != np.int16:
-            raise NotImplementedError("float (CSV volts) tapes")
+        if opts.mode == tb.MODE_WW:
+            raise ValueError("a Whirlwind tape decodes whole: call "
+                             "decode_tape")
+        self.device = _device(device, samples)
         self.opts = opts
         samples = permute_heads(samples, opts.head_to_trk)
         self.n_samples = samples.shape[0]
@@ -548,12 +554,26 @@ class TapeDecoder:
         return True
 
 
+def _device(device, samples: np.ndarray) -> torch.device:
+    """The decode's device, after the checks every entry point makes."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but "
+                           "torch.cuda.is_available() is false")
+    if samples.dtype != np.int16:
+        raise NotImplementedError("float (CSV volts) tapes")
+    return device
+
+
 def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device="cuda",
                 decoder: TapeDecoder = None):
-    """Decode a whole NRZI, PE or GCR tape on `device` ("cuda" runs the
-    kernels, "cpu" the plain versions). Returns (blocks, stats dict).
-    decoder: reuse a TapeDecoder whose tape is already resident (its
-    device wins)."""
+    """Decode a whole NRZI, PE, GCR or Whirlwind tape on `device` ("cuda"
+    runs the kernels, "cpu" the plain versions). Returns (blocks, stats
+    dict). decoder: reuse a TapeDecoder whose tape is already resident (its
+    device wins; NRZI, PE and GCR only)."""
+    if opts.mode == tb.MODE_WW:
+        check_supported(opts)
+        return _decode_tape_ww(samples, opts, _device(device, samples))
     dec = (decoder if decoder is not None
            else TapeDecoder(samples, opts, device=device))
     return _decode_tape_blocks(dec, opts)
@@ -906,4 +926,130 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
             stats["ncorrected"] += 1
         if err == 0 and warn == 0 and tries > 1:
             stats["ngoodmultiple"] += 1
+    return blocks, stats
+
+
+# ---------------------------------------------------------------------------
+# Whirlwind
+# ---------------------------------------------------------------------------
+
+def _decode_tape_ww(samples, opts: DecodeOptions, device: torch.device):
+    """Whirlwind: the whole tape decodes in one pass (blocks can abut;
+    decode_ww.c:29-31), no multi-parmset retry (readtape.c:1987). The JAX
+    package's single-pass path (run_pass_single) without its admission
+    step budget (see decode/fused.py): positions are int32 and the
+    machine's rolling base keeps sub-sample times exact, so any tape
+    below 2^30 samples is one ww_fused_scan call."""
+    type_to_trk, head_to_trk, ntrks = ww_mod.parse_ww_order(opts.ww_order)
+    used = [h for h, t in enumerate(head_to_trk) if t >= 0]
+    samples = samples[:, used]
+    perm = [head_to_trk[h] for h in used]
+    cols = np.zeros(ntrks, np.int64)
+    for pos, trkn in enumerate(perm):
+        cols[trkn] = pos
+    samples = samples[:, cols]
+    T, N = ntrks, samples.shape[0]
+    if N >= fused_mod.WW_MAX_SAMPLES:
+        raise ValueError(f"{N} samples: a Whirlwind tape must be shorter "
+                         f"than {fused_mod.WW_MAX_SAMPLES}")
+    p0 = opts.parmsets[0]
+    W = cm.pkww_width_for(p0.pkww_bitfrac, opts.bpi, opts.ips, opts.deltat)
+    # eighth-granularity buckets: the whole padded tape is one sweep, so a
+    # power-of-two bucket would cost up to 2x
+    p2 = seg.bucket_length(N)
+    gran = max(p2 // 8, 2048)
+    S = -(-N // gran) * gran
+    h_est, _ = seg.host_activity(samples, opts.maxvolts)
+    tape = torch.from_numpy(np.ascontiguousarray(samples)).to(
+        device).T.contiguous()                               # [T, N] int16
+    tape = torch.nn.functional.pad(tape, (0, S - N))
+    skew = np.zeros(T, np.int32)
+    if opts.skew is not None:
+        skew[:len(opts.skew)] = opts.skew
+
+    spb = opts.spb
+    lb, bw = _peakstat_bins(opts.mode, 1.0 / (opts.bpi * opts.ips))
+    scale = min(1.0, h_est / cm.PKWW_PEAKHEIGHT)
+    knobs = dict(
+        W=W, parms=p0, spb=spb,
+        rise_floor=torch.full((T,), p0.pkww_rise * scale / cm.AGC_MAX_VALUE
+                              * 0.8, dtype=F32, device=device),
+        min_floor=torch.full((T,), p0.min_peak * scale / cm.AGC_MAX_VALUE
+                             * 0.8, dtype=F32, device=device),
+        stat_lb=float(np.float32(lb / opts.deltat)),
+        stat_bw=float(np.float32(bw / opts.deltat)),
+        K=int(S / spb * 2.5) + 64,
+        maxchars=int(N / spb) + 256,
+        fluxdir=ww_mod.FLUX_DIRS[opts.fluxdir],
+        roles=[type_to_trk[k] for k in range(len(ww_mod.ROLES))])
+
+    def run_pass(skew_arr, v_avg_init):
+        volts = _prep_volts(tape, opts.maxvolts,
+                            -1.0 if opts.invert else 1.0,
+                            torch.as_tensor(skew_arr, dtype=I32,
+                                            device=device),
+                            differentiate=opts.differentiate,
+                            spb_int=int(spb)).contiguous()
+        out = fused_mod.ww_fused_scan(
+            volts, v_avg_height=torch.as_tensor(v_avg_init, device=device),
+            **knobs)
+        host = {k: v.cpu() for k, v in out.items()}
+        return {k: v.numpy()
+                for k, v in fused_mod.ww_fused_state(host).items()}
+
+    v_avg_init = np.full(T, cm.PKWW_PEAKHEIGHT, np.float32)
+    if opts.deskew and opts.skew is None:
+        # calibration pass: skew from the transition-position histogram
+        # (readtape.c:1676-1717), average pulse heights for AGC baselines
+        res0 = run_pass(np.zeros(T, np.int32), v_avg_init)
+        sums = res0["trksums"].astype(np.int64)
+        if sums.min() > 0:
+            us = bw * 1e6 * np.arange(50) + lb * 1e6
+            avg = (res0["hist"][:, 1:49] *
+                   us[1:49][None, :]).sum(axis=1) / np.maximum(sums, 1)
+            delays_us = avg.max() - avg
+            skew = np.minimum(((delays_us * 1e-6 + opts.deltat / 2) /
+                               opts.deltat).astype(np.int32), 50)
+        hc = np.maximum(res0["h_cnt"], 1)
+        v_avg_init = np.where(res0["h_cnt"] > 0, res0["h_sum"] / hc,
+                              cm.PKWW_PEAKHEIGHT).astype(np.float32)
+
+    res = run_pass(skew, v_avg_init)
+    raw = ww_mod.assemble_ww_blocks(res, spb, opts.reverse)
+
+    blocks = []
+    stats = dict(nblocks=0, ntapemarks=0, nerrblocks=0, nwarnblocks=0,
+                 nunusable=0, nmismatched=0, nmidbiterr=0, ncorrected=0,
+                 ngoodmultiple=0, tried=np.zeros(1, int),
+                 chosen=np.zeros(1, int), deskew_percent=0.0,
+                 skew=np.asarray(skew).tolist(),
+                 peak_hist=res["hist"].astype(np.int64),
+                 peak_trksums=res["trksums"].astype(np.int64),
+                 peak_bins=(lb, bw),
+                 num_flux_changes=int(res["num_flux_changes"]),
+                 flux_dir_final=("pos" if int(res["flux"]) ==
+                                 ww_mod.FLUX_POS else "neg"))
+    for rb in raw:
+        if stats["nblocks"] >= opts.blklimit:
+            break
+        t_blk = opts.t0_seconds + rb["t_end_samples"] * opts.deltat
+        if rb["kind"] == "tapemark":
+            blocks.append(BlockResult("tapemark", t_start=t_blk,
+                                      t_end=t_blk))
+            stats["ntapemarks"] += 1
+            continue
+        w = rb["warnings"]
+        err = w["ww_bad_length"] + w["ww_speed_err"]
+        warn = (w["ww_leading_clock"] + w["ww_missing_onebit"] +
+                w["ww_missing_clock"])
+        blocks.append(BlockResult("data", rb["data"], errcount=err,
+                                  warncount=warn, detail=dict(w),
+                                  t_start=t_blk, t_end=t_blk))
+        stats["nblocks"] += 1
+        stats["tried"][0] += 1
+        stats["chosen"][0] += 1
+        if err:
+            stats["nerrblocks"] += 1
+        if warn:
+            stats["nwarnblocks"] += 1
     return blocks, stats

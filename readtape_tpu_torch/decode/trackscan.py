@@ -100,14 +100,6 @@ def refine_frac(st, ev, admit_top):
     return -((st["W"] - L).to(F32) - adj), L
 
 
-def refine_time(st, ev, s, admit_top):
-    """refine_peak (decoder.c:700-749): +-0.5-sample interpolation and the
-    C's verbatim time formula (full window width even while filling)."""
-    frac, L = refine_frac(st, ev, admit_top)
-    t_peak = s.to(F32) + frac
-    return t_peak, L
-
-
 def precompute_window_features(v: torch.Tensor, W: int):
     """All window features for every sample position at a static window
     width, data-parallel: [..., T, S] -> [..., T, 10, S] f32 (rows:
@@ -176,7 +168,9 @@ def run_jump_scan_seq(step_extra, init, ev_fn, nxt_fn, S: int,
 
     step_extra(st2, st, ev, admit_top, admit_bot, t_peak, s) -> (st3,
     out_dict) applies the mode's state updates after the admission
-    decision. ev_fn(st, s) supplies the window features at s; nxt_fn(i)
+    decision; t_peak is refine_peak's time (decoder.c:700-749), f32(s) +
+    ev["frac"], the sub-sample offset. ev_fn(st, s) supplies the window
+    features at s; nxt_fn(i)
     reads each lane's masked jump table at i. After an admission the
     cursor jumps blind to s+L+1; a position that is not a candidate
     (nxt[s] != s) rejects and snaps to nxt[s+1]. Lanes whose cursor passed
@@ -203,7 +197,8 @@ def run_jump_scan_seq(step_extra, init, ev_fn, nxt_fn, S: int,
         admit_top = live & is_top & at_cand
         admit_bot = live & is_bot & at_cand
         admit = admit_top | admit_bot
-        t_peak, L = refine_time(st, ev, s, admit_top)
+        ev["frac"], L = refine_frac(st, ev, admit_top)
+        t_peak = s.to(F32) + ev["frac"]
 
         st2 = dict(st)
         st2["v_top"] = torch.where(admit_top, ev["wmax"], st["v_top"])

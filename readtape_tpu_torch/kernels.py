@@ -71,12 +71,27 @@ class GcrArgs(ctypes.Structure):
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
 
+class WwArgs(ctypes.Structure):
+    """csrc/ww_core.h::WwArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "volts", "rise_floor", "min_floor", "vah", "cand", "tr_s", "tr_frac",
+        "tr_top", "chars", "blk_i", "blk_f", "hist", "trk_i", "trk_f",
+        "scal")] + [
+        (n, ctypes.c_int32) for n in (
+            "T", "S", "W", "K", "maxchars", "maxblocks", "agc_window",
+            "clk_window", "fluxdir", "span")] + [
+        ("role", ctypes.c_int32 * 6)] + [
+        (n, ctypes.c_float) for n in ("rise", "minp", "agc_alpha",
+                                      "clk_alpha", "spb", "stat_lb",
+                                      "stat_bw")]
+
+
 # the record and scan-buffer widths of pe_core.h and gcr_core.h
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
 GCR_N_GR = 5
 # the launch functions of the library and their argument blocks
 LAUNCHES = {"nrzi_fused_launch": NrziArgs, "pe_fused_launch": PeArgs,
-            "gcr_fused_launch": GcrArgs}
+            "gcr_fused_launch": GcrArgs, "ww_fused_launch": WwArgs}
 # the parmset knobs every kernel reads: argument field -> ParmArrays field
 _KNOBS = dict(p_agc_window="agc_window", p_clk_window="clk_window",
               p_rise="pkww_rise", p_minp="min_peak",
@@ -182,15 +197,15 @@ def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
     return args, out, (ins, scratch)
 
 
-def _launch(name, prepare, volts, seg_lens, leads, pa, kw):
+def _launch(name, prepare, volts, *args, **kw):
     """Prepare and launch csrc/<name>.cu on volts' CUDA device, on
     PyTorch's current stream (no synchronisation); raise if the launch is
     refused."""
     lib = load()
     with torch.cuda.device(volts.device):
-        args, out, keep = prepare(volts, seg_lens, leads, pa, **kw)
+        block, out, keep = prepare(volts, *args, **kw)
         stream = torch.cuda.current_stream(volts.device).cuda_stream
-        rc = getattr(lib, name + "_launch")(ctypes.byref(args), stream)
+        rc = getattr(lib, name + "_launch")(ctypes.byref(block), stream)
     del keep
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -222,7 +237,7 @@ def nrzi_fused(volts, seg_lens, leads, pa, **kw):
     """Launch csrc/nrzi_fused.cu. Arguments and outputs as
     decode.fused.nrzi_fused_scan."""
     return _launch("nrzi_fused", nrzi_prepare, volts, seg_lens, leads, pa,
-                   kw)
+                   **kw)
 
 
 def _idle_prepare(struct, knobs, n_rec_i, out, volts, seg_lens, leads, pa,
@@ -262,7 +277,7 @@ def pe_prepare(volts, seg_lens, leads, pa, **kw):
 def pe_fused(volts, seg_lens, leads, pa, **kw):
     """Launch csrc/pe_fused.cu. Arguments and outputs as
     decode.fused.pe_fused_scan."""
-    return _launch("pe_fused", pe_prepare, volts, seg_lens, leads, pa, kw)
+    return _launch("pe_fused", pe_prepare, volts, seg_lens, leads, pa, **kw)
 
 
 def gcr_prepare(volts, seg_lens, leads, pa, **kw):
@@ -278,4 +293,45 @@ def gcr_prepare(volts, seg_lens, leads, pa, **kw):
 def gcr_fused(volts, seg_lens, leads, pa, **kw):
     """Launch csrc/gcr_fused.cu. Arguments and outputs as
     decode.fused.gcr_fused_scan."""
-    return _launch("gcr_fused", gcr_prepare, volts, seg_lens, leads, pa, kw)
+    return _launch("gcr_fused", gcr_prepare, volts, seg_lens, leads, pa,
+                   **kw)
+
+
+def ww_prepare(volts, *, W, rise_floor, min_floor, v_avg_height, parms, spb,
+               stat_lb, stat_bw, K, maxchars, fluxdir, roles, maxblocks,
+               span):
+    """The WwArgs block, zeroed outputs and scratch of one ww_fused launch
+    (_prepare's return). Arguments as decode.fused.ww_fused_scan."""
+    dev = volts.device
+    T, S = volts.shape
+
+    def put(x):
+        return torch.as_tensor(x, dtype=F32, device=dev).contiguous()
+    ins = dict(volts=volts.contiguous(), rise_floor=put(rise_floor),
+               min_floor=put(min_floor), vah=put(v_avg_height))
+    scratch = dict(cand=torch.empty((T, (S + 31) // 32), dtype=I32,
+                                    device=dev),
+                   tr_s=torch.empty((T, K), dtype=I32, device=dev),
+                   tr_frac=torch.empty((T, K), dtype=F32, device=dev),
+                   tr_top=torch.empty((T, K), dtype=I8, device=dev))
+    out = {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt) in
+           dict(chars=((maxchars,), I8), blk_i=((maxblocks, 6), I32),
+                blk_f=((maxblocks, 2), F32), hist=((T, 50), I32),
+                trk_i=((T, 4), I32), trk_f=((T,), F32),
+                scal=((6,), I32)).items()}
+    ptrs = {k: v.data_ptr() for d in (ins, scratch, out) for k, v in d.items()}
+    args = WwArgs(**ptrs, T=T, S=S, W=W, K=K, maxchars=maxchars,
+                  maxblocks=maxblocks,
+                  agc_window=int(parms.agc_window),
+                  clk_window=int(parms.clk_window), fluxdir=fluxdir,
+                  span=span, role=(ctypes.c_int32 * 6)(*roles),
+                  rise=parms.pkww_rise, minp=parms.min_peak,
+                  agc_alpha=parms.agc_alpha, clk_alpha=parms.clk_alpha,
+                  spb=spb, stat_lb=stat_lb, stat_bw=stat_bw)
+    return args, out, (ins, scratch)
+
+
+def ww_fused(volts, **kw):
+    """Launch csrc/ww_fused.cu (three kernels on the current stream).
+    Arguments and outputs as decode.fused.ww_fused_scan."""
+    return _launch("ww_fused", ww_prepare, volts, **kw)

@@ -1,9 +1,10 @@
 """Tests that need an NVIDIA card (marker `cuda`; they skip elsewhere).
-Each CUDA kernel must equal its plain version on the card, and an NRZI,
-PE or GCR decode on the card must equal the plain decode on the CPU block
-for block. Imports no JAX and nothing of the JAX package (the port carries its
-own synthesizer and formats), so the card's machine runs it without the
-JAX package's test configuration:
+Each CUDA kernel must equal its plain version on the card, an NRZI, PE,
+GCR or Whirlwind decode on the card must equal the plain decode on the
+CPU block for block, and the Whirlwind bench tape must decode on the card
+to its ground truth. Imports no JAX and nothing of the JAX package (the
+port carries its own synthesizer and formats), so the card's machine runs
+it without the JAX package's test configuration:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+from readtape_tpu_torch import kernels
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
 from readtape_tpu_torch.formats import tbin as tb
@@ -107,3 +109,30 @@ def test_gcr_decode_on_card_equals_cpu(card):
     assert out_gpu == out_cpu
     for k in ("peak_hist", "tried", "chosen"):
         np.testing.assert_array_equal(st_gpu[k], st_cpu[k])
+
+
+@pytest.mark.parametrize("span", [None, 1 << 14])
+def test_ww_kernel_equals_plain(card, span):
+    _, hdr, samples = chip_smoke.ww_tape(sizes=(24, 40, 16))
+    (volts,), kw = chip_smoke.first_call(
+        kernels, "ww_fused", samples,
+        chip_smoke.ww_options(hdr, "auto"))
+    if span is not None:
+        kw = dict(kw, span=span)
+    launches = tfu.ww_fused_scan.launches
+    got = tfu.ww_fused_scan(volts, **kw)
+    assert tfu.ww_fused_scan.launches == launches + 1
+    want = tfu.ww_fused_scan_plain(volts, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_ww_bench_tape_on_card(card):
+    blocks, hdr, samples = chip_smoke.ww_bench_tape()
+    plain = tfu.ww_fused_scan_plain.calls
+    launches = tfu.ww_fused_scan.launches
+    out, stats = tpl.decode_tape(samples, chip_smoke.ww_options(hdr))
+    assert tfu.ww_fused_scan_plain.calls == plain
+    assert tfu.ww_fused_scan.launches == launches + 1
+    assert [b.data for b in out if b.kind == "data"] == blocks
+    assert stats["nerrblocks"] == 0 and stats["ntapemarks"] == 0
