@@ -15,39 +15,51 @@ non-zero:
               card: nrzi_fused_scan on synthesized 9-track segments (B=4,
               8 parmsets, S=16384, one noisy), with -correct, on 7-track
               segments and on the first batch that phase 4's NRZI decode
-              hands it; pe_fused_scan on synthesized 9-track PE segments
-              (B=4, 8 parmsets, S=16384: clean, noisy with a weak track, a
-              dropout that forces fake bits, two blocks behind a short gap
-              so that the all-idle point falls inside the window) and on
-              the first batch of phase 4's PE decode; gcr_fused_scan on
-              synthesized 9-track GCR segments (B=4, 5 parmsets, S=16384:
-              clean, noisy, one weak track, two blocks behind a short gap)
-              and on the first batch of phase 4's GCR decode;
-              ww_fused_scan on a noisy 6-track Whirlwind tape (about
-              160,000 samples, one weak track, -fluxdir=auto) as decode_tape
-              hands it, and again with a rolling-base span of 2^14 samples
-              so that the base moves, and on the Whirlwind bench tape as
-              decode_tape hands it, there against the plain version run
-              on a host copy of the same inputs (on the card its
-              ~300,000 events would take many minutes); all timed
+              hands it; the tiered NRZI kernels on the same segments:
+              nrzi_track_scan (B5a, the 8 parmsets' three window widths),
+              nrzi_track_scan_tracks (B5b, parmset 0), nrzi_slot_scan (B6,
+              over B5a's buffers, with and without -correct, and on the
+              7-track segments), and each at the first batch that phase
+              4's tiered decode hands it; pe_fused_scan on synthesized
+              9-track PE segments (B=4, 8 parmsets, S=16384: clean, noisy
+              with a weak track, a dropout that forces fake bits, two
+              blocks behind a short gap so that the all-idle point falls
+              inside the window) and on the first batch of phase 4's PE
+              decode; gcr_fused_scan on synthesized 9-track GCR segments
+              (B=4, 5 parmsets, S=16384: clean, noisy, one weak track, two
+              blocks behind a short gap) and on the first batch of phase
+              4's GCR decode; ww_fused_scan on a noisy 6-track Whirlwind
+              tape (about 160,000 samples, one weak track, -fluxdir=auto)
+              as decode_tape hands it, and again with a rolling-base span
+              of 2^14 samples so that the base moves, and on the Whirlwind
+              bench tape as decode_tape hands it, there against the plain
+              version run on a host copy of the same inputs (on the card
+              its ~300,000 events would take many minutes); all timed
   4. main     decode_tape on the card at bench scale, each path with the
               launch counts set to 0 just before it and read just after:
               NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026, 8
-              parmsets), PE (60 blocks of 1200 bytes, seed 4100, 8
-              parmsets), GCR (40 blocks of 1200 bytes, seed 5100, 5
-              parmsets) and Whirlwind (12 blocks of 400 words, seed 6100,
-              -fluxdir=neg, one pass), each run twice; every block against
-              the synthesizer's ground truth, and proof that the decode went
-              through the kernel. Then a Whirlwind tape of 24 such blocks
-              (beyond 2^22 samples, so the rolling base moves) against its
-              ground truth; noisy PE and GCR tapes with short gaps (the
-              all-idle point, the PE walk, the all-parmset retry), a GCR
-              tape whose segment holds two blocks (a multi-block round) and
-              a skewed Whirlwind tape under -deskew (two passes) decoded on
-              the card and on the CPU, block for block equal
+              parmsets) through the fused kernel and through the tiered
+              kernels (kernel_path="tiered": B5b and B6, not B1; blocks
+              equal to the fused decode's), PE (60 blocks of 1200 bytes,
+              seed 4100, 8 parmsets), GCR (40 blocks of 1200 bytes, seed
+              5100, 5 parmsets) and Whirlwind (12 blocks of 400 words, seed
+              6100, -fluxdir=neg, one pass), each run twice; every block
+              against the synthesizer's ground truth, and proof that the
+              decode went through the kernels. Then a Whirlwind tape of 24
+              such blocks (beyond 2^22 samples, so the rolling base moves)
+              against its ground truth; a noisy NRZI tape through the
+              tiered path (the 8-parmset retry: B5a), noisy PE and GCR
+              tapes with short gaps (the all-idle point, the PE walk, the
+              all-parmset retry), a GCR tape whose segment holds two blocks
+              (a multi-block round) and a skewed Whirlwind tape under
+              -deskew (two passes) decoded on the card and on the CPU,
+              block for block equal. Last, density detection on the card:
+              the NRZI and PE bench tapes decoded with bpi=0 detect 800 and
+              1600 bpi (B5b) and decode to their ground truth
   5. golden   the four NRZI, two PE, one GCR and one Whirlwind example
-              tapes decoded on the card and written as .tap; SHA-256
-              against examples/golden.json
+              tapes decoded on the card and written as .tap, and the four
+              NRZI ones again through the tiered kernels; SHA-256 against
+              examples/golden.json
 
 Then one JSON line describing the kernels, the card's name and power
 limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
@@ -71,20 +83,29 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# the port's kernels: the CUDA source and the TPU kernel each replaces (the
-# function that reaches pl.pallas_call)
+# the port's kernels: the module of the wrapper, the CUDA source and the
+# TPU kernel each replaces (the function that reaches pl.pallas_call)
 KERNELS = {
     "nrzi_fused_scan": dict(
-        source="readtape_tpu_torch/csrc/nrzi_fused.cu",
+        module="fused", source="readtape_tpu_torch/csrc/nrzi_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:1102"),
+    "nrzi_track_scan": dict(
+        module="scan", source="readtape_tpu_torch/csrc/nrzi_scan.cu",
+        replaces="readtape_tpu/decode/pallas_scan.py:551"),
+    "nrzi_track_scan_tracks": dict(
+        module="scan", source="readtape_tpu_torch/csrc/nrzi_scan.cu",
+        replaces="readtape_tpu/decode/pallas_scan.py:472"),
+    "nrzi_slot_scan": dict(
+        module="slot", source="readtape_tpu_torch/csrc/nrzi_slot.cu",
+        replaces="readtape_tpu/decode/pallas_slot.py:390"),
     "pe_fused_scan": dict(
-        source="readtape_tpu_torch/csrc/pe_fused.cu",
+        module="fused", source="readtape_tpu_torch/csrc/pe_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:1760"),
     "gcr_fused_scan": dict(
-        source="readtape_tpu_torch/csrc/gcr_fused.cu",
+        module="fused", source="readtape_tpu_torch/csrc/gcr_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:2326"),
     "ww_fused_scan": dict(
-        source="readtape_tpu_torch/csrc/ww_fused.cu",
+        module="fused", source="readtape_tpu_torch/csrc/ww_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:3104"),
 }
 # kernel vs plain: integers and bits equal; floats equal as well, since
@@ -153,11 +174,25 @@ def sync():
         torch.cuda.synchronize()
 
 
+def wrapper(name):
+    """(the KERNELS entry's wrapper, its plain version)."""
+    import importlib
+    mod = importlib.import_module("readtape_tpu_torch.decode."
+                                  + KERNELS[name]["module"])
+    return getattr(mod, name), getattr(mod, name + "_plain")
+
+
 def reset_counts():
-    from readtape_tpu_torch.decode import fused as tfu
     for name in KERNELS:
-        getattr(tfu, name).launches = 0
-        getattr(tfu, name + "_plain").calls = 0
+        fn, plain = wrapper(name)
+        fn.launches = 0
+        plain.calls = 0
+
+
+def counts():
+    """{kernel: (launches, plain-version calls)} since reset_counts."""
+    return {name: (wrapper(name)[0].launches, wrapper(name)[1].calls)
+            for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +414,23 @@ def bench_tape(seed=2026, nblocks=160, blocksize=1200):
     return blocks, hdr, samples
 
 
+def nrzi_noisy_tape(seed=1):
+    """Three 420-byte NRZI blocks with noise (0.03 V rms), amplitude
+    jitter (30%) and timing jitter (0.1 bit) from the synthesizer, seed 1
+    (tests/test_torch_pipeline.py's noisy tape): parmset 0 fails every
+    block, so the 8-parmset retry, with three window widths, runs."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(seed)
+    blocks = [bytes(rng.integers(0, 256, 420, dtype=np.uint8))
+              for _ in range(3)]
+    spec = default_spec(tb.MODE_NRZI, noise_rms=0.03, amp_jitter=0.3,
+                        time_jitter_bits=0.1, ibg_secs=0.004,
+                        start_gap_secs=0.004, seed=seed)
+    return synthesize_tape(spec, [("block", b) for b in blocks])
+
+
 def pe_bench_tape(seed=4100, nblocks=60, blocksize=1200):
     """bench.py's PE tape: 60 random blocks of 1200 bytes."""
     from dataclasses import replace
@@ -545,7 +597,7 @@ def ww_options(hdr, fluxdir="neg", **kw):
                              fluxdir=fluxdir, multiple_tries=False, **kw)
 
 
-def first_call(module, name, samples, opts):
+def first_call(module, name, samples, opts, kernel_path="fused"):
     """(args, kwargs) of the first call of module.<name> that decode_tape
     makes on `samples`: the shape the main path gives it. The function is
     wrapped only for this one decode."""
@@ -554,11 +606,13 @@ def first_call(module, name, samples, opts):
     fn = getattr(module, name)
 
     def record(*args, **kw):
-        seen.append((args, kw))
+        if not seen:
+            seen.append((args, kw))
         return fn(*args, **kw)
     setattr(module, name, record)
     try:
-        tpl.decode_tape(samples, opts, device=DEVICE)
+        tpl.decode_tape(samples, opts, device=DEVICE,
+                        kernel_path=kernel_path)
     finally:
         setattr(module, name, fn)
     if not seen:
@@ -580,16 +634,23 @@ def main_path_inputs(launcher, samples, opts):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def bound(name, volts, out, ops):
-    """The least time (ms) the card could take for one call: the bytes it
-    must move (each input read once, each output written once) over the
-    memory rate, or its f32 operations over the f32 rate, whichever is
-    larger. Returns (ms, "bytes" | "operations")."""
-    nbytes = volts.numel() * volts.element_size() + sum(
-        t.numel() * t.element_size() for t in out.values())
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_of(n_bytes, ops):
+    """The least time (ms) the card could take for one call that must
+    move n_bytes and do ops f32 operations: the larger of the bytes over
+    the memory rate and the operations over the f32 rate. Returns (ms,
+    "bytes" | "operations")."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(name, volts, out, ops):
+    """bound_of for a call that reads volts once and writes out once."""
+    return bound_of(nbytes([volts]) + nbytes(out.values()), ops)
 
 
 def kernel_ops(volts, kw, n_steps):
@@ -617,6 +678,22 @@ def time_launches(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def check_equal(name, got, want):
+    """Every output of a kernel equal to its plain version's: integers
+    and bits exactly, f32 within F32_TOL. Returns the max f32 error."""
+    import torch
+    err = 0.0
+    for k in want:
+        if want[k].dtype == torch.float32:
+            err = max(err, float((got[k] - want[k]).abs().max()))
+        elif not torch.equal(got[k], want[k]):
+            bad = (got[k] != want[k]).nonzero()[:5].tolist()
+            raise AssertionError(f"{name}: {k} differs at {bad}")
+    if not err <= F32_TOL:
+        raise AssertionError(f"{name}: f32 fields differ by {err}")
+    return err
+
+
 def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     """One launch of `kernel` (a decode.fused wrapper's name) against its
     plain version on the same card inputs. Returns a dict with the max
@@ -631,15 +708,7 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     want = plain(volts, seg_lens, leads, pa, **kw)
     sync()
     t_plain = (time.perf_counter() - t0) * 1e3
-    for k in want:
-        if k == "trk_f":
-            continue
-        if not torch.equal(got[k], want[k]):
-            bad = (got[k] != want[k]).nonzero()[:5].tolist()
-            raise AssertionError(f"{name}: {k} differs at {bad}")
-    err = float((got["trk_f"] - want["trk_f"]).abs().max())
-    if not err <= F32_TOL:
-        raise AssertionError(f"{name}: f32 fields differ by {err}")
+    err = check_equal(name, got, want)
     ti = want["trk_i"]
     dc, nadm = {"nrzi_fused_scan": (tfu.TI_DC, tfu.TI_NADM),
                 "pe_fused_scan": (tfu.PI_DC, tfu.PI_NTOTAL),
@@ -687,16 +756,7 @@ def compare_ww(name, volts, kw, plain_device=DEVICE):
     want = tfu.ww_fused_scan_plain(p_volts, **p_kw)
     sync()
     t_plain = (time.perf_counter() - t0) * 1e3
-    for k in want:
-        if k in ("blk_f", "trk_f"):
-            continue
-        if not torch.equal(got[k], want[k]):
-            bad = (got[k] != want[k]).nonzero()[:5].tolist()
-            raise AssertionError(f"{name}: {k} differs at {bad}")
-    err = max(float((got[k] - want[k]).abs().max()) for k in ("blk_f",
-                                                              "trk_f"))
-    if not err <= F32_TOL:
-        raise AssertionError(f"{name}: f32 fields differ by {err}")
+    err = check_equal(name, got, want)
     sc = want["scal"]
     if int(sc[tfu.WS_NBLOCKS]) < 3 or int(sc[tfu.WS_DATACOUNT]) < 1000:
         raise AssertionError(f"{name}: the tape decoded too little")
@@ -742,6 +802,175 @@ def phase_ww_kernel():
     return res
 
 
+def tiered_inputs(volts, seg_lens, leads, pa, kw, nparms):
+    """The tiered path's admission inputs for the first nparms parmsets
+    of nrzi_fused_scan's arguments, built as _nrzi_group_tiered builds
+    them: (window features, masked union jump table, parmsets, scan
+    kwargs)."""
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.decode import scan
+    Ws = kw["Ws"][:nparms]
+    nxt = tfu._mask_jump_table(
+        tfu._union_jump_table(volts, Ws, kw["rise_floor"], kw["min_floor"]),
+        seg_lens, leads, volts.shape[-1])
+    return (scan.window_features(volts, Ws), nxt, pa.select(range(nparms)),
+            dict(Ws=Ws, K=kw["K"]))
+
+
+def compare_scan(name, kernel, feat, nxt, pa, kw):
+    """One launch of B5a or B5b (`kernel`) against its plain version on
+    the same card inputs; compare_kernel's dict, with the kernel's
+    outputs as "out". The bound counts each admission's feature row and
+    jump-table entry read once (rejected steps are not counted) and every
+    output written once; ~60 f32 operations per admission."""
+    fn, plain = wrapper(kernel)
+    got = fn(feat, nxt, pa, **kw)
+    sync()
+    t0 = time.perf_counter()
+    want = plain(feat, nxt, pa, **kw)
+    sync()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    err = check_equal(name, got, want)
+    n_adm = int(want["n_admitted"].sum())
+    if int(want["n_admitted"].max()) < 150:
+        raise AssertionError(f"{name}: segments admitted too little")
+    t_kern = time_launches(lambda: fn(feat, nxt, pa, **kw), 10)
+    b_ms, b_by = bound_of(n_adm * (10 * 4 + 4) + nbytes(want.values()),
+                          60 * n_adm)
+    G, B, T, S, _ = feat.shape
+    print(f"  {name} (B={B} P={len(kw['Ws'])} G={G} T={T} S={S}): kernel "
+          f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {n_adm} admissions, equal (max f32 err {err})",
+          flush=True)
+    return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, out=got)
+
+
+def compare_slot(name, fin, pa, kw):
+    """One launch of B6 against its plain version on the same buffers;
+    compare_kernel's dict. The bound counts each admitted transition's
+    (s, t, agc) read once and every output written once; ~40 f32
+    operations per track and slot. Under -correct the machine must flip
+    at least one bit."""
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.decode import slot
+    got = slot.nrzi_slot_scan(fin, pa, **kw)
+    sync()
+    t0 = time.perf_counter()
+    want = slot.nrzi_slot_scan_plain(fin, pa, **kw)
+    sync()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    err = check_equal(name, got, want)
+    if int(want["trk_i"][..., tfu.TI_DC].max()) < 150:
+        raise AssertionError(f"{name}: segments decoded too little")
+    B, P, T, K = fin["tr_s"].shape
+    n_tr = int(fin["n_admitted"].clamp(max=K).sum())
+    n_slots = int(want["lane_i"][..., tfu.LI_NSLOT].sum())
+    t_kern = time_launches(lambda: slot.nrzi_slot_scan(fin, pa, **kw), 10)
+    b_ms, b_by = bound_of(n_tr * 12 + nbytes(want.values()),
+                          40 * T * n_slots)
+    corr = int(want["lane_i"][..., tfu.LI_CORR].sum())
+    if kw["do_correct"] and not corr:
+        raise AssertionError(f"{name}: -correct flipped no bit")
+    print(f"  {name} (B={B} P={P} T={T} K={K}): kernel {t_kern:.3f} ms, "
+          f"plain {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{n_slots} slots, {corr} corrected, equal (max f32 err {err})",
+          flush=True)
+    return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def drop_first_bits(fin, spb):
+    """B5's outputs with, in every lane, one track's transition in the
+    block's first frame removed (column 0, which the release binary's
+    parity check reads) and that track's AGC gain at 5.0, more than twice
+    the AGC's cap of 2 that bounds the others', so that -correct flips
+    the bit back (tests/test_torch_slot.py's -correct case, per lane)."""
+    import torch
+    host = {k: v.cpu().clone() for k, v in fin.items()}
+    s, t, agc, n = (host[k] for k in ("tr_s", "tr_t", "tr_agc",
+                                      "n_admitted"))
+    B, P, T, K = s.shape
+    for b in range(B):
+        for p in range(P):
+            first = int(torch.argmin(s[b, p, :, 0]))
+            ks = [k for k in range(T) if k != first and n[b, p, k] > 0
+                  and t[b, p, k, 0] < t[b, p, first, 0] + spb / 2]
+            if not ks:
+                continue
+            k = ks[0]
+            for buf, fill in ((s, 2 ** 30), (t, 0.0), (agc, 1.0)):
+                buf[b, p, k, :-1] = buf[b, p, k, 1:].clone()
+                buf[b, p, k, -1] = fill
+            n[b, p, k] -= 1
+            agc[b, p, k, :int(n[b, p, k])] = 5.0
+    return {k: v.to(fin[k].device) for k, v in host.items()}
+
+
+def slot_kwargs(kw, S, do_correct):
+    """nrzi_slot_scan's arguments beside its buffers, from
+    nrzi_fused_scan's."""
+    return dict(S=S, spb=kw["spb"], expected_parity=1,
+                do_correct=do_correct, maxb=kw["maxb"],
+                max_slots=kw["max_slots"], stat_lb=kw["stat_lb"],
+                stat_bw=kw["stat_bw"])
+
+
+def phase_tiered_kernel():
+    """B5a, B5b and B6 against their plain versions on the card: on
+    kernel_inputs' segments (B5a with all 8 parmsets and their three
+    window widths, B5b with parmset 0, B6 over B5a's buffers, and under
+    -correct over them with one first-frame bit per lane removed; the
+    same, without -correct, on 7-track segments), then each at the
+    first batch that phase 4's tiered decode hands it (B5b and B6 on the
+    NRZI bench tape's first pass, B5a on the noisy tape's retry)."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    res = {}
+    for T in (9, 7):
+        volts, seg_lens, leads, pa, kw = kernel_inputs(T, 16384, False,
+                                                       seed=5)
+        S = volts.shape[-1]
+        tag = f"{T}trk"
+        feat, nxt, pa8, skw = tiered_inputs(volts, seg_lens, leads, pa, kw,
+                                            8)
+        r = res[f"b5a {tag}"] = compare_scan(f"b5a {tag}", "nrzi_track_scan",
+                                             feat, nxt, pa8, skw)
+        fin = r.pop("out")
+        del feat, nxt
+        res[f"b6 {tag}"] = compare_slot(f"b6 {tag}", fin, pa8,
+                                        slot_kwargs(kw, S, False))
+        if T == 9:
+            res["b6 9trk-correct"] = compare_slot(
+                "b6 9trk-correct", drop_first_bits(fin, kw["spb"]), pa8,
+                slot_kwargs(kw, S, True))
+        if T == 9:
+            feat, nxt, pa1, skw = tiered_inputs(volts, seg_lens, leads, pa,
+                                                kw, 1)
+            res[f"b5b {tag}"] = compare_scan(f"b5b {tag}",
+                                             "nrzi_track_scan_tracks",
+                                             feat, nxt, pa1, skw)
+            del feat, nxt
+    _, hdr, samples = bench_tape()
+    opts = tape_options(hdr, tb.MODE_NRZI, 800)
+    (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan_tracks", samples,
+                                     opts, "tiered")
+    res["b5b main"] = compare_scan("b5b main", "nrzi_track_scan_tracks",
+                                   feat, nxt, pa, kw)
+    del feat, nxt
+    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, opts,
+                               "tiered")
+    res["b6 main"] = compare_slot("b6 main", fin, pa, kw)
+    del fin
+    hdr, samples = nrzi_noisy_tape()
+    (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan", samples,
+                                     tape_options(hdr, tb.MODE_NRZI, 800),
+                                     "tiered")
+    res["b5a main"] = compare_scan("b5a main", "nrzi_track_scan", feat, nxt,
+                                   pa, kw)
+    return res
+
+
 def phase_kernel():
     """Kernel vs plain on the card. Returns {case: compare_kernel dict}."""
     import torch
@@ -757,6 +986,7 @@ def phase_kernel():
     res["nrzi main"] = compare_kernel(
         "nrzi main", "nrzi_fused_scan", *main_path_inputs(
             "nrzi_fused", samples, tape_options(hdr, tb.MODE_NRZI, 800)))
+    res.update(phase_tiered_kernel())
     r = res["pe 9trk"] = compare_kernel(
         "pe 9trk", "pe_fused_scan", *pe_kernel_inputs(16384, seed=5))
     lane = r["out"]["lane_i"]
@@ -788,21 +1018,40 @@ def phase_kernel():
 # phase 4: the main paths at bench scale
 # ---------------------------------------------------------------------------
 
-def decode_bench(name, kernel, blocks, hdr, samples, opts, card, marks):
+def check_launches(name, launched, absent=()):
+    """Since reset_counts: every kernel of `launched` launched, none of
+    `absent`, and no plain version ran. Returns {kernel: launches}."""
+    got = counts()
+    for k in launched:
+        if got[k][0] <= 0:
+            raise AssertionError(f"{name}: the main path never launched {k}")
+    for k in absent:
+        if got[k][0]:
+            raise AssertionError(f"{name}: {k} launched {got[k][0]} times")
+    plain = {k: c for k, (_, c) in got.items() if c}
+    if plain:
+        raise AssertionError(f"{name}: the main path ran plain versions "
+                             f"{plain}")
+    return {k: got[k][0] for k in launched}
+
+
+def decode_bench(name, kernels, blocks, hdr, samples, opts, card, marks,
+                 kernel_path="fused", absent=()):
     """decode_tape on the card, warm-up then timed with the launch counts
     set to 0 just before and read just after; every block against the
-    ground truth. Returns (launches of `kernel`, wall seconds, Msamples/s)."""
-    from readtape_tpu_torch.decode import fused as tfu
+    ground truth. Returns ({kernel: launches} for `kernels`, wall seconds,
+    Msamples/s, the blocks)."""
     from readtape_tpu_torch.decode import pipeline as tpl
-    tpl.decode_tape(samples, opts, device=DEVICE)          # warm-up run
+    tpl.decode_tape(samples, opts, device=DEVICE,
+                    kernel_path=kernel_path)                # warm-up run
     sync()
     reset_counts()
     t0 = time.perf_counter()
-    out, stats = tpl.decode_tape(samples, opts, device=DEVICE)
+    out, stats = tpl.decode_tape(samples, opts, device=DEVICE,
+                                 kernel_path=kernel_path)
     sync()
     wall = time.perf_counter() - t0
-    launches = getattr(tfu, kernel).launches
-    plain_calls = getattr(tfu, kernel + "_plain").calls
+    launches = check_launches(name, kernels, absent)
     data = [b.data for b in out if b.kind == "data"]
     if data != blocks:
         bad = [i for i, (x, y) in enumerate(zip(data, blocks)) if x != y]
@@ -812,33 +1061,27 @@ def decode_bench(name, kernel, blocks, hdr, samples, opts, card, marks):
     if stats["ntapemarks"] != marks or stats["nerrblocks"] != 0:
         raise AssertionError(f"{name}: ntapemarks {stats['ntapemarks']}, "
                              f"nerrblocks {stats['nerrblocks']}")
-    if launches <= 0:
-        raise AssertionError(f"{name}: the main path never launched "
-                             f"{kernel}")
-    if plain_calls != 0:
-        raise AssertionError(f"{name}: the main path ran the plain "
-                             f"version {plain_calls} times")
     msps = samples.shape[0] / wall / 1e6
     print(f"  {name}: {samples.shape[0]:,} samples, {len(out)} blocks, "
-          f"{launches} {kernel} launches: {wall:.3f} s wall, "
-          f"{msps:.3f} Msamples/s ({card})", flush=True)
-    return launches, wall, msps
+          f"launches {launches}: {wall:.3f} s wall, {msps:.3f} Msamples/s "
+          f"({card})", flush=True)
+    return launches, wall, msps, out
 
 
-def phase_short_gap(name, kernel, hdr, samples, opts, card):
+def phase_short_gap(name, kernels, hdr, samples, opts, card,
+                    kernel_path="fused"):
     """A noisy short-gap tape on the card and on the CPU (plain versions):
-    block for block equal, with the run statistics."""
+    block for block equal, with the run statistics. Returns {kernel:
+    launches} of the card's decode."""
     import numpy as np
-    from readtape_tpu_torch.decode import fused as tfu
     from readtape_tpu_torch.decode import pipeline as tpl
     reset_counts()
-    out_gpu, st_gpu = tpl.decode_tape(samples, opts, device=DEVICE)
+    out_gpu, st_gpu = tpl.decode_tape(samples, opts, device=DEVICE,
+                                      kernel_path=kernel_path)
     sync()
-    launches = getattr(tfu, kernel).launches
-    if getattr(tfu, kernel + "_plain").calls or not launches:
-        raise AssertionError(f"{name}: the card decode did not run on the "
-                             f"kernel alone")
-    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
+    launches = check_launches(name, kernels)
+    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu",
+                                      kernel_path=kernel_path)
     if out_gpu != out_cpu:
         raise AssertionError(f"{name}: card {[b.kind for b in out_gpu]}"
                              f" != cpu {[b.kind for b in out_cpu]}")
@@ -847,52 +1090,116 @@ def phase_short_gap(name, kernel, hdr, samples, opts, card):
             raise AssertionError(f"{name}: {k} differs")
     print(f"  {name}: {len(out_gpu)} blocks "
           f"{[(b.kind, len(b.data), b.errcount) for b in out_gpu]}, tried "
-          f"{st_gpu['tried'].tolist()}, {launches} launches; card == cpu "
+          f"{st_gpu['tried'].tolist()}, launches {launches}; card == cpu "
           f"({card})", flush=True)
+    return launches
+
+
+def phase_density(card):
+    """The NRZI and PE bench tapes decoded on the card with bpi=0: the
+    density is detected (B5b) as 800 and 1600 bpi, and the tape then
+    decodes to its ground truth."""
+    import dataclasses
+    import torch
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import tbin as tb
+    for name, tape, mode, bpi, kernel in (
+            ("NRZI bench", bench_tape, tb.MODE_NRZI, 800, "nrzi_fused_scan"),
+            ("PE bench", pe_bench_tape, tb.MODE_PE, 1600, "pe_fused_scan")):
+        blocks, hdr, samples = tape()
+        opts = dataclasses.replace(tape_options(hdr, mode, bpi), bpi=0.0)
+        reset_counts()
+        t0 = time.perf_counter()
+        out, stats = tpl.decode_tape(samples, opts, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_launches(f"{name} density",
+                                  ["nrzi_track_scan_tracks", kernel])
+        std, raw = stats["density"]
+        if std != bpi:
+            raise AssertionError(f"{name}: density {std} ({raw:.1f}) "
+                                 f"detected, {bpi} expected")
+        if [b.data for b in out if b.kind == "data"] != blocks:
+            raise AssertionError(f"{name}: decoded with the detected "
+                                 f"density, the blocks differ")
+        print(f"  {name}, bpi=0: detected {std:.0f} bpi (raw {raw:.3f}), "
+              f"{len(blocks)} blocks equal to the ground truth, launches "
+              f"{launches}, {wall:.3f} s with detection ({card})",
+              flush=True)
 
 
 def phase_main(card):
+    """Returns {kernel: (launches on its main path, wall s, Msamples/s)}
+    (wall and rate None where the main path is not a timed bench)."""
+    import torch
     from readtape_tpu_torch import native
     from readtape_tpu_torch.formats import tbin as tb
     print(f"  host activity scan: "
           f"{'native tape_scan' if native.available() else 'numpy'}",
           flush=True)
+    runs = {}
+
+    def keep(launches, wall, msps):
+        for k, n in launches.items():
+            runs[k] = (n, wall, msps)
     blocks, hdr, samples = bench_tape()
-    nrzi = decode_bench("NRZI bench", "nrzi_fused_scan", blocks, hdr,
-                        samples, tape_options(hdr, tb.MODE_NRZI, 800), card,
-                        marks=2)
+    opts = tape_options(hdr, tb.MODE_NRZI, 800)
+    n, w, m, fused_out = decode_bench("NRZI bench", ["nrzi_fused_scan"],
+                                      blocks, hdr, samples, opts, card,
+                                      marks=2)
+    keep(n, w, m)
+    torch.cuda.reset_peak_memory_stats()
+    n, w, m, out = decode_bench(
+        "NRZI bench, tiered", ["nrzi_track_scan_tracks", "nrzi_slot_scan"],
+        blocks, hdr, samples, opts, card, marks=2, kernel_path="tiered",
+        absent=["nrzi_fused_scan"])
+    keep(n, w, m)
+    if out != fused_out:
+        raise AssertionError("NRZI bench: the tiered blocks differ from "
+                             "the fused ones")
+    print(f"  NRZI bench, tiered: blocks equal to the fused decode's; peak "
+          f"allocation {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    hdr, samples = nrzi_noisy_tape()
+    n = phase_short_gap("NRZI noisy, tiered (8-parmset retry)",
+                        ["nrzi_track_scan", "nrzi_track_scan_tracks",
+                         "nrzi_slot_scan"], hdr, samples,
+                        tape_options(hdr, tb.MODE_NRZI, 800), card,
+                        kernel_path="tiered")
+    runs["nrzi_track_scan"] = (n["nrzi_track_scan"], None, None)
     blocks, hdr, samples = pe_bench_tape()
-    pe = decode_bench("PE bench", "pe_fused_scan", blocks, hdr, samples,
-                      tape_options(hdr, tb.MODE_PE, 1600), card, marks=0)
+    keep(*decode_bench("PE bench", ["pe_fused_scan"], blocks, hdr, samples,
+                       tape_options(hdr, tb.MODE_PE, 1600), card,
+                       marks=0)[:3])
     blocks, hdr, samples = gcr_bench_tape()
-    gcr = decode_bench("GCR bench", "gcr_fused_scan", blocks, hdr, samples,
-                       tape_options(hdr, tb.MODE_GCR, 9042, 25), card,
-                       marks=0)
+    keep(*decode_bench("GCR bench", ["gcr_fused_scan"], blocks, hdr,
+                       samples, tape_options(hdr, tb.MODE_GCR, 9042, 25),
+                       card, marks=0)[:3])
     hdr, samples = pe_short_gap_tape()
-    phase_short_gap("PE short gap, 0.06 V noise", "pe_fused_scan", hdr,
+    phase_short_gap("PE short gap, 0.06 V noise", ["pe_fused_scan"], hdr,
                     samples, tape_options(hdr, tb.MODE_PE, 1600), card)
     hdr, samples = gcr_short_gap_tape()
-    phase_short_gap("GCR short gap, 0.07 V noise", "gcr_fused_scan", hdr,
+    phase_short_gap("GCR short gap, 0.07 V noise", ["gcr_fused_scan"], hdr,
                     samples, tape_options(hdr, tb.MODE_GCR, 9042, 25), card)
     hdr, samples = gcr_merged_tape()
     phase_short_gap("GCR merged blocks (multi-block round)",
-                    "gcr_fused_scan", hdr, samples,
+                    ["gcr_fused_scan"], hdr, samples,
                     tape_options(hdr, tb.MODE_GCR, 9042, 25), card)
     blocks, hdr, samples = ww_bench_tape()
-    ww = decode_bench("WW bench", "ww_fused_scan", blocks, hdr, samples,
-                      ww_options(hdr), card, marks=0)
+    keep(*decode_bench("WW bench", ["ww_fused_scan"], blocks, hdr, samples,
+                       ww_options(hdr), card, marks=0)[:3])
     # 24 blocks: about 5.2 million samples, so the machine's rolling base
     # moves (its span is 2^22 samples)
     blocks, hdr, samples = ww_bench_tape(nblocks=24)
     if samples.shape[0] <= (1 << 22) + 200_000:
         raise AssertionError("the long WW tape is too short")
-    decode_bench("WW long tape", "ww_fused_scan", blocks, hdr, samples,
+    decode_bench("WW long tape", ["ww_fused_scan"], blocks, hdr, samples,
                  ww_options(hdr), card, marks=0)
     hdr, samples = ww_deskew_tape()
-    phase_short_gap("WW -deskew (two passes)", "ww_fused_scan", hdr,
+    phase_short_gap("WW -deskew (two passes)", ["ww_fused_scan"], hdr,
                     samples, ww_options(hdr, deskew=True), card)
-    return {"nrzi_fused_scan": nrzi, "pe_fused_scan": pe,
-            "gcr_fused_scan": gcr, "ww_fused_scan": ww}
+    phase_density(card)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -940,53 +1247,70 @@ def golden_options(args, hdr):
                 ww_order=hdr.trkorder or "CMLcml")
 
 
-def decode_example(name, device, directory):
+def decode_example(name, device, directory, kernel_path="fused"):
     """Decode one example tape on `device` into <directory>/<name>.tap;
     returns (blocks, SHA-256 of the .tap)."""
     from readtape_tpu_torch.decode import pipeline as tpl
     hdr, samples = build_example(name)
     opts = tpl.DecodeOptions(**golden_options(EXAMPLES[name]["args"], hdr))
-    blocks, _ = tpl.decode_tape(samples, opts, device=device)
-    path = os.path.join(directory, name.replace("/", "_") + ".tap")
+    blocks, _ = tpl.decode_tape(samples, opts, device=device,
+                                kernel_path=kernel_path)
+    path = os.path.join(directory, f"{name.replace('/', '_')}.{kernel_path}"
+                        ".tap")
     write_tap(path, blocks)
     with open(path, "rb") as f:
         return blocks, hashlib.sha256(f.read()).hexdigest()
 
 
 def phase_golden():
+    """Every example through its default path, and the NRZI ones again
+    through the tiered kernels (checking that they launched)."""
     with open(os.path.join(REPO, "examples", "golden.json")) as f:
         golden = json.load(f)
+    runs = [(name, "fused") for name in GOLDEN_CASES]
+    runs += [(name, "tiered") for name in GOLDEN_CASES if "NRZI" in name]
     with tempfile.TemporaryDirectory() as tmp:
-        for name in GOLDEN_CASES:
-            blocks, h = decode_example(name, DEVICE, tmp)
+        for name, path in runs:
+            reset_counts()
+            blocks, h = decode_example(name, DEVICE, tmp, kernel_path=path)
+            if path == "tiered":
+                check_launches(name, ["nrzi_track_scan_tracks",
+                                      "nrzi_slot_scan"], ["nrzi_fused_scan"])
             if h != golden[name]:
-                raise AssertionError(f"{name}: sha256 {h[:16]} != golden "
-                                     f"{golden[name][:16]}")
-            print(f"  {name}: {len(blocks)} blocks, sha256 {h[:16]} ok",
-                  flush=True)
+                raise AssertionError(f"{name} ({path}): sha256 {h[:16]} != "
+                                     f"golden {golden[name][:16]}")
+            print(f"  {name} ({path}): {len(blocks)} blocks, sha256 "
+                  f"{h[:16]} ok", flush=True)
 
 
 # ---------------------------------------------------------------------------
 # breakdown: where a bench decode's wall goes
 # ---------------------------------------------------------------------------
 
-def time_steps(samples, opts):
+def time_steps(samples, opts, kernel_path):
     """One warm decode_tape with a synchronize around each step it
     takes; returns (wall s, {step: [seconds, calls]})."""
+    import importlib
+
     import torch
     from readtape_tpu_torch.decode import fused as tfu
     from readtape_tpu_torch.decode import gcr as gcr_mod
     from readtape_tpu_torch.decode import nrzi as nrzi_mod
     from readtape_tpu_torch.decode import pe as pe_mod
     from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.decode import scan as scan_mod
     from readtape_tpu_torch.decode import segment as seg
     from readtape_tpu_torch.decode import ww as ww_mod
     from readtape_tpu_torch.formats import tbin as tb
     steps = {}
     spots = [(seg, "host_activity", "host activity scan"),
              (tpl, "_prep_volts", "window gather + volts")]
-    spots += [(tfu, name, "kernel") for name in KERNELS]
-    spots += [(nrzi_mod, "nrzi_finish", "finish"),
+    spots += [(importlib.import_module("readtape_tpu_torch.decode."
+                                       + KERNELS[name]["module"]), name,
+               f"kernel {name}") for name in KERNELS]
+    spots += [(tfu, "_union_jump_table", "jump table"),
+              (scan_mod, "window_features", "window features"),
+              (nrzi_mod, "nrzi_finish", "finish"),
               (pe_mod, "pe_finish", "finish"),
               (gcr_mod, "gcr_finish", "finish"),
               (tfu, "ww_fused_state", "read-out"),
@@ -1013,7 +1337,8 @@ def time_steps(samples, opts):
         t0 = time.perf_counter()
         dec = None
         if opts.mode != tb.MODE_WW:       # a Whirlwind tape decodes whole
-            dec = tpl.TapeDecoder(samples, opts, device=DEVICE)
+            dec = tpl.TapeDecoder(samples, opts, device=DEVICE,
+                                  kernel_path=kernel_path)
             sync()
             steps["TapeDecoder (scan + upload)"] = [time.perf_counter() - t0,
                                                     1]
@@ -1026,7 +1351,7 @@ def time_steps(samples, opts):
     return wall, steps
 
 
-def busy_share(samples, opts):
+def busy_share(samples, opts, kernel_path):
     """(wall s, CUDA kernel time s) of one decode under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1035,7 +1360,8 @@ def busy_share(samples, opts):
                              ProfilerActivity.CUDA]) as prof:
         sync()
         t0 = time.perf_counter()
-        tpl.decode_tape(samples, opts, device=DEVICE)
+        tpl.decode_tape(samples, opts, device=DEVICE,
+                        kernel_path=kernel_path)
         sync()
         wall = time.perf_counter() - t0
     dev = sum(getattr(e, "self_device_time_total",
@@ -1057,23 +1383,27 @@ def breakdown(card):
           f"{'native tape_scan' if native.available() else 'numpy'}; {card}",
           flush=True)
     _, hdr, samples = bench_tape()
-    tapes = [("NRZI bench", samples, tape_options(hdr, tb.MODE_NRZI, 800))]
+    nrzi = tape_options(hdr, tb.MODE_NRZI, 800)
+    tapes = [("NRZI bench", samples, nrzi, "fused"),
+             ("NRZI bench, tiered", samples, nrzi, "tiered")]
     _, hdr, samples = pe_bench_tape()
-    tapes.append(("PE bench", samples, tape_options(hdr, tb.MODE_PE, 1600)))
+    tapes.append(("PE bench", samples, tape_options(hdr, tb.MODE_PE, 1600),
+                  "fused"))
     _, hdr, samples = gcr_bench_tape()
     tapes.append(("GCR bench", samples,
-                  tape_options(hdr, tb.MODE_GCR, 9042, 25)))
+                  tape_options(hdr, tb.MODE_GCR, 9042, 25), "fused"))
     _, hdr, samples = ww_bench_tape()
-    tapes.append(("WW bench", samples, ww_options(hdr)))
+    tapes.append(("WW bench", samples, ww_options(hdr), "fused"))
     from readtape_tpu_torch.decode import pipeline as tpl
-    for name, samples, opts in tapes:
-        tpl.decode_tape(samples, opts, device=DEVICE)        # warm-up
-        wall, steps = time_steps(samples, opts)
+    for name, samples, opts, path in tapes:
+        tpl.decode_tape(samples, opts, device=DEVICE,
+                        kernel_path=path)                    # warm-up
+        wall, steps = time_steps(samples, opts, path)
         parts = "; ".join(f"{k} {v[0] * 1e3:.2f} ms x{v[1]}"
                           for k, v in steps.items())
         print(f"{name}: synchronized wall {wall * 1e3:.2f} ms; {parts}",
               flush=True)
-        wall, dev, top = busy_share(samples, opts)
+        wall, dev, top = busy_share(samples, opts, path)
         print(f"{name}: profiled wall {wall * 1e3:.2f} ms, device busy "
               f"{dev * 1e3:.2f} ms ({100 * dev / wall:.1f}%); top "
               + ", ".join(f"{k} {ms:.2f} ms" for k, ms in top), flush=True)
@@ -1123,6 +1453,7 @@ def main():
         fail("main", str(e))
     print("phase 4 main: ok, " + "; ".join(
         f"{k} {w:.3f} s, {m:.3f} Msamples/s, {n} launches"
+        if w is not None else f"{k} {n} launches"
         for k, (n, w, m) in runs.items()) + f" ({card})", flush=True)
 
     try:
@@ -1130,13 +1461,17 @@ def main():
     except AssertionError as e:
         fail("golden", str(e))
     print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI, PE, GCR and "
-          f"Whirlwind .tap hashes match", flush=True)
+          f"Whirlwind .tap hashes match, the NRZI ones also through the "
+          f"tiered kernels", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
         fail("golden", "jax or the JAX package was imported")
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),
+                            ("nrzi_track_scan", "b5a main"),
+                            ("nrzi_track_scan_tracks", "b5b main"),
+                            ("nrzi_slot_scan", "b6 main"),
                             ("pe_fused_scan", "pe main"),
                             ("gcr_fused_scan", "gcr main"),
                             ("ww_fused_scan", "ww main")):
@@ -1145,7 +1480,7 @@ def main():
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=runs[name][0],
             max_abs_err=max(v["err"] for k, v in times.items()
-                            if k.startswith(main_case.split()[0])),
+                            if k.split()[0] == main_case.split()[0]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": line}), flush=True)

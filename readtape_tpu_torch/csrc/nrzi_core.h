@@ -1,6 +1,8 @@
-// The NRZI decode state machine shared by the CUDA kernel (nrzi_fused.cu)
-// and a host build used only by the tests. Every function is
-// __host__ __device__ and touches one (segment, parmset) lane.
+// The NRZI decode state machine shared by the CUDA kernels (nrzi_fused.cu:
+// B1, everything in one launch; nrzi_scan.cu: B5, admission alone;
+// nrzi_slot.cu: B6, the slot machine alone) and a host build used only by
+// the tests. Every function is __host__ __device__ and touches one
+// (segment, parmset) lane, or one track of it.
 //
 // Semantics: readtape_tpu/decode/trackscan.py (admission, AGC policy) and
 // readtape_tpu/decode/nrzi.py::nrzi_slot_scan (global slot machine,
@@ -17,8 +19,10 @@
 
 #ifdef __CUDACC__
 #define NRZI_HD __host__ __device__ __forceinline__
+#define NRZI_HDM __host__ __device__ __forceinline__
 #else
 #define NRZI_HD static inline
+#define NRZI_HDM inline
 #endif
 
 #define NRZI_MAX_TRACKS 16
@@ -153,7 +157,9 @@ NRZI_HD int nrzi_next_cand(const uint32_t* words, int nw, int S, int p) {
 
 // ---------------------------------------------------------------------------
 // phase A: one track's admission scan (trackscan.run_jump_scan_seq +
-// nrzi_track_scan_pre + nrzi_agc_policy)
+// nrzi_track_scan_pre + nrzi_agc_policy), over a candidate source: B1's
+// candidate bitmask with features computed from the volts, or B5's masked
+// jump table with precomputed features (NrziMaskSrc / NrziTableSrc)
 // ---------------------------------------------------------------------------
 
 struct NrziFeat {
@@ -186,17 +192,65 @@ NRZI_HD void nrzi_features(const float* v, int S, int s, int W, NrziFeat& f) {
   f.lbot = kb - lo + 1;
 }
 
-NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
-  const int b = lane / a.P, p = lane % a.P, S = a.S, K = a.K;
-  const int nw = nrzi_nwords(a);
-  const float* v = a.volts + ((int64_t)b * a.T + t) * S;
-  const uint32_t* cw = a.cand + ((int64_t)lane * a.T + t) * nw;
-  const int64_t row = ((int64_t)lane * a.T + t) * K;
-  int32_t* tr_s = a.tr_s + row;
-  float* tr_t = a.tr_t + row;
-  float* tr_agc = a.tr_agc + row;
-  const int W = a.p_w[p], aw = a.p_agc_window[p];
-  const float rise = a.p_rise[p], minp = a.p_minp[p], aa = a.p_agc_alpha[p];
+// B1: one track's candidate bitmask; features from the volts
+struct NrziMaskSrc {
+  const float* v;          // [S]
+  const uint32_t* cw;      // [nw]
+  int nw, S;
+  NRZI_HDM int next(int p) const { return nrzi_next_cand(cw, nw, S, p); }
+  NRZI_HDM bool cand(int s) const { return (cw[s >> 5] >> (s & 31)) & 1u; }
+  NRZI_HDM void feat(int s, int W, NrziFeat& f) const { nrzi_features(v, S, s, W, f); }
+};
+
+// B5: one track's masked jump table (nxt[i] = first candidate >= i, S if
+// none) and its precomputed features, rows in trackscan.FEATURES order
+#define NRZI_NFEAT 10
+struct NrziTableSrc {
+  const float* ft;         // [S, NRZI_NFEAT]
+  const int32_t* nxt;      // [S + 1]
+  int S;
+  NRZI_HDM int next(int p) const { return nxt[p < S ? p : S]; }
+  NRZI_HDM bool cand(int s) const { return nxt[s] == s; }
+  NRZI_HDM void feat(int s, int, NrziFeat& f) const {
+    const float* r = ft + (int64_t)s * NRZI_NFEAT;
+    f.wmax = r[0];
+    f.wmin = r[1];
+    f.vleft = r[2];
+    f.vright = r[3];
+    f.ltop = (int)r[4];
+    f.prevmax = r[5];
+    f.nextmax = r[6];
+    f.lbot = (int)r[7];
+    f.prevmin = r[8];
+    f.nextmin = r[9];
+  }
+};
+
+// one parmset's admission knobs
+struct NrziKnobs {
+  int W, aw;
+  float rise, minp, aa;
+};
+
+// where one track's admitted transitions go: [K] buffers (top may be null)
+struct NrziTrack {
+  int32_t* s;
+  float* t;
+  float* agc;
+  int8_t* top;
+  int K;
+};
+
+struct NrziAdmitRes {
+  int n_adm, incomplete;   // incomplete: the cursor stopped before S
+  float max_agc, min_agc;
+};
+
+template <class Src>
+NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
+                                     const NrziKnobs& kn, const NrziTrack& o) {
+  const int K = o.K, W = kn.W, aw = kn.aw;
+  const float rise = kn.rise, minp = kn.minp, aa = kn.aa;
 
   float agc = 1.0f, vah = 4.0f, vah_sum = 0.0f;
   int vah_cnt = 0, hndx = 0, peakcount = 0, n_adm = 0;
@@ -207,18 +261,18 @@ NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
 
   // one step per loop pass, as the JAX XLA scan counts them: a lane stops
   // after max_steps steps (its budget) or when its cursor passes S
-  int pos = nrzi_next_cand(cw, nw, S, 0);
+  int pos = src.next(0);
   int steps = 0;
-  while (pos < S && steps < a.max_steps) {
+  while (pos < S && steps < max_steps) {
     const int s = pos;
     steps += 1;
-    if (!((cw[s >> 5] >> (s & 31)) & 1u)) {
+    if (!src.cand(s)) {
       // a blind jump landed on a non-candidate: reject and snap
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
+      pos = src.next(s + 1);
       continue;
     }
     NrziFeat f;
-    nrzi_features(v, S, s, W, f);
+    src.feat(s, W, f);
     // admission_test (decoder.c:781-810)
     float scale = vah / 4.0f;
     float rise_t = rise * scale / agc;
@@ -229,7 +283,7 @@ NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
     bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
                   (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
     if (!is_top && !is_bot) {
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
+      pos = src.next(s + 1);
       continue;
     }
     // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
@@ -288,19 +342,58 @@ NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
 
     // compact_outputs: overflow keeps the last admission in slot K-1
     int idx = n_adm < K - 1 ? n_adm : K - 1;
-    tr_s[idx] = s;
-    tr_t[idx] = t_peak;
-    tr_agc[idx] = agc;
+    o.s[idx] = s;
+    o.t[idx] = t_peak;
+    o.agc[idx] = agc;
+    if (o.top) o.top[idx] = is_top;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
     pos = s + L + 1;
   }
-  int32_t* ti = a.trk_i + ((int64_t)lane * a.T + t) * N_TI;
-  float* tf = a.trk_f + ((int64_t)lane * a.T + t) * N_TF;
-  ti[TI_NADM] = n_adm;
-  ti[TI_INCOMP] = pos < S;
-  tf[TF_MAXAGC] = max_agc;
-  tf[TF_MINAGC] = min_agc;
+  NrziAdmitRes r;
+  r.n_adm = n_adm;
+  r.incomplete = pos < S;
+  r.max_agc = max_agc;
+  r.min_agc = min_agc;
+  return r;
+}
+
+NRZI_HD NrziKnobs nrzi_knobs(const int32_t* p_w, const int32_t* p_agc_window,
+                             const float* p_rise, const float* p_minp,
+                             const float* p_agc_alpha, int p) {
+  NrziKnobs kn;
+  kn.W = p_w[p];
+  kn.aw = p_agc_window[p];
+  kn.rise = p_rise[p];
+  kn.minp = p_minp[p];
+  kn.aa = p_agc_alpha[p];
+  return kn;
+}
+
+// B1's phase A for track t of a lane
+NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
+  const int b = lane / a.P, p = lane % a.P;
+  const int64_t lt = (int64_t)lane * a.T + t;
+  NrziMaskSrc src;
+  src.v = a.volts + ((int64_t)b * a.T + t) * a.S;
+  src.nw = nrzi_nwords(a);
+  src.cw = a.cand + lt * src.nw;
+  src.S = a.S;
+  NrziTrack o;
+  o.s = a.tr_s + lt * a.K;
+  o.t = a.tr_t + lt * a.K;
+  o.agc = a.tr_agc + lt * a.K;
+  o.top = 0;
+  o.K = a.K;
+  NrziAdmitRes r = nrzi_admit_scan(
+      src, a.S, a.max_steps,
+      nrzi_knobs(a.p_w, a.p_agc_window, a.p_rise, a.p_minp, a.p_agc_alpha, p), o);
+  int32_t* ti = a.trk_i + lt * N_TI;
+  float* tf = a.trk_f + lt * N_TF;
+  ti[TI_NADM] = r.n_adm;
+  ti[TI_INCOMP] = r.incomplete;
+  tf[TF_MAXAGC] = r.max_agc;
+  tf[TF_MINAGC] = r.min_agc;
 }
 
 // ---------------------------------------------------------------------------
@@ -369,25 +462,37 @@ NRZI_HD int nrzi_boundary(float t_lc, float b) {
   return nrzi_f2i(x) + 1;
 }
 
-NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
-  const int p = lane % a.P;
+// one lane of the slot machine: its transition buffers, outputs and knobs
+struct NrziSlotLane {
+  const int32_t* tr_s;     // [T, K] admitted transitions, first count valid
+  const float* tr_t;
+  const float* tr_agc;
+  int8_t* bits;            // [T, maxb], zeroed
+  int32_t* hist;           // [T, 50], zeroed
+  int32_t* trk_i;          // [T, N_TI]: reads TI_NADM; writes DC, KVIS, TRKSUM
+  float* trk_f;            // [T, N_TF]: writes TFIRST, TLAST
+  int32_t* lane_i;         // [N_LI]
+  int T, K, S, maxb, max_slots, do_correct, exp_par, cw;
+  float ca, padj, midbit, spb, lb, bw;
+};
+
+NRZI_HD void nrzi_slot_run(const NrziSlotLane& a) {
   NrziSlot m;
   m.T = a.T;
   m.K = a.K;
   m.S = a.S;
   m.maxb = a.maxb;
-  const int64_t row = (int64_t)lane * a.T * a.K;
-  m.tr_s = a.tr_s + row;
-  m.tr_t = a.tr_t + row;
-  m.tr_agc = a.tr_agc + row;
-  m.bits = a.bits + (int64_t)lane * a.T * a.maxb;
-  m.hist = a.hist + (int64_t)lane * a.T * 50;
-  const int32_t* ti_in = a.trk_i + (int64_t)lane * a.T * N_TI;
-  const int cw = a.p_clk_window[p];
-  const float ca = a.p_clk_alpha[p], padj = a.p_pulse_adj[p], midbit = a.p_midbit[p];
+  m.tr_s = a.tr_s;
+  m.tr_t = a.tr_t;
+  m.tr_agc = a.tr_agc;
+  m.bits = a.bits;
+  m.hist = a.hist;
+  const int32_t* ti_in = a.trk_i;
+  const int cw = a.cw;
+  const float ca = a.ca, padj = a.padj, midbit = a.midbit;
   const float spb = a.spb;
-  m.lb = a.stat_lb;
-  m.bw = a.stat_bw;
+  m.lb = a.lb;
+  m.bw = a.bw;
 
   bool any = false;
   int first_key = NRZI_BIG_S;
@@ -521,8 +626,8 @@ NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
     if (past_end) done = true;
   }
 
-  int32_t* ti = a.trk_i + (int64_t)lane * a.T * N_TI;
-  float* tf = a.trk_f + (int64_t)lane * a.T * N_TF;
+  int32_t* ti = a.trk_i;
+  float* tf = a.trk_f;
   for (int t = 0; t < m.T; ++t) {
     ti[t * N_TI + TI_DC] = m.dc[t];
     ti[t * N_TI + TI_KVIS] = m.kvis[t];
@@ -530,13 +635,43 @@ NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
     tf[t * N_TF + TF_TFIRST] = m.tfirst[t];
     tf[t * N_TF + TF_TLAST] = m.tlast[t];
   }
-  int32_t* li = a.lane_i + (int64_t)lane * N_LI;
+  int32_t* li = a.lane_i;
   li[LI_MISSMID] = m.missed;
   li[LI_CORR] = corrected;
   li[LI_FAKED] = faked;
   li[LI_CONSOVF] = m.overflow;
   li[LI_ENDS] = end_s;
   li[LI_NSLOT] = nslot;
+}
+
+// B1's phase B for a lane, over the buffers phase A filled
+NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
+  const int p = lane % a.P;
+  const int64_t row = (int64_t)lane * a.T;
+  NrziSlotLane L;
+  L.tr_s = a.tr_s + row * a.K;
+  L.tr_t = a.tr_t + row * a.K;
+  L.tr_agc = a.tr_agc + row * a.K;
+  L.bits = a.bits + row * a.maxb;
+  L.hist = a.hist + row * 50;
+  L.trk_i = a.trk_i + row * N_TI;
+  L.trk_f = a.trk_f + row * N_TF;
+  L.lane_i = a.lane_i + (int64_t)lane * N_LI;
+  L.T = a.T;
+  L.K = a.K;
+  L.S = a.S;
+  L.maxb = a.maxb;
+  L.max_slots = a.max_slots;
+  L.do_correct = a.do_correct;
+  L.exp_par = a.exp_par;
+  L.cw = a.p_clk_window[p];
+  L.ca = a.p_clk_alpha[p];
+  L.padj = a.p_pulse_adj[p];
+  L.midbit = a.p_midbit[p];
+  L.spb = a.spb;
+  L.lb = a.stat_lb;
+  L.bw = a.stat_bw;
+  nrzi_slot_run(L);
 }
 
 // zero one lane's bit buffer and histogram (threads tid of n cooperate)
@@ -546,4 +681,113 @@ NRZI_HD void nrzi_zero_lane(const NrziArgs& a, int lane, int tid, int n) {
   for (int64_t i = tid; i < nb; i += n) bits[i] = 0;
   int32_t* hist = a.hist + (int64_t)lane * a.T * 50;
   for (int i = tid; i < a.T * 50; i += n) hist[i] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// B5 (admission alone) and B6 (the slot machine alone), one lane each; the
+// kernels of nrzi_scan.cu and nrzi_slot.cu call these per thread. Their
+// outputs come pre-filled from the wrapper (kernels.py): transition buffers
+// with compact_outputs' fill (BIG_S, 0.0, 1.0, false), bits and hist zeroed
+// ---------------------------------------------------------------------------
+
+struct NrziScanArgs {
+  const float* feat;         // [G*B*T, S, NRZI_NFEAT], row (g*B + b)*T + t
+  const int32_t* nxt;        // [B*T, S+1] masked jump tables
+  const int32_t* grp;        // [P] feature group of each parmset
+  const int32_t* p_w;        // [P] window width
+  const int32_t* p_agc_window;
+  const float* p_rise;
+  const float* p_minp;
+  const float* p_agc_alpha;
+  int32_t* tr_s;             // [B, P, T, K]
+  float* tr_t;
+  float* tr_agc;
+  int8_t* tr_top;
+  int32_t* n_admitted;       // [B, P, T]
+  float* max_agc_gain;
+  float* min_agc_gain;
+  int8_t* incomplete;
+  int32_t B, P, T, S, G, K, max_steps;
+};
+
+// lane = (b*P + p)*T + t. incomplete: the cursor stopped before S (the
+// step budget) or admissions overflowed the K buffer entries
+NRZI_HD void nrzi_scan_lane(const NrziScanArgs& a, int lane) {
+  const int t = lane % a.T, bp = lane / a.T;
+  const int p = bp % a.P, b = bp / a.P;
+  NrziTableSrc src;
+  src.ft = a.feat + (((int64_t)a.grp[p] * a.B + b) * a.T + t) * a.S * NRZI_NFEAT;
+  src.nxt = a.nxt + ((int64_t)b * a.T + t) * (a.S + 1);
+  src.S = a.S;
+  NrziTrack o;
+  o.s = a.tr_s + (int64_t)lane * a.K;
+  o.t = a.tr_t + (int64_t)lane * a.K;
+  o.agc = a.tr_agc + (int64_t)lane * a.K;
+  o.top = a.tr_top + (int64_t)lane * a.K;
+  o.K = a.K;
+  NrziAdmitRes r = nrzi_admit_scan(
+      src, a.S, a.max_steps,
+      nrzi_knobs(a.p_w, a.p_agc_window, a.p_rise, a.p_minp, a.p_agc_alpha, p), o);
+  a.n_admitted[lane] = r.n_adm;
+  a.max_agc_gain[lane] = r.max_agc;
+  a.min_agc_gain[lane] = r.min_agc;
+  a.incomplete[lane] = r.incomplete || r.n_adm > a.K;
+}
+
+struct NrziSlotArgs {
+  const int32_t* tr_s;       // [B*P, T, K] (nrzi_scan's outputs)
+  const float* tr_t;
+  const float* tr_agc;
+  const int32_t* n_admitted; // [B*P, T]
+  const float* max_agc_gain;
+  const float* min_agc_gain;
+  const int8_t* incomplete;
+  const int32_t* p_clk_window;   // [P]
+  const float* p_clk_alpha;
+  const float* p_pulse_adj;
+  const float* p_midbit;
+  int8_t* bits;              // [B*P, T, maxb], zeroed
+  int32_t* hist;             // [B*P, T, 50], zeroed
+  int32_t* trk_i;            // [B*P, T, N_TI]
+  float* trk_f;              // [B*P, T, N_TF]
+  int32_t* lane_i;           // [B*P, N_LI]
+  int32_t B, P, T, S, K, maxb, max_slots, do_correct, exp_par;
+  float spb, stat_lb, stat_bw;
+};
+
+// lane = b*P + p: copy the admission's per-track fields into B1's output
+// columns, then run the slot machine over the lane's buffers
+NRZI_HD void nrzi_slot_lane(const NrziSlotArgs& a, int lane) {
+  const int p = lane % a.P;
+  const int64_t row = (int64_t)lane * a.T;
+  NrziSlotLane L;
+  L.trk_i = a.trk_i + row * N_TI;
+  L.trk_f = a.trk_f + row * N_TF;
+  for (int t = 0; t < a.T; ++t) {
+    L.trk_i[t * N_TI + TI_NADM] = a.n_admitted[row + t];
+    L.trk_i[t * N_TI + TI_INCOMP] = a.incomplete[row + t] != 0;
+    L.trk_f[t * N_TF + TF_MAXAGC] = a.max_agc_gain[row + t];
+    L.trk_f[t * N_TF + TF_MINAGC] = a.min_agc_gain[row + t];
+  }
+  L.tr_s = a.tr_s + row * a.K;
+  L.tr_t = a.tr_t + row * a.K;
+  L.tr_agc = a.tr_agc + row * a.K;
+  L.bits = a.bits + row * a.maxb;
+  L.hist = a.hist + row * 50;
+  L.lane_i = a.lane_i + (int64_t)lane * N_LI;
+  L.T = a.T;
+  L.K = a.K;
+  L.S = a.S;
+  L.maxb = a.maxb;
+  L.max_slots = a.max_slots;
+  L.do_correct = a.do_correct;
+  L.exp_par = a.exp_par;
+  L.cw = a.p_clk_window[p];
+  L.ca = a.p_clk_alpha[p];
+  L.padj = a.p_pulse_adj[p];
+  L.midbit = a.p_midbit[p];
+  L.spb = a.spb;
+  L.lb = a.stat_lb;
+  L.bw = a.stat_bw;
+  nrzi_slot_run(L);
 }

@@ -82,18 +82,18 @@ import torch
 from .. import kernels
 from . import common as cm
 from . import gcr as gcr_mod
-from . import nrzi as nrzi_mod
 from . import pe as pe_mod
+from . import scan as scan_mod
+from . import slot as slot_mod
 from . import trackscan
 from . import ww as ww_mod
 from .common import F32, I32
+# FusedOut's columns (decode/slot.py writes the same layout)
+from .slot import (LI_CONSOVF, LI_CORR, LI_ENDS, LI_FAKED,  # noqa: F401
+                   LI_MISSMID, LI_NSLOT, N_LI, N_TF, N_TI, TF_MAXAGC,
+                   TF_MINAGC, TF_TFIRST, TF_TLAST, TI_DC, TI_INCOMP,
+                   TI_KVIS, TI_NADM, TI_TRKSUM)
 
-(TI_DC, TI_KVIS, TI_NADM, TI_TRKSUM, TI_INCOMP) = range(5)
-N_TI = 5
-(TF_TFIRST, TF_TLAST, TF_MAXAGC, TF_MINAGC) = range(4)
-N_TF = 4
-(LI_MISSMID, LI_CORR, LI_FAKED, LI_CONSOVF, LI_ENDS, LI_NSLOT) = range(6)
-N_LI = 6
 (PI_DC, PI_PEAKCNT, PI_CORR, PI_TRKSUM, PI_INCOMP, PI_NTOTAL) = range(6)
 N_PI = 6
 (PL_TAU, PL_GAVEUP, PL_CAND_AFTER, PL_CAND_RACE) = range(4)
@@ -114,9 +114,9 @@ N_WT = 4
 N_WS = 6
 WW_MAX_SAMPLES = 1 << 30   # positions stay int32 below the BIG_S sentinel
 
-MAX_TRACKS = 16            # the kernel keeps per-track slot state in arrays
-MAX_AGC_RING = 16
-MAX_CLK_RING = 64
+MAX_TRACKS = kernels.NRZI_MAX_TRACKS
+MAX_AGC_RING = kernels.NRZI_MAX_AGC_RING
+MAX_CLK_RING = kernels.NRZI_MAX_CLK_RING
 
 
 def _mask_jump_table(nxt, seg_len, lead_len, S: int):
@@ -195,63 +195,21 @@ def nrzi_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *,
                           K: int, max_steps: int):
     """The plain PyTorch version of the kernel (same arguments and
     outputs as nrzi_fused_scan): union jump table -> per-lane admission
-    scans -> slot scans."""
+    scans (scan.scan_lanes) -> slot scans (slot.slot_lanes), the plain
+    versions of B5 and B6 without their counters."""
     nrzi_fused_scan_plain.calls += 1
     _check(volts, seg_lens, leads, Ws, rise_floor, K, maxb, max_slots,
            max_steps)
-    dev = volts.device
-    B, T, S = volts.shape
-    P = len(Ws)
+    S = volts.shape[-1]
     nxt = _mask_jump_table(_union_jump_table(volts, Ws, rise_floor,
                                              min_floor),
                            seg_lens, leads, S)                # [B, T, S+1]
-    wset = sorted(set(Ws))
-    G = len(wset)
-    feat = torch.stack([trackscan.precompute_window_features(volts, W)
-                        .transpose(-1, -2) for W in wset])   # [G,B,T,S,10]
-    feat = feat.reshape(G * B * T, S, trackscan.N_FEAT)
-
-    # lanes in (b, p, t) order
-    b_i = torch.arange(B, device=dev).view(B, 1, 1).expand(B, P, T)
-    p_i = torch.arange(P, device=dev).view(1, P, 1).expand(B, P, T)
-    t_i = torch.arange(T, device=dev).view(1, 1, T).expand(B, P, T)
-    grp = torch.as_tensor([wset.index(w) for w in Ws], device=dev)
-    src = ((grp[p_i] * B + b_i) * T + t_i).reshape(-1)
-    nsrc = (b_i * T + t_i).reshape(-1)
-    pl = p_i.reshape(-1)
-    W_l = torch.as_tensor(Ws, dtype=I32, device=dev)[pl]
-    agc_ring = max(int(pa.agc_window.max()), 1)
-    fin = trackscan.nrzi_track_scan_pre(
-        feat, src, nxt.reshape(B * T, S + 1), nsrc, W_l, S, K, max_steps,
-        pa.pkww_rise[pl], pa.min_peak[pl], pa.agc_alpha[pl],
-        pa.agc_window[pl], agc_ring=agc_ring)
-
-    def lanes(x):
-        return x.reshape((B * P, T) + x.shape[1:])
-    pp = torch.arange(P, device=dev).repeat(B)
-    clk_ring = max(int(pa.clk_window.max()), 1)
-    st = nrzi_mod.nrzi_slot_scan(
-        lanes(fin["tr_s"]), lanes(fin["tr_t"]), lanes(fin["tr_agc"]),
-        lanes(fin["n_admitted"]), S, spb,
-        pa.clk_window[pp], pa.clk_alpha[pp], pa.pulse_adj[pp],
-        pa.midbit[pp], expected_parity, do_correct, maxb, max_slots,
-        stat_lb, stat_bw, clk_ring=clk_ring)
-
-    trk_i = torch.stack([st["dc"], st["kvis"], lanes(fin["n_admitted"]),
-                         st["trksums"],
-                         lanes(fin["incomplete"]).to(I32)], dim=-1)
-    trk_f = torch.stack([st["t_firstbit"], st["t_lastbit"],
-                         lanes(fin["max_agc_gain"]),
-                         lanes(fin["min_agc_gain"])], dim=-1)
-    lane_i = torch.stack([st["missed_midbits"], st["corrected_bits"],
-                          st["faked_tracks"],
-                          st["consume_overflow"].to(I32), st["end_s"],
-                          st["nslots"]], dim=-1)
-    return dict(bits=st["bits"].reshape(B, P, T, maxb),
-                hist=st["hist"].reshape(B, P, T, 50),
-                trk_i=trk_i.reshape(B, P, T, N_TI).to(I32),
-                trk_f=trk_f.reshape(B, P, T, N_TF),
-                lane_i=lane_i.reshape(B, P, N_LI).to(I32))
+    fin = scan_mod.scan_lanes(scan_mod.window_features(volts, Ws), nxt, pa,
+                              Ws, K, max_steps)
+    return slot_mod.slot_lanes(
+        fin, pa, S=S, spb=spb, expected_parity=expected_parity,
+        do_correct=do_correct, maxb=maxb, max_slots=max_slots,
+        stat_lb=stat_lb, stat_bw=stat_bw)
 
 
 nrzi_fused_scan_plain.calls = 0

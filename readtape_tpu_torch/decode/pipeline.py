@@ -21,14 +21,22 @@ Whirlwind tapes decode whole, in one pass (``_decode_tape_ww``): one
 ww_fused_scan call over the prepared tape, then block assembly on the
 host; ``-deskew`` adds a calibration pass before it.
 
+NRZI runs one of two kernel paths (``kernel_path``): "fused" (B1, one
+kernel per batch) or "tiered" (admission alone, B5a or B5b, then the slot
+machine alone, B6), the JAX package's READTAPE_FUSED=0 tier.
+
+A tape of unknown density (bpi <= 0; NRZI and PE, as the JAX command line
+detects it) first goes through ``TapeDecoder.detect_density``.
+
 9/7-track NRZI, 9-track PE, 9-track GCR and 6-track Whirlwind, without
--zeros, -adjskew, -correctdbg, -parmscan and with a known density, are
-ported; anything else raises NotImplementedError naming the option. The
-entry points run on the card ("cuda") unless the caller asks for the CPU.
+-zeros, -adjskew, -correctdbg and -parmscan, are ported; anything else
+raises NotImplementedError naming the option. The entry points run on
+the card ("cuda") unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -42,7 +50,10 @@ from . import fused as fused_mod
 from . import gcr as gcr_mod
 from . import nrzi as nrzi_mod
 from . import pe as pe_mod
+from . import scan as scan_mod
 from . import segment as seg
+from . import slot as slot_mod
+from . import trackscan
 from . import ww as ww_mod
 from .common import F32, I32, ParmArrays
 
@@ -58,6 +69,9 @@ DIFFERENTIATE_SCALE = 0.4
 # lanes (segments x parmsets x samples) per device batch, as the JAX
 # package caps them
 MAX_BATCH_ELEMS = 16 * 32768
+
+KERNEL_PATHS = ("fused", "tiered")
+STANDARD_DENSITIES = (200.0, 556.0, 800.0, 1600.0, 9042.0)
 
 
 @dataclass
@@ -114,17 +128,27 @@ class BlockResult:
     t_end: float = 0.0
 
 
-def check_supported(opts: DecodeOptions):
+def check_supported(opts: DecodeOptions, kernel_path: str = "fused"):
     """Raise NotImplementedError for what this slice of the port does not
-    run yet."""
+    run yet, ValueError for a kernel path the mode does not have."""
     if opts.mode not in (tb.MODE_NRZI, tb.MODE_PE, tb.MODE_GCR, tb.MODE_WW):
         raise NotImplementedError(
             f"mode {tb.MODE_NAMES.get(opts.mode, opts.mode)}")
+    if kernel_path not in KERNEL_PATHS:
+        raise ValueError(f"kernel_path {kernel_path!r}: one of "
+                         f"{KERNEL_PATHS}")
+    if kernel_path == "tiered" and opts.mode != tb.MODE_NRZI:
+        raise ValueError("kernel_path 'tiered' is NRZI's")
+    # the JAX command line detects the density of NRZI and PE tapes only
+    # (GCR is always 9042 bpi, Whirlwind 100)
     for flag, name in ((opts.find_zeros, "-zeros"),
                        (opts.adjskew, "-adjskew"),
                        (opts.do_correct_debug, "-correctdbg"),
                        (opts.parmscan, "-parmscan"),
-                       (opts.bpi <= 0, "density detection (bpi <= 0)")):
+                       (opts.bpi <= 0 and opts.mode not in (tb.MODE_NRZI,
+                                                            tb.MODE_PE),
+                        "density detection (bpi <= 0) of a "
+                        f"{tb.MODE_NAMES.get(opts.mode, opts.mode)} tape")):
         if flag:
             raise NotImplementedError(name)
 
@@ -167,6 +191,20 @@ def _segment_volts(tape, offsets, S, maxvolts, invert_sign, skew_delay,
                        apply_skew=skew_on).contiguous()
 
 
+def _nrzi_results(out, T, expected_parity, revparity, maxb):
+    """A FusedOut (B1's, or B6's) through fused_state and nrzi_finish,
+    plus the fields the pipeline reads beside the block results."""
+    st = fused_mod.fused_state(out)
+    r = nrzi_mod.nrzi_finish(st, T, expected_parity, revparity, maxb)
+    r["end_s"] = st["end_s"]
+    r["unconsumed"] = torch.clamp_min(st["n_admitted"] - st["kvis"],
+                                      0).sum(dim=-1).to(I32)
+    r["alltrk_max_agc"] = st["max_agc_gain"].amax(dim=-1)
+    r["alltrk_min_agc"] = st["min_agc_gain"].amin(dim=-1)
+    r["event_overflow"] = st["incomplete"].any(dim=-1)
+    return r
+
+
 def _nrzi_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
                       skew_delay, pa: ParmArrays, spb, expected_parity,
                       revparity, rise_floor, min_floor, stat_leftbin,
@@ -184,15 +222,37 @@ def _nrzi_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
         min_floor=min_floor, stat_lb=stat_leftbin, stat_bw=stat_binwidth,
         expected_parity=expected_parity, spb=spb, do_correct=do_correct,
         maxb=maxb, max_slots=max_slots, K=K, max_steps=max_steps)
-    st = fused_mod.fused_state(out)
-    r = nrzi_mod.nrzi_finish(st, T, expected_parity, revparity, maxb)
-    r["end_s"] = st["end_s"]
-    r["unconsumed"] = torch.clamp_min(st["n_admitted"] - st["kvis"],
-                                      0).sum(dim=-1).to(I32)
-    r["alltrk_max_agc"] = st["max_agc_gain"].amax(dim=-1)
-    r["alltrk_min_agc"] = st["min_agc_gain"].amin(dim=-1)
-    r["event_overflow"] = st["incomplete"].any(dim=-1)
-    return r
+    return _nrzi_results(out, T, expected_parity, revparity, maxb)
+
+
+def _nrzi_group_tiered(tape, offsets, seg_lens, leads, maxvolts,
+                       invert_sign, skew_delay, pa: ParmArrays, spb,
+                       expected_parity, revparity, rise_floor, min_floor,
+                       stat_leftbin, stat_binwidth, *, S, T, maxb,
+                       max_slots, K, max_steps, Ws, do_correct,
+                       differentiate, spb_int, skew_on):
+    """The tiered counterpart of _nrzi_group_fused (the JAX package's
+    _nrzi_group_pallas): volts prep, the masked union jump table, window
+    features per distinct width, admission alone (B5b when every parmset
+    shares one width, else B5a) with no step budget, as the TPU kernels
+    have none, then the slot machine alone (B6) and nrzi_finish. max_steps
+    is not used. Returns device tensors with leading [B, P] axes."""
+    volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
+                           skew_delay, differentiate, spb_int, skew_on)
+    nxt = fused_mod._mask_jump_table(
+        fused_mod._union_jump_table(volts, Ws, rise_floor, min_floor),
+        seg_lens, leads, S)
+    feat = scan_mod.window_features(volts, Ws)
+    del volts
+    admit = (scan_mod.nrzi_track_scan_tracks if len(set(Ws)) == 1
+             else scan_mod.nrzi_track_scan)
+    fin = admit(feat, nxt, pa, Ws=Ws, K=K)
+    del feat, nxt
+    out = slot_mod.nrzi_slot_scan(
+        fin, pa, S=S, spb=spb, expected_parity=expected_parity,
+        do_correct=do_correct, maxb=maxb, max_slots=max_slots,
+        stat_lb=stat_leftbin, stat_bw=stat_binwidth)
+    return _nrzi_results(out, T, expected_parity, revparity, maxb)
 
 
 def _pe_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
@@ -382,16 +442,18 @@ class TapeDecoder:
     """Holds the device-resident tape and runs decode passes over it.
 
     The int16 tape uploads once, [T, N] on `device`; activity and the
-    height estimate come from the host (segment.host_activity)."""
+    height estimate come from the host (segment.host_activity).
+    kernel_path: "fused" (B1) or, for NRZI, "tiered" (B5 then B6)."""
 
     def __init__(self, samples: np.ndarray, opts: DecodeOptions, *,
-                 device="cuda"):
-        check_supported(opts)
+                 device="cuda", kernel_path: str = "fused"):
+        check_supported(opts, kernel_path)
         if opts.mode == tb.MODE_WW:
             raise ValueError("a Whirlwind tape decodes whole: call "
                              "decode_tape")
         self.device = _device(device, samples)
         self.opts = opts
+        self.kernel_path = kernel_path
         samples = permute_heads(samples, opts.head_to_trk)
         self.n_samples = samples.shape[0]
         self.h_est, self._act = seg.host_activity(samples, opts.maxvolts)
@@ -407,7 +469,11 @@ class TapeDecoder:
     # ---- segmentation ----
     def segments(self):
         opts = self.opts
-        spb = opts.spb
+        # an unknown density (bpi <= 0, before detect_density) segments
+        # with a provisional 1600 bpi: detection needs active regions, not
+        # exact block boundaries
+        spb = (opts.spb if opts.bpi > 0
+               else 1.0 / (1600.0 * opts.ips * opts.deltat))
         blank = 0
         if opts.mode == tb.MODE_PE:
             # a PE track goes idle 2.5 bit times after its last peak
@@ -505,8 +571,10 @@ class TapeDecoder:
         if opts.mode == tb.MODE_GCR:
             return _gcr_group_fused(*args, do_correct=opts.do_correct,
                                     do_correct2=opts.do_correct2, **kw)
-        return _nrzi_group_fused(*args, max_slots=max_slots, K=K,
-                                 do_correct=opts.do_correct, **kw)
+        group = (_nrzi_group_tiered if self.kernel_path == "tiered"
+                 else _nrzi_group_fused)
+        return group(*args, max_slots=max_slots, K=K,
+                     do_correct=opts.do_correct, **kw)
 
     def decode_segment_batch(self, spans, bucket=None, nparms=None):
         """Decode a batch of same-bucket segments; host numpy results with
@@ -553,6 +621,66 @@ class TapeDecoder:
         self.deskew_percent = float((maxavg - avg.min()) / bitspace_us * 100)
         return True
 
+    # ---- density detection (decoder.c:329-394) ----
+    def detect_density(self, segments):
+        """The JAX package's TapeDecoder.detect_density: admission alone
+        (window 8, parmset 0's knobs, the XLA scan's step budget) over the
+        leading segments until 9999 transition deltas, then the host-side
+        histogram of their spacings. On the card the admission runs B5b
+        (decode/scan.py), on the CPU its plain version. Returns (standard
+        density, raw estimate) in bpi; raises RuntimeError if none fits."""
+        opts = self.opts
+        T, dev = opts.ntrks, self.device
+        p0 = opts.parmsets[0]
+        pa0 = self.pa.select([0])
+        scale = min(1.0, self.h_est / cm.PKWW_PEAKHEIGHT)
+        rise_floor = torch.full((T,), p0.pkww_rise * scale / 2 * 0.8,
+                                dtype=F32, device=dev)
+        min_floor = torch.full((T,), p0.min_peak * scale / 2 * 0.8,
+                               dtype=F32, device=dev)
+        vscale = float(np.float32(opts.maxvolts / 32767.0))
+        deltas = []
+        total = 0
+        for (a, b) in segments:
+            S = seg.bucket_length(b - a)
+            v = self._tape_padded(b)[:, a:b]
+            v = torch.nn.functional.pad(v, (0, S - v.shape[1]))
+            vf = v.to(F32) * vscale
+            if opts.invert:
+                vf = -vf
+            nxt = trackscan.loose_jump_table(vf, 8, rise_floor, min_floor)
+            fin = scan_mod.nrzi_track_scan_tracks(
+                scan_mod.window_features(vf[None], (8,)), nxt[None], pa0,
+                Ws=(8,), K=max(512, S // 6),
+                max_steps=fused_mod.scan_step_budget(max(512, S // 4)))
+            n_adm = fin["n_admitted"][0, 0].cpu().numpy()
+            t_peak = fin["tr_t"][0, 0].cpu().numpy()
+            for trk in range(T):
+                t = t_peak[trk][:n_adm[trk]] * opts.deltat
+                d = np.diff(t)
+                deltas.append(d[(d > 0) & (d <= 120e-6)])
+                total += len(deltas[-1])
+            if total >= 9999:
+                break
+        if not deltas:
+            raise RuntimeError("density detection failed: no transitions")
+        d = np.concatenate(deltas)
+        bins = (d / 0.5e-6).astype(int)
+        counts = np.bincount(bins)
+        need = len(d) * 0.05
+        ok = np.nonzero(counts > need)[0]
+        if len(ok) == 0:
+            raise RuntimeError("density detection failed")
+        mindist = ok.min()
+        density = 1.0 / (opts.ips * (mindist + 0.5) * 0.5e-6)
+        if opts.mode == tb.MODE_PE:
+            density /= 2
+        for std in STANDARD_DENSITIES:
+            if abs(density - std) < std * 0.20:
+                return std, density
+        raise RuntimeError(f"non-standard density {density:.0f} BPI "
+                           "detected; please specify -bpi")
+
 
 def _device(device, samples: np.ndarray) -> torch.device:
     """The decode's device, after the checks every entry point makes."""
@@ -566,17 +694,28 @@ def _device(device, samples: np.ndarray) -> torch.device:
 
 
 def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device="cuda",
-                decoder: TapeDecoder = None):
+                decoder: TapeDecoder = None, kernel_path: str = "fused"):
     """Decode a whole NRZI, PE, GCR or Whirlwind tape on `device` ("cuda"
     runs the kernels, "cpu" the plain versions). Returns (blocks, stats
     dict). decoder: reuse a TapeDecoder whose tape is already resident (its
-    device wins; NRZI, PE and GCR only)."""
+    device and kernel path win; NRZI, PE and GCR only). kernel_path: NRZI's
+    "fused" (B1) or "tiered" (B5 + B6) kernels. With opts.bpi <= 0 (NRZI
+    and PE) the density is detected first, as the JAX command line does,
+    and the tape decodes at the standard density found; stats["density"]
+    is then (standard, raw estimate)."""
     if opts.mode == tb.MODE_WW:
-        check_supported(opts)
+        check_supported(opts, kernel_path)
         return _decode_tape_ww(samples, opts, _device(device, samples))
     dec = (decoder if decoder is not None
-           else TapeDecoder(samples, opts, device=device))
-    return _decode_tape_blocks(dec, opts)
+           else TapeDecoder(samples, opts, device=device,
+                            kernel_path=kernel_path))
+    if opts.bpi > 0:
+        return _decode_tape_blocks(dec, opts)
+    density = dec.detect_density(dec.segments())
+    dec.opts = opts = dataclasses.replace(opts, bpi=density[0])
+    blocks, stats = _decode_tape_blocks(dec, opts)
+    stats["density"] = density
+    return blocks, stats
 
 
 def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):

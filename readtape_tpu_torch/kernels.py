@@ -45,6 +45,29 @@ class NrziArgs(ctypes.Structure):
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
 
+class NrziScanArgs(ctypes.Structure):
+    """csrc/nrzi_core.h::NrziScanArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "feat", "nxt", "grp", "p_w", "p_agc_window", "p_rise", "p_minp",
+        "p_agc_alpha", "tr_s", "tr_t", "tr_agc", "tr_top", "n_admitted",
+        "max_agc_gain", "min_agc_gain", "incomplete")] + [
+        (n, ctypes.c_int32) for n in ("B", "P", "T", "S", "G", "K",
+                                      "max_steps")]
+
+
+class NrziSlotArgs(ctypes.Structure):
+    """csrc/nrzi_core.h::NrziSlotArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "tr_s", "tr_t", "tr_agc", "n_admitted", "max_agc_gain",
+        "min_agc_gain", "incomplete", "p_clk_window", "p_clk_alpha",
+        "p_pulse_adj", "p_midbit", "bits", "hist", "trk_i", "trk_f",
+        "lane_i")] + [
+        (n, ctypes.c_int32) for n in (
+            "B", "P", "T", "S", "K", "maxb", "max_slots", "do_correct",
+            "exp_par")] + [
+        (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
+
+
 class PeArgs(ctypes.Structure):
     """csrc/pe_core.h::PeArgs, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
@@ -90,7 +113,9 @@ class WwArgs(ctypes.Structure):
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
 GCR_N_GR = 5
 # the launch functions of the library and their argument blocks
-LAUNCHES = {"nrzi_fused_launch": NrziArgs, "pe_fused_launch": PeArgs,
+LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
+            "nrzi_scan_tracks_launch": NrziScanArgs,
+            "nrzi_slot_launch": NrziSlotArgs, "pe_fused_launch": PeArgs,
             "gcr_fused_launch": GcrArgs, "ww_fused_launch": WwArgs}
 # the parmset knobs every kernel reads: argument field -> ParmArrays field
 _KNOBS = dict(p_agc_window="agc_window", p_clk_window="clk_window",
@@ -98,6 +123,9 @@ _KNOBS = dict(p_agc_window="agc_window", p_clk_window="clk_window",
               p_agc_alpha="agc_alpha", p_clk_alpha="clk_alpha",
               p_pulse_adj="pulse_adj")
 I32, F32, I8 = torch.int32, torch.float32, torch.int8
+BIG_S = 2 ** 30            # tr_s fill past each track's admissions
+# csrc/nrzi_core.h's per-lane arrays: tracks, the AGC and clock rings
+NRZI_MAX_TRACKS, NRZI_MAX_AGC_RING, NRZI_MAX_CLK_RING = 16, 16, 64
 
 
 def _nvcc() -> str:
@@ -198,9 +226,9 @@ def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
 
 
 def _launch(name, prepare, volts, *args, **kw):
-    """Prepare and launch csrc/<name>.cu on volts' CUDA device, on
-    PyTorch's current stream (no synchronisation); raise if the launch is
-    refused."""
+    """Prepare and launch the library's <name>_launch on volts' CUDA
+    device, on PyTorch's current stream (no synchronisation); raise if the
+    launch is refused."""
     lib = load()
     with torch.cuda.device(volts.device):
         block, out, keep = prepare(volts, *args, **kw)
@@ -237,6 +265,88 @@ def nrzi_fused(volts, seg_lens, leads, pa, **kw):
     """Launch csrc/nrzi_fused.cu. Arguments and outputs as
     decode.fused.nrzi_fused_scan."""
     return _launch("nrzi_fused", nrzi_prepare, volts, seg_lens, leads, pa,
+                   **kw)
+
+
+def _knob_tensors(pa, dev, **fields):
+    """The parmset knobs a kernel reads (argument field -> ParmArrays
+    field), each a contiguous tensor on dev."""
+    return {f: getattr(pa, n).to(dev).contiguous() for f, n in fields.items()}
+
+
+def nrzi_scan_prepare(feat, nxt, pa, *, Ws, K, max_steps):
+    """The NrziScanArgs block and pre-filled outputs of one nrzi_scan
+    launch (_prepare's return). Arguments and outputs as
+    decode.scan.nrzi_track_scan."""
+    dev = feat.device
+    G, B, T, S, _ = feat.shape
+    P = len(Ws)
+    wset = sorted(set(Ws))
+    ins = dict(feat=feat.contiguous(), nxt=nxt.to(I32).contiguous(),
+               grp=torch.as_tensor([wset.index(w) for w in Ws], dtype=I32,
+                                   device=dev),
+               p_w=torch.as_tensor(list(Ws), dtype=I32, device=dev),
+               **_knob_tensors(pa, dev, p_agc_window="agc_window",
+                               p_rise="pkww_rise", p_minp="min_peak",
+                               p_agc_alpha="agc_alpha"))
+    shape = (B, P, T, K)
+    out = dict(tr_s=torch.full(shape, BIG_S, dtype=I32, device=dev),
+               tr_t=torch.zeros(shape, dtype=F32, device=dev),
+               tr_agc=torch.ones(shape, dtype=F32, device=dev),
+               tr_top=torch.zeros(shape, dtype=torch.bool, device=dev),
+               n_admitted=torch.empty((B, P, T), dtype=I32, device=dev),
+               max_agc_gain=torch.empty((B, P, T), dtype=F32, device=dev),
+               min_agc_gain=torch.empty((B, P, T), dtype=F32, device=dev),
+               incomplete=torch.empty((B, P, T), dtype=torch.bool,
+                                      device=dev))
+    ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
+    args = NrziScanArgs(**ptrs, B=B, P=P, T=T, S=S, G=G, K=K,
+                        max_steps=max_steps)
+    return args, out, ins
+
+
+def nrzi_scan(feat, nxt, pa, **kw):
+    """Launch csrc/nrzi_scan.cu's B5a entry (parmsets of any widths).
+    Arguments and outputs as decode.scan.nrzi_track_scan."""
+    return _launch("nrzi_scan", nrzi_scan_prepare, feat, nxt, pa, **kw)
+
+
+def nrzi_scan_tracks(feat, nxt, pa, **kw):
+    """Launch csrc/nrzi_scan.cu's B5b entry (one shared width, G = 1)."""
+    return _launch("nrzi_scan_tracks", nrzi_scan_prepare, feat, nxt, pa,
+                   **kw)
+
+
+def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
+                      do_correct, maxb, max_slots, stat_lb, stat_bw):
+    """The NrziSlotArgs block and zeroed outputs of one nrzi_slot launch
+    (_prepare's return). fin: nrzi_scan's outputs (tr_s is fin's, first so
+    that _launch finds the device). Outputs as decode.fused.FusedOut."""
+    dev = tr_s.device
+    B, P, T, K = tr_s.shape
+    ins = {k: fin[k].contiguous() for k in (
+        "tr_s", "tr_t", "tr_agc", "n_admitted", "max_agc_gain",
+        "min_agc_gain", "incomplete")}
+    ins.update(_knob_tensors(pa, dev, p_clk_window="clk_window",
+                             p_clk_alpha="clk_alpha",
+                             p_pulse_adj="pulse_adj", p_midbit="midbit"))
+    out = dict(bits=torch.zeros((B, P, T, maxb), dtype=I8, device=dev),
+               hist=torch.zeros((B, P, T, 50), dtype=I32, device=dev),
+               trk_i=torch.empty((B, P, T, 5), dtype=I32, device=dev),
+               trk_f=torch.empty((B, P, T, 4), dtype=F32, device=dev),
+               lane_i=torch.empty((B, P, 6), dtype=I32, device=dev))
+    ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
+    args = NrziSlotArgs(**ptrs, B=B, P=P, T=T, S=S, K=K, maxb=maxb,
+                        max_slots=max_slots, do_correct=int(bool(do_correct)),
+                        exp_par=int(expected_parity), spb=float(spb),
+                        stat_lb=float(stat_lb), stat_bw=float(stat_bw))
+    return args, out, ins
+
+
+def nrzi_slot(fin, pa, **kw):
+    """Launch csrc/nrzi_slot.cu. Arguments and outputs as
+    decode.slot.nrzi_slot_scan."""
+    return _launch("nrzi_slot", nrzi_slot_prepare, fin["tr_s"], fin, pa,
                    **kw)
 
 

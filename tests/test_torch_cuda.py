@@ -1,10 +1,11 @@
 """Tests that need an NVIDIA card (marker `cuda`; they skip elsewhere).
-Each CUDA kernel must equal its plain version on the card, an NRZI, PE,
-GCR or Whirlwind decode on the card must equal the plain decode on the
-CPU block for block, and the Whirlwind bench tape must decode on the card
-to its ground truth. Imports no JAX and nothing of the JAX package (the
-port carries its own synthesizer and formats), so the card's machine runs
-it without the JAX package's test configuration:
+Each CUDA kernel must equal its plain version on the card, an NRZI (fused
+and tiered), PE, GCR or Whirlwind decode on the card must equal the plain
+decode on the CPU block for block, and the Whirlwind bench tape must
+decode on the card to its ground truth. Imports no JAX and nothing of
+the JAX package (the port carries its own synthesizer and formats), so
+the card's machine runs it without the JAX package's test
+configuration:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -17,6 +18,8 @@ import chip_smoke
 from readtape_tpu_torch import kernels
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
+from readtape_tpu_torch.decode import scan as tsc
+from readtape_tpu_torch.decode import slot as tsl
 from readtape_tpu_torch.formats import tbin as tb
 from readtape_tpu_torch.synth import default_spec, synthesize_tape
 
@@ -58,6 +61,49 @@ def test_decode_on_card_equals_cpu(card):
     out_gpu, st_gpu = tpl.decode_tape(samples, opts, device="cuda")
     assert tfu.nrzi_fused_scan_plain.calls == plain
     out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
+    assert out_gpu == out_cpu
+    for k in ("peak_hist", "tried", "chosen"):
+        np.testing.assert_array_equal(st_gpu[k], st_cpu[k])
+
+
+@pytest.mark.parametrize("T,correct", [(9, False), (9, True), (7, False)])
+def test_tiered_kernels_equal_plain(card, T, correct):
+    """B5a (8 parmsets, three widths), B5b (parmset 0) and B6 over B5a's
+    buffers, each against its plain version."""
+    volts, seg_lens, leads, pa, kw = chip_smoke.kernel_inputs(
+        T, 8192, False, seed=11)
+    for nparms, fn, plain in ((8, tsc.nrzi_track_scan,
+                               tsc.nrzi_track_scan_plain),
+                              (1, tsc.nrzi_track_scan_tracks,
+                               tsc.nrzi_track_scan_tracks_plain)):
+        feat, nxt, pa_n, skw = chip_smoke.tiered_inputs(
+            volts, seg_lens, leads, pa, kw, nparms)
+        launches = fn.launches
+        got = fn(feat, nxt, pa_n, **skw)
+        assert fn.launches == launches + 1
+        want = plain(feat, nxt, pa_n, **skw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        if nparms == 8:
+            fin, pa8 = got, pa_n
+    skw = chip_smoke.slot_kwargs(kw, volts.shape[-1], correct)
+    launches = tsl.nrzi_slot_scan.launches
+    got = tsl.nrzi_slot_scan(fin, pa8, **skw)
+    assert tsl.nrzi_slot_scan.launches == launches + 1
+    want = tsl.nrzi_slot_scan_plain(fin, pa8, **skw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_tiered_decode_on_card_equals_cpu(card):
+    """The noisy tape of the 8-parmset retry through kernel_path="tiered"."""
+    hdr, samples = chip_smoke.nrzi_noisy_tape()
+    opts = chip_smoke.tape_options(hdr, tb.MODE_NRZI, 800)
+    launches = tsc.nrzi_track_scan.launches
+    out_gpu, st_gpu = tpl.decode_tape(samples, opts, kernel_path="tiered")
+    assert tsc.nrzi_track_scan.launches > launches
+    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu",
+                                      kernel_path="tiered")
     assert out_gpu == out_cpu
     for k in ("peak_hist", "tried", "chosen"):
         np.testing.assert_array_equal(st_gpu[k], st_cpu[k])

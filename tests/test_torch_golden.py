@@ -4,7 +4,8 @@ port's own synthesizer) decode to the .tap files whose SHA-256
 examples/golden.json records; importing the port imports no JAX; a
 decode on a host without a card, by default or asked for "cuda", raises
 instead of running on the CPU; options the port does not run yet raise
-NotImplementedError."""
+NotImplementedError (density detection only for GCR: the JAX command line
+detects it for NRZI and PE tapes alone)."""
 
 import json
 import os
@@ -82,7 +83,7 @@ def test_kernel_build_raises_without_nvcc():
     (dict(adjskew=True), "-adjskew"),
     (dict(do_correct_debug=True), "-correctdbg"),
     (dict(parmscan=True), "-parmscan"),
-    (dict(bpi=0.0), "density detection")])
+    (dict(mode=tb.MODE_GCR, bpi=0.0, ips=25), "density detection")])
 def test_unported_options_raise(over, name):
     hdr, samples = _tape()
     kw = dict(mode=tb.MODE_NRZI, ntrks=9, bpi=800, ips=50,

@@ -17,10 +17,12 @@ import numpy as np
 import torch
 
 from readtape_tpu.decode import pipeline as jpl
+from readtape_tpu.decode import trackscan as jts
 from readtape_tpu.formats import tbin as tb
 from readtape_tpu.synth import default_spec, synthesize_tape
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
+from readtape_tpu_torch.decode import slot as tsl
 
 torch.set_num_threads(2)
 
@@ -59,15 +61,37 @@ def _spy_budget(monkeypatch):
     return seen
 
 
-def compare_decodes(samples, opt_kw, monkeypatch):
+def compare_decodes(samples, opt_kw, monkeypatch, kernel_path="fused",
+                    lift_budget=False):
     """Decode with both packages and assert they agree; returns the
-    port's (blocks, stats) and whether a scan reached its step budget."""
+    port's (blocks, stats) and whether a scan reached its step budget.
+    kernel_path: the port's NRZI kernel path. lift_budget: the JAX
+    package's XLA admission scans run S + 1 steps instead of their
+    budget, as the port's tiered path does."""
     seen = _spy_budget(monkeypatch)
-    jout, jst = jpl.decode_tape(samples, jpl.DecodeOptions(**opt_kw))
-    calls = tfu.nrzi_fused_scan_plain.calls
+    scan, lifted_calls = jts.nrzi_track_scan_pre, []
+
+    def lifted(ft, nx, W, S, nsteps, *a, **k):
+        lifted_calls.append(nsteps)
+        return scan(ft, nx, W, S, S + 1, *a, **k)
+    if lift_budget:
+        # the batch functions are cached per configuration: trace anew
+        # with the lifted scan, and drop those traces afterwards
+        monkeypatch.setattr(jts, "nrzi_track_scan_pre", lifted)
+        jpl._batched_fn.cache_clear()
+    try:
+        jout, jst = jpl.decode_tape(samples, jpl.DecodeOptions(**opt_kw))
+    finally:
+        if lift_budget:
+            monkeypatch.setattr(jts, "nrzi_track_scan_pre", scan)
+            jpl._batched_fn.cache_clear()
+    assert bool(lifted_calls) == lift_budget
+    plain = (tfu.nrzi_fused_scan_plain if kernel_path == "fused"
+             else tsl.nrzi_slot_scan_plain)
+    calls = plain.calls
     tout, tst = tpl.decode_tape(samples, tpl.DecodeOptions(**opt_kw),
-                                device="cpu")
-    assert tfu.nrzi_fused_scan_plain.calls > calls
+                                device="cpu", kernel_path=kernel_path)
+    assert plain.calls > calls
     assert len(tout) == len(jout), ([b.kind for b in tout],
                                     [b.kind for b in jout])
     for i, (t, j) in enumerate(zip(tout, jout)):
