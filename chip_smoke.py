@@ -24,13 +24,14 @@ non-zero:
               9-track PE segments (B=4, 8 parmsets, S=16384: clean, noisy
               with a weak track, a dropout that forces fake bits, two
               blocks behind a short gap so that the all-idle point falls
-              inside the window) and on the first batch of phase 4's PE
-              decode; gcr_fused_scan on synthesized 9-track GCR segments
-              (B=4, 5 parmsets, S=16384: clean, noisy, one weak track, two
-              blocks behind a short gap) and on the first batch of phase
-              4's GCR decode; ww_fused_scan on a noisy 6-track Whirlwind
-              tape (about 160,000 samples, one weak track, -fluxdir=auto)
-              as decode_tape hands it, and again with a rolling-base span
+              inside the window) and on the first two batches of phase
+              4's PE decode (B=60, then a walk hop, B=1); gcr_fused_scan
+              on synthesized 9-track GCR segments (B=4, 5 parmsets,
+              S=16384: clean, noisy, one weak track, two blocks behind a
+              short gap) and on the first batch of phase 4's GCR decode;
+              ww_fused_scan on a noisy 6-track Whirlwind tape (about
+              160,000 samples, one weak track, -fluxdir=auto) as
+              decode_tape hands it, and again with a rolling-base span
               of 2^14 samples so that the base moves, and on the Whirlwind
               bench tape as decode_tape hands it, there against the plain
               version run on a host copy of the same inputs (on the card
@@ -66,9 +67,14 @@ limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
 
     python3 chip_smoke.py breakdown
 
-runs none of the checks: it times where a warm decode_tape of each bench
-tape spends its wall (each step with a synchronize around it), then
-profiles one more decode with torch.profiler for the card's busy time.
+runs none of the checks: it prints nvcc's -Xptxas -v lines (registers,
+stack frame, spills of each kernel), the time of each of
+ww_fused_scan's launches at the Whirlwind bench tape and of each phase
+of pe_fused_scan at the PE bench decode's first launch and at its
+second (a walk hop, B=1), then times where a warm decode_tape of each
+bench tape spends its wall (each step with a synchronize around it),
+and profiles one more decode with torch.profiler for the card's busy
+time.
 Imports nothing of JAX and nothing of the JAX package: the example tapes
 come from the port's own synthesizer and the recipe table below.
 """
@@ -597,16 +603,16 @@ def ww_options(hdr, fluxdir="neg", **kw):
                              fluxdir=fluxdir, multiple_tries=False, **kw)
 
 
-def first_call(module, name, samples, opts, kernel_path="fused"):
-    """(args, kwargs) of the first call of module.<name> that decode_tape
-    makes on `samples`: the shape the main path gives it. The function is
-    wrapped only for this one decode."""
+def first_call(module, name, samples, opts, kernel_path="fused", index=0):
+    """(args, kwargs) of the first call (or the index-th, from 0) of
+    module.<name> that decode_tape makes on `samples`: the shape the main
+    path gives it. The function is wrapped only for this one decode."""
     from readtape_tpu_torch.decode import pipeline as tpl
     seen = []
     fn = getattr(module, name)
 
     def record(*args, **kw):
-        if not seen:
+        if len(seen) <= index:
             seen.append((args, kw))
         return fn(*args, **kw)
     setattr(module, name, record)
@@ -615,18 +621,19 @@ def first_call(module, name, samples, opts, kernel_path="fused"):
                         kernel_path=kernel_path)
     finally:
         setattr(module, name, fn)
-    if not seen:
-        raise AssertionError(f"decode_tape never reached {name}")
-    return seen[0]
+    if len(seen) <= index:
+        raise AssertionError(f"decode_tape made {len(seen)} calls of {name}")
+    return seen[index]
 
 
-def main_path_inputs(launcher, samples, opts):
-    """The arguments of the first launch of kernels.<launcher> that
-    decode_tape makes on `samples`: the shape the main path gives that
-    kernel. The launcher is wrapped only for this one decode."""
+def main_path_inputs(launcher, samples, opts, index=0):
+    """The arguments of the first (or index-th) launch of
+    kernels.<launcher> that decode_tape makes on `samples`: the shape the
+    main path gives that kernel. The launcher is wrapped only for this one
+    decode."""
     from readtape_tpu_torch import kernels
     (volts, seg_lens, leads, pa), kw = first_call(kernels, launcher, samples,
-                                                  opts)
+                                                  opts, index=index)
     return volts, seg_lens, leads, pa, kw
 
 
@@ -694,6 +701,13 @@ def check_equal(name, got, want):
     return err
 
 
+def chain_note(n, what, ms):
+    """The longest dependent chain of a launch (n links: admissions,
+    slots, steps or events) and the kernel's time per link, for phase
+    3's lines: what a redesign of a serial kernel moves."""
+    return f"longest chain {n} {what}, {ms * 1e6 / max(n, 1):.0f} ns per link"
+
+
 def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     """One launch of `kernel` (a decode.fused wrapper's name) against its
     plain version on the same card inputs. Returns a dict with the max
@@ -716,12 +730,18 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     if int(ti[..., dc].max()) < 150:
         raise AssertionError(f"{name}: segments decoded too little")
     n_adm = int(ti[..., nadm].sum())
+    # a lane's longest track admits, then (NRZI) its slot machine runs
+    chain, what = int(ti[..., nadm].max()), "admissions"
+    if kernel == "nrzi_fused_scan":
+        chain += int(want["lane_i"][..., tfu.LI_NSLOT].max())
+        what = "admissions + slots"
     t_kern = time_launches(lambda: kern(volts, seg_lens, leads, pa, **kw), 10)
     b_ms, b_by = bound(name, volts, want, kernel_ops(volts, kw, n_adm))
     B, T, S = volts.shape
     print(f"  {name} (B={B} P={len(kw['Ws'])} T={T} S={S}): kernel "
           f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), equal (max f32 err {err})", flush=True)
+          f"({b_by}), {chain_note(chain, what, t_kern)}, equal (max f32 "
+          f"err {err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by, out=want)
 
@@ -763,10 +783,15 @@ def compare_ww(name, volts, kw, plain_device=DEVICE):
     t_kern = time_launches(lambda: tfu.ww_fused_scan(volts, **kw), 3)
     b_ms, b_by = bound(name, volts, want, ww_ops(volts, want, kw["W"]))
     T, S = volts.shape
+    # the longest track's admission steps, then the machine's events
+    chain = (int(want["trk_i"][:, tfu.WT_STEPS].max())
+             + int(sc[tfu.WS_NEVENTS]))
     print(f"  {name} (T={T} S={S} span={kw['span']}): kernel {t_kern:.3f} "
           f"ms, plain on {plain_device} {t_plain:.1f} ms, bound {b_ms:.4f} "
           f"ms ({b_by}), {int(sc[tfu.WS_NEVENTS])} events, base "
-          f"{int(sc[tfu.WS_BASE])}, equal (max f32 err {err})", flush=True)
+          f"{int(sc[tfu.WS_BASE])}, "
+          f"{chain_note(chain, 'steps + events', t_kern)}, equal (max f32 "
+          f"err {err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by, out=want)
 
@@ -838,10 +863,12 @@ def compare_scan(name, kernel, feat, nxt, pa, kw):
     b_ms, b_by = bound_of(n_adm * (10 * 4 + 4) + nbytes(want.values()),
                           60 * n_adm)
     G, B, T, S, _ = feat.shape
+    chain = int(want["n_admitted"].max())
     print(f"  {name} (B={B} P={len(kw['Ws'])} G={G} T={T} S={S}): kernel "
           f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), {n_adm} admissions, equal (max f32 err {err})",
-          flush=True)
+          f"({b_by}), {n_adm} admissions, "
+          f"{chain_note(chain, 'admissions', t_kern)}, equal (max f32 err "
+          f"{err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by, out=got)
 
@@ -872,10 +899,12 @@ def compare_slot(name, fin, pa, kw):
     corr = int(want["lane_i"][..., tfu.LI_CORR].sum())
     if kw["do_correct"] and not corr:
         raise AssertionError(f"{name}: -correct flipped no bit")
+    chain = int(want["lane_i"][..., tfu.LI_NSLOT].max())
     print(f"  {name} (B={B} P={P} T={T} K={K}): kernel {t_kern:.3f} ms, "
           f"plain {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"{n_slots} slots, {corr} corrected, equal (max f32 err {err})",
-          flush=True)
+          f"{n_slots} slots, {corr} corrected, "
+          f"{chain_note(chain, 'slots', t_kern)}, equal (max f32 err "
+          f"{err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -995,9 +1024,14 @@ def phase_kernel():
         raise AssertionError("pe 9trk: no lane reached its all-idle point "
                              "or no fake bits")
     _, hdr, samples = pe_bench_tape()
+    pe_opts = tape_options(hdr, tb.MODE_PE, 1600)
     res["pe main"] = compare_kernel(
         "pe main", "pe_fused_scan", *main_path_inputs(
-            "pe_fused", samples, tape_options(hdr, tb.MODE_PE, 1600)))
+            "pe_fused", samples, pe_opts))
+    # the PE walk's hops: 14 of the bench decode's 15 launches are B=1
+    res["pe hop"] = compare_kernel(
+        "pe hop", "pe_fused_scan", *main_path_inputs(
+            "pe_fused", samples, pe_opts, index=1))
     r = res["gcr 9trk"] = compare_kernel(
         "gcr 9trk", "gcr_fused_scan", *gcr_kernel_inputs(16384, seed=5))
     if not bool((r["out"]["lane_i"][3, :, tfu.GL_TAU] < 16384).all()):
@@ -1186,8 +1220,11 @@ def phase_main(card):
                     ["gcr_fused_scan"], hdr, samples,
                     tape_options(hdr, tb.MODE_GCR, 9042, 25), card)
     blocks, hdr, samples = ww_bench_tape()
+    torch.cuda.reset_peak_memory_stats()
     keep(*decode_bench("WW bench", ["ww_fused_scan"], blocks, hdr, samples,
                        ww_options(hdr), card, marks=0)[:3])
+    print(f"  WW bench: peak allocation "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.3f} MiB", flush=True)
     # 24 blocks: about 5.2 million samples, so the machine's rolling base
     # moves (its span is 2^22 samples)
     blocks, hdr, samples = ww_bench_tape(nblocks=24)
@@ -1375,10 +1412,91 @@ def busy_share(samples, opts, kernel_path):
                        for e in top[:6]]
 
 
+def ptxas_lines(log):
+    """The per-kernel lines of nvcc -Xptxas -v: entry, registers, stack
+    frame and spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+            or "stack frame" in ln]
+
+
+def kernel_phases():
+    """Where B4's and B2's time goes at their main-path shapes: B4's
+    launches each timed with CUDA events (mean of 3 calls after a warm
+    one), and its chains from clock64() stamps: each track's admission
+    walk against its block, the machine's event loop against its block;
+    B2's phases from per-lane clock64() stamps (pe main: the PE bench
+    decode's first launch, B=60; pe hop: its second, B=1), mean and max
+    over lanes, with the longest track walk of phase A; cycles turned
+    into ms by the global timer over the same span."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = ww_bench_tape()
+    (volts,), kw = first_call(kernels, "ww_fused", samples, ww_options(hdr))
+    kernels.ww_phase_ms(volts, **kw)
+    runs = [kernels.ww_phase_ms(volts, **kw) for _ in range(3)]
+    names = ("candidacy", "admission", "rank", "machine")
+    ms = [sum(r[1][i] for r in runs) / len(runs) for i in range(len(names))]
+    T = volts.shape[0]
+    out, st = runs[-1][0], runs[-1][2].double()
+    walk_t = int(st[:T].argmax())
+    steps = int(out["trk_i"][walk_t, tfu.WT_STEPS])
+    nev = int(out["scal"][tfu.WS_NEVENTS])
+    ns = (st[2 * T + 3] - st[2 * T + 2]) / st[2 * T + 1]   # per cycle
+    walk = st[:T] * ns / 1e6
+    block = st[T:2 * T] * ns / 1e6
+    print("B4 ww_fused_scan per launch (WW bench, T=6 S="
+          f"{volts.shape[1]}): " + ", ".join(
+              f"{n} {m:.3f} ms" for n, m in zip(names, ms))
+          + f"; total {sum(ms):.3f} ms; admission walk (clock64) max "
+          f"{float(walk.max()):.3f} ms of its block's "
+          f"{float(block[int(walk.argmax())]):.3f} ms ({steps} steps, "
+          f"{float(walk.max()) * 1e6 / steps:.0f} ns per step); machine "
+          f"event loop {float(st[2 * T] * ns / 1e6):.3f} ms of its block's "
+          f"{float(st[2 * T + 1] * ns / 1e6):.3f} ms ({nev} events, "
+          f"{float(st[2 * T] * ns) / nev:.0f} ns per event)", flush=True)
+    del volts
+    _, hdr, samples = pe_bench_tape()
+    opts = tape_options(hdr, tb.MODE_PE, 1600)
+    for case, index in (("pe main", 0), ("pe hop", 1)):
+        volts, seg_lens, leads, pa, kw = main_path_inputs(
+            "pe_fused", samples, opts, index=index)
+        kernels.pe_phase_stamps(volts, seg_lens, leads, pa, **kw)
+        _, st = kernels.pe_phase_stamps(volts, seg_lens, leads, pa, **kw)
+        st = st.double()
+        ns = ((st[:, 6] - st[:, 0]) / (st[:, 5] - st[:, 1])).mean()
+        parts = []
+        for k, label in ((2, "phase 0"), (3, "phase A"), (4, "phase B"),
+                         (5, "phase C")):
+            d = (st[:, k] - st[:, k - 1]) * ns / 1e6
+            parts.append(f"{label} mean {float(d.mean()):.3f} max "
+                         f"{float(d.max()):.3f} ms")
+        walk = st[:, kernels.PE_ST_WALK:kernels.PE_ST_STEPS]
+        steps = st[:, kernels.PE_ST_STEPS:]
+        lane = int(walk.max(dim=1).values.argmax())
+        track = int(walk[lane].argmax())
+        per_step = float(walk[lane, track] * ns / steps[lane, track])
+        walk = walk.max(dim=1).values * ns / 1e6
+        whole = (st[:, 6] - st[:, 0]) / 1e6
+        fn = (lambda: kernels.pe_fused(volts, seg_lens, leads, pa, **kw))
+        t = time_launches(fn, 10)
+        print(f"B2 pe_fused_scan {case} (B={volts.shape[0]} S="
+              f"{volts.shape[2]}): kernel {t:.3f} ms; per lane (clock64): "
+              + "; ".join(parts) + f"; longest track walk in phase A mean "
+              f"{float(walk.mean()):.3f} max {float(walk.max()):.3f} ms "
+              f"({int(steps[lane, track])} steps, {per_step:.0f} ns per "
+              f"step); lane wall max {float(whole.max()):.3f} ms",
+              flush=True)
+
+
 def breakdown(card):
     from readtape_tpu_torch import kernels, native
     from readtape_tpu_torch.formats import tbin as tb
-    kernels.build()
+    _, _, log = kernels.build()
+    for ln in ptxas_lines(log):
+        print(f"  {ln}", flush=True)
+    kernel_phases()
     print(f"host activity scan: "
           f"{'native tape_scan' if native.available() else 'numpy'}; {card}",
           flush=True)
@@ -1434,10 +1552,8 @@ def main():
         _, secs, log = kernels.build()
     except RuntimeError as e:
         fail("build", str(e))
-    ptx = [ln.strip() for ln in log.splitlines()
-           if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     print(f"phase 2 build: ok in {secs:.1f} s", flush=True)
-    for ln in ptx:
+    for ln in ptxas_lines(log):
         print(f"  {ln}", flush=True)
 
     try:

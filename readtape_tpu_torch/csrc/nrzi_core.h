@@ -169,27 +169,122 @@ struct NrziFeat {
 
 // trackscan.precompute_window_features at one position: the trailing
 // window [max(0, s-W+1), s], first (leftmost) extremum, its neighbours
-// (0.0 past either end of the segment)
-NRZI_HD void nrzi_features(const float* v, int S, int s, int W, NrziFeat& f) {
+// (0.0 past either end of the segment). v[k - base] holds sample k: the
+// samples s-W .. s+1 that lie in [0, S) must be there
+NRZI_HD void nrzi_features_at(const float* v, int base, int S, int s, int W,
+                              NrziFeat& f) {
   int lo = s - W + 1;
   if (lo < 0) lo = 0;
   int kt = lo, kb = lo;
-  float mx = v[lo], mn = v[lo];
+  float mx = v[lo - base], mn = v[lo - base];
   for (int k = lo + 1; k <= s; ++k) {
-    float x = v[k];
+    float x = v[k - base];
     if (x > mx) { mx = x; kt = k; }
     if (x < mn) { mn = x; kb = k; }
   }
   f.wmax = mx;
   f.wmin = mn;
-  f.vleft = v[lo];
-  f.vright = v[s];
-  f.prevmax = kt > 0 ? v[kt - 1] : 0.0f;
-  f.nextmax = kt + 1 < S ? v[kt + 1] : 0.0f;
-  f.prevmin = kb > 0 ? v[kb - 1] : 0.0f;
-  f.nextmin = kb + 1 < S ? v[kb + 1] : 0.0f;
+  f.vleft = v[lo - base];
+  f.vright = v[s - base];
+  f.prevmax = kt > 0 ? v[kt - 1 - base] : 0.0f;
+  f.nextmax = kt + 1 < S ? v[kt + 1 - base] : 0.0f;
+  f.prevmin = kb > 0 ? v[kb - 1 - base] : 0.0f;
+  f.nextmin = kb + 1 < S ? v[kb + 1 - base] : 0.0f;
   f.ltop = kt - lo + 1;
   f.lbot = kb - lo + 1;
+}
+
+NRZI_HD void nrzi_features(const float* v, int S, int s, int W, NrziFeat& f) {
+  nrzi_features_at(v, 0, S, s, W, f);
+}
+
+// ---------------------------------------------------------------------------
+// The chunked admission walk (B2, B4): a track's tape is cut into chunks
+// of C samples (C a multiple of 32); for each chunk the caller provides
+// the chunk's candidate words and the window features at its candidates,
+// and the walk runs the same steps run_jump_scan_seq takes over the whole
+// track. The cursor carries across chunks: a blind jump may land past the
+// chunk, and a search for the next candidate goes on in the next one.
+// ---------------------------------------------------------------------------
+
+// where a track's walk stands: the next sample to test (landed), or the
+// sample to search for the next candidate from (search)
+struct NrziCursor {
+  int pos;
+  bool search;
+};
+
+// words[i]: the candidate bits of samples c0 + 32 i .. c0 + 32 i + 31
+NRZI_HD bool nrzi_chunk_cand(const uint32_t* words, int c0, int s) {
+  const int i = s - c0;
+  return (words[i >> 5] >> (i & 31)) & 1u;
+}
+
+// A searching cursor moves to the first candidate >= pos in [pos, c1)
+// and lands there; with none, it moves to c1 and searches on in the next
+// chunk, or lands at S (none left: nrzi_next_cand's S)
+NRZI_HD void nrzi_cursor_seek(NrziCursor& c, const uint32_t* words, int c0,
+                              int c1, int S) {
+  int i = c.pos - c0;
+  const int n = c1 - c0;
+  while (i < n) {
+    uint32_t m = words[i >> 5] & (0xffffffffu << (i & 31));
+    if (m) {
+      const int s = c0 + ((i >> 5) << 5) + nrzi_ctz(m);
+      if (s < c1) {
+        c.pos = s < S ? s : S;
+        c.search = false;
+        return;
+      }
+      break;
+    }
+    i = ((i >> 5) + 1) << 5;
+  }
+  c.pos = c1 < S ? c1 : S;
+  c.search = c1 < S;
+}
+
+// the window features at the candidates of the chunk [c0, c1) into
+// rows[s - c0] (other rows untouched): v[k - base] holds sample k for k
+// in [nrzi_stage_lo, nrzi_stage_hi), words the chunk's candidate words.
+// Threads tid of n share the rows
+NRZI_HD void nrzi_feature_rows(const float* v, int base, int S, int W,
+                               const uint32_t* words, int c0, int c1,
+                               NrziFeat* rows, int tid, int n) {
+  for (int s = c0 + tid; s < c1; s += n)
+    if (nrzi_chunk_cand(words, c0, s)) nrzi_features_at(v, base, S, s, W, rows[s - c0]);
+}
+
+// the samples the features of the chunk [c0, c1) read: [lo, hi)
+NRZI_HD int nrzi_stage_lo(int c0, int W) { return c0 - W > 0 ? c0 - W : 0; }
+NRZI_HD int nrzi_stage_hi(int c1, int S) { return c1 + 1 < S ? c1 + 1 : S; }
+
+// Walk one track through the chunk [c0, c1): w.admit(s, f) runs one step
+// at a candidate s with its features f = rows[s - c0] and moves w.cur (a
+// blind jump, or a search from s + 1). One step per landing, as the JAX
+// XLA scan counts them; a track stops at S or, landed, after max_steps
+// steps. Returns false once the track has stopped.
+template <class Walk>
+NRZI_HD bool nrzi_walk_chunk(Walk& w, const uint32_t* words,
+                             const NrziFeat* rows, int c0, int c1, int S,
+                             int max_steps) {
+  for (;;) {
+    if (w.cur.search) {
+      nrzi_cursor_seek(w.cur, words, c0, c1, S);
+      if (w.cur.search) return true;         // on into the next chunk
+    }
+    const int s = w.cur.pos;
+    if (s >= S || w.steps >= max_steps) return false;
+    if (s >= c1) return true;                // a blind jump past the chunk
+    w.steps += 1;
+    if (!nrzi_chunk_cand(words, c0, s)) {
+      // a blind jump landed on a non-candidate: reject and snap
+      w.cur.pos = s + 1;
+      w.cur.search = true;
+      continue;
+    }
+    w.admit(s, rows[s - c0]);
+  }
 }
 
 // B1: one track's candidate bitmask; features from the volts

@@ -54,6 +54,21 @@
 #define PS_NIE 2
 #define PS_TRAIL 3
 #define N_PS 4
+// per-lane phase stamps (only when PeArgs::stamps is set): the global
+// timer (ns) at the start and end, clock64() at the start and after
+// phases 0, A, B and C, then each track's clock64() cycles spent walking
+// in phase A (the rest of the phase it waits at the chunk barriers), then
+// each track's admission steps
+#define PE_ST_G0 0
+#define PE_ST_C0 1
+#define PE_ST_CZ 2
+#define PE_ST_CA 3
+#define PE_ST_CB 4
+#define PE_ST_CC 5
+#define PE_ST_G1 6
+#define PE_ST_WALK 7
+#define PE_ST_STEPS (PE_ST_WALK + NRZI_MAX_TRACKS)
+#define PE_NSTAMP (PE_ST_STEPS + NRZI_MAX_TRACKS)
 
 // Everything one launch needs. Pointers are device pointers for the
 // kernel and host pointers for the host build. Lane = b * P + p.
@@ -84,7 +99,9 @@ struct PeArgs {
   int32_t* trk_i;            // [B*P, T, N_PI]
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_PL]
+  int64_t* stamps;           // [B*P, PE_NSTAMP] phase clocks, or null
   int32_t B, P, T, S, G, K, maxb, max_steps;
+  int32_t wmax;              // the widest of p_w
   float spb, stat_lb, stat_bw;
 };
 
@@ -127,6 +144,17 @@ NRZI_HD uint32_t pe_cand_word(const A& a, int lane, int t, int w) {
   return word;
 }
 
+// the bit of pe_cand_word at sample s, for a kernel that builds a word
+// from 32 lanes (each reads its own window, so neighbouring lanes read
+// neighbouring samples)
+NRZI_HD bool pe_cand_bit(const PeArgs& a, int lane, int t, int s) {
+  const int b = lane / a.P, p = lane % a.P;
+  const float* v = a.volts + ((int64_t)b * a.T + t) * a.S;
+  const int lo = a.lead[b] + t + a.p_w[p] - 1;
+  const int hi = pe_imin(a.seg_len[b], a.S);
+  return s >= lo && s < hi && pe_union_at(a, v, t, s);
+}
+
 // pe.idle_entry_sample: the first integer sample >= s_floor where
 // f32(s) - t_lp > thr, by four probes around floor(t_lp + thr)
 NRZI_HD int pe_idle_entry(float t_lp, float thr, int s_floor) {
@@ -142,55 +170,37 @@ NRZI_HD int pe_idle_entry(float t_lp, float thr, int s_floor) {
 // (trackscan.run_jump_scan_seq + pe.pe_track_scan's step). Non-admitting
 // steps leave the PE state untouched, so only admissions run it; each
 // admission appends one record and, when the track had gone idle before
-// it, one idle interval (entry, wake).
+// it, one idle interval (entry, wake). The walk goes chunk by chunk
+// (nrzi_walk_chunk) over feature rows the caller computes ahead of it
+// (nrzi_feature_rows).
 // ---------------------------------------------------------------------------
 
-NRZI_HD void pe_admit_track(const PeArgs& a, int lane, int t) {
-  const int b = lane / a.P, p = lane % a.P, S = a.S, maxb = a.maxb;
-  const int nw = pe_nwords(a);
-  const float* v = a.volts + ((int64_t)b * a.T + t) * S;
-  const uint32_t* cw = a.cand + ((int64_t)lane * a.T + t) * nw;
-  const int64_t row = (int64_t)lane * a.T + t;
-  int32_t* rec_i = a.rec_i + row * a.K * N_PR;
-  float* rec_f = a.rec_f + row * a.K * N_PRF;
-  int32_t* ie = a.ie + row * PE_IDLE_CAP * 2;
-  const int W = a.p_w[p], aw = a.p_agc_window[p], cwin = a.p_clk_window[p];
-  const float rise = a.p_rise[p], minp = a.p_minp[p], aa = a.p_agc_alpha[p];
-  const float ca = a.p_clk_alpha[p], cf = a.p_clk_factor[p];
-  const float padj = a.p_pulse_adj[p], spb = a.spb;
-
+// one track's admission walk: its knobs, outputs and state
+struct PeWalk {
+  NrziCursor cur;
+  int steps;
   // admission + AGC state (trackscan.admission_init, common.agc_state_init)
-  float agc = 1.0f, vah = 4.0f, vah_sum = 0.0f;
-  int vah_cnt = 0, hndx = 0, peakcount = 0, n_adm = 0;
-  float max_agc = 0.0f, min_agc = NRZI_FLT_MAX;
-  float v_lasttop = 0.0f, v_lastbot = 0.0f, v_top = 0.0f, v_bot = 0.0f;
-  float heights[NRZI_MAX_AGC_RING];
-  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
+  float agc, vah, vah_sum;
+  int vah_cnt, hndx, peakcount, n_adm;
+  float max_agc, min_agc, v_lasttop, v_lastbot, v_top, v_bot;
+  float* heights;            // [NRZI_MAX_AGC_RING] the AGC window
   // clock (common.clkavg_init)
-  float ring[NRZI_MAX_CLK_RING];
-  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) ring[k] = spb;
-  int bitndx = 0;
-  float avg = spb;
-  // PE state; the virtual pre-first-peak t_lastpeak is the track's
-  // staggered start (decoder.c:856-862), its first idle check one later
-  bool idle = true, datablock = false, clknext = false, bit1_up = true;
-  bool lastdatabit = false;
-  float t_clkwindow = spb / 2.0f * cf;
-  float t_pulse_adj = 0.0f, t_lastbit = 0.0f, t_firstbit = 0.0f;
-  float t_lastpeak = (float)(a.lead[b] + t);
-  int dc = 0, s_lastdet = a.lead[b] + t + 1, n_ie = 0;
+  float* ring;               // [NRZI_MAX_CLK_RING] clkavg.t_bitspacing
+  int bitndx;
+  float avg;
+  // PE state
+  bool idle, datablock, clknext, bit1_up, lastdatabit;
+  float t_clkwindow, t_pulse_adj, t_lastbit, t_firstbit, t_lastpeak;
+  int dc, s_lastdet, n_ie;
+  // knobs and outputs
+  int W, aw, cwin, maxb;
+  float rise, minp, aa, ca, cf, padj, spb, stat_lb, stat_bw;
+  int32_t* rec_i;            // [K, N_PR]
+  float* rec_f;              // [K, N_PRF]
+  int32_t* ie;               // [PE_IDLE_CAP, 2]
 
-  int pos = nrzi_next_cand(cw, nw, S, 0);
-  int steps = 0;
-  while (pos < S && steps < a.max_steps) {
-    const int s = pos;
-    steps += 1;
-    if (!((cw[s >> 5] >> (s & 31)) & 1u)) {
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
-      continue;
-    }
-    NrziFeat f;
-    nrzi_features(v, S, s, W, f);
+  // one step at a candidate s with window features f
+  NRZI_HDM void admit(int s, const NrziFeat& f) {
     // admission_test (decoder.c:781-810)
     float scale = vah / 4.0f;
     float rise_t = rise * scale / agc;
@@ -201,8 +211,9 @@ NRZI_HD void pe_admit_track(const PeArgs& a, int lane, int t) {
     bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
                   (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
     if (!is_top && !is_bot) {
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
-      continue;
+      cur.pos = s + 1;
+      cur.search = true;
+      return;
     }
     // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
     int L = is_top ? f.ltop : f.lbot;
@@ -251,7 +262,7 @@ NRZI_HD void pe_admit_track(const PeArgs& a, int lane, int t) {
     const bool in_data = datablock;
     int hb = 50;
     if (in_data) {
-      int bkt = nrzi_f2i(((t_this - t_lastpeak) - a.stat_lb) / a.stat_bw);
+      int bkt = nrzi_f2i(((t_this - t_lastpeak) - stat_lb) / stat_bw);
       hb = bkt < 0 ? 52 : (bkt > 49 ? 53 : bkt);
     }
     const bool missed = (t_this + t_pulse_adj) - t_lastpeak > t_clkwindow;
@@ -350,13 +361,76 @@ NRZI_HD void pe_admit_track(const PeArgs& a, int lane, int t) {
     rf[PRF_AGCMN] = min_agc;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
-    pos = s + L + 1;
+    cur.pos = s + L + 1;
+    cur.search = false;
   }
-  int32_t* sc = a.scan + row * N_PS;
-  sc[PS_NADM] = n_adm;
-  sc[PS_INCOMP] = pos < S;
-  sc[PS_NIE] = n_ie;
-  sc[PS_TRAIL] = pe_idle_entry(t_lastpeak, avg * PE_IDLE_FACTOR, s_lastdet);
+};
+
+// track t of a lane at the start of its segment; heights, ring:
+// NRZI_MAX_AGC_RING and NRZI_MAX_CLK_RING floats
+NRZI_HD void pe_walk_init(PeWalk& w, const PeArgs& a, int lane, int t,
+                          float* heights, float* ring) {
+  const int b = lane / a.P, p = lane % a.P;
+  const int64_t row = (int64_t)lane * a.T + t;
+  w.cur.pos = 0;
+  w.cur.search = true;
+  w.steps = 0;
+  w.agc = 1.0f;
+  w.vah = 4.0f;
+  w.vah_sum = 0.0f;
+  w.vah_cnt = w.hndx = w.peakcount = w.n_adm = 0;
+  w.max_agc = 0.0f;
+  w.min_agc = NRZI_FLT_MAX;
+  w.v_lasttop = w.v_lastbot = w.v_top = w.v_bot = 0.0f;
+  w.heights = heights;
+  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
+  w.spb = a.spb;
+  w.ring = ring;
+  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) ring[k] = a.spb;
+  w.bitndx = 0;
+  w.avg = a.spb;
+  // the virtual pre-first-peak t_lastpeak is the track's staggered start
+  // (decoder.c:856-862), its first idle check one later
+  w.idle = true;
+  w.datablock = w.clknext = false;
+  w.bit1_up = true;
+  w.lastdatabit = false;
+  w.cf = a.p_clk_factor[p];
+  w.t_clkwindow = a.spb / 2.0f * w.cf;
+  w.t_pulse_adj = w.t_lastbit = w.t_firstbit = 0.0f;
+  w.t_lastpeak = (float)(a.lead[b] + t);
+  w.dc = 0;
+  w.s_lastdet = a.lead[b] + t + 1;
+  w.n_ie = 0;
+  w.W = a.p_w[p];
+  w.aw = a.p_agc_window[p];
+  w.cwin = a.p_clk_window[p];
+  w.maxb = a.maxb;
+  w.rise = a.p_rise[p];
+  w.minp = a.p_minp[p];
+  w.aa = a.p_agc_alpha[p];
+  w.ca = a.p_clk_alpha[p];
+  w.padj = a.p_pulse_adj[p];
+  w.stat_lb = a.stat_lb;
+  w.stat_bw = a.stat_bw;
+  w.rec_i = a.rec_i + row * a.K * N_PR;
+  w.rec_f = a.rec_f + row * a.K * N_PRF;
+  w.ie = a.ie + row * PE_IDLE_CAP * 2;
+}
+
+// the walk of a chunk under the lane's step budget
+NRZI_HD bool pe_walk_chunk(PeWalk& w, const PeArgs& a, const uint32_t* words,
+                           const NrziFeat* rows, int c0, int c1) {
+  return nrzi_walk_chunk(w, words, rows, c0, c1, a.S, a.max_steps);
+}
+
+// the track's scan results once its walk has stopped
+NRZI_HD void pe_walk_finish(const PeWalk& w, const PeArgs& a, int lane, int t) {
+  int32_t* sc = a.scan + ((int64_t)lane * a.T + t) * N_PS;
+  sc[PS_NADM] = w.n_adm;
+  sc[PS_INCOMP] = w.cur.pos < a.S;
+  sc[PS_NIE] = w.n_ie;
+  sc[PS_TRAIL] = pe_idle_entry(w.t_lastpeak, w.avg * PE_IDLE_FACTOR, w.s_lastdet);
 }
 
 // ---------------------------------------------------------------------------

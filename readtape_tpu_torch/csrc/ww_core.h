@@ -54,6 +54,12 @@
 #define WW_ALT_LSB 4
 #define WW_ALT_MSB 5
 
+// timing stamps (only when WwArgs::stamps is set), in clock64() cycles:
+// [t] track t's admission walk, [T + t] its admission block; [2T] the
+// machine's event loop, [2T + 1] the machine's block; then the global
+// timer (ns) at the machine's start and end, to turn cycles into time
+#define WW_NSTAMP(T) (2 * (T) + 4)
+
 // Everything one launch needs: one tape, one parmset. Pointers are device
 // pointers for the kernel and host pointers for the host build. Outputs
 // must be zeroed before the launch.
@@ -66,6 +72,9 @@ struct WwArgs {
   int32_t* tr_s;             // scratch [T, K] detection samples
   float* tr_frac;            // scratch [T, K] sub-sample offsets
   int8_t* tr_top;            // scratch [T, K] top (1) or bottom (0) peak
+  int32_t* ev_s;             // scratch [T * K] merged events: sample,
+  float* ev_frac;            //   sub-sample offset,
+  uint8_t* ev_tt;            //   track | is_top << 4
   int8_t* chars;             // [maxchars]
   int32_t* blk_i;            // [maxblocks, N_WB]
   float* blk_f;              // [maxblocks, N_WBF]
@@ -73,6 +82,7 @@ struct WwArgs {
   int32_t* trk_i;            // [T, N_WT]
   float* trk_f;              // [T] h_sum
   int32_t* scal;             // [N_WS]
+  int64_t* stamps;           // [WW_NSTAMP(T)] timing stamps, or null
   int32_t T, S, W, K, maxchars, maxblocks, agc_window, clk_window, fluxdir,
       span;
   int32_t role[6];
@@ -103,38 +113,26 @@ NRZI_HD uint32_t ww_cand_word(const WwArgs& a, int t, int w) {
 // trackscan.run_jump_scan_seq): adjust_agc on every admitted edge, the
 // pulse-height sums, and the compacted (s, frac, is_top) records. No step
 // budget: the cursor runs to S (every step moves it forward), as in the
-// TPU kernel; the XLA path's budget truncates dense tapes
+// TPU kernel; the XLA path's budget truncates dense tapes. The walk goes
+// chunk by chunk (nrzi_walk_chunk) over feature rows the caller computes
+// ahead of it (nrzi_feature_rows)
 // ---------------------------------------------------------------------------
 
-NRZI_HD void ww_admit_track(const WwArgs& a, int t) {
-  const int S = a.S, K = a.K, W = a.W, nw = ww_nwords(a);
-  const float* v = a.volts + (int64_t)t * S;
-  const uint32_t* cw = a.cand + (int64_t)t * nw;
-  int32_t* tr_s = a.tr_s + (int64_t)t * K;
-  float* tr_frac = a.tr_frac + (int64_t)t * K;
-  int8_t* tr_top = a.tr_top + (int64_t)t * K;
-  const float vah = a.vah[t], rise = a.rise, minp = a.minp, aa = a.agc_alpha;
-  const int aw = a.agc_window;
+// one track's admission walk: its knobs, outputs and state
+struct WwWalk {
+  NrziCursor cur;
+  int steps;
+  float agc, v_lasttop, v_lastbot, v_top, v_bot, h_sum;
+  int hndx, n_adm, h_cnt;
+  float* heights;            // [WW_AGC_RING] the AGC window
+  float vah, rise, minp, aa;
+  int aw, W, K;
+  int32_t* tr_s;             // [K] records
+  float* tr_frac;
+  int8_t* tr_top;
 
-  float agc = 1.0f, v_lasttop = 0.0f, v_lastbot = 0.0f, v_top = 0.0f,
-        v_bot = 0.0f, h_sum = 0.0f;
-  int hndx = 0, n_adm = 0, h_cnt = 0;
-  float heights[WW_AGC_RING];
-  for (int k = 0; k < WW_AGC_RING; ++k) heights[k] = 0.0f;
-
-  // one step per loop pass, as the JAX XLA scan counts them
-  int pos = nrzi_next_cand(cw, nw, S, 0);
-  int steps = 0;
-  while (pos < S) {
-    const int s = pos;
-    steps += 1;
-    if (!((cw[s >> 5] >> (s & 31)) & 1u)) {
-      // a blind jump landed on a non-candidate: reject and snap
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
-      continue;
-    }
-    NrziFeat f;
-    nrzi_features(v, S, s, W, f);
+  // one step at a candidate s with window features f
+  NRZI_HDM void admit(int s, const NrziFeat& f) {
     // admission_test (decoder.c:781-810)
     float scale = vah / 4.0f;
     float rise_t = rise * scale / agc;
@@ -145,8 +143,9 @@ NRZI_HD void ww_admit_track(const WwArgs& a, int t) {
     bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
                   (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
     if (!is_top && !is_bot) {
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
-      continue;
+      cur.pos = s + 1;
+      cur.search = true;
+      return;
     }
     // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
     int L = is_top ? f.ltop : f.lbot;
@@ -193,38 +192,112 @@ NRZI_HD void ww_admit_track(const WwArgs& a, int t) {
     tr_top[idx] = is_top ? 1 : 0;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
-    pos = s + L + 1;
+    cur.pos = s + L + 1;
+    cur.search = false;
   }
+};
+
+// track t's walk at the start of the tape; heights: WW_AGC_RING floats
+NRZI_HD void ww_walk_init(WwWalk& w, const WwArgs& a, int t, float* heights) {
+  w.cur.pos = 0;
+  w.cur.search = true;
+  w.steps = 0;
+  w.agc = 1.0f;
+  w.v_lasttop = w.v_lastbot = w.v_top = w.v_bot = w.h_sum = 0.0f;
+  w.hndx = w.n_adm = w.h_cnt = 0;
+  w.heights = heights;
+  for (int k = 0; k < WW_AGC_RING; ++k) heights[k] = 0.0f;
+  w.vah = a.vah[t];
+  w.rise = a.rise;
+  w.minp = a.minp;
+  w.aa = a.agc_alpha;
+  w.aw = a.agc_window;
+  w.W = a.W;
+  w.K = a.K;
+  w.tr_s = a.tr_s + (int64_t)t * a.K;
+  w.tr_frac = a.tr_frac + (int64_t)t * a.K;
+  w.tr_top = a.tr_top + (int64_t)t * a.K;
+}
+
+// the walk of a chunk, with no step budget
+NRZI_HD bool ww_walk_chunk(WwWalk& w, const uint32_t* words,
+                           const NrziFeat* rows, int c0, int c1, int S) {
+  return nrzi_walk_chunk(w, words, rows, c0, c1, S, 0x7fffffff);
+}
+
+NRZI_HD void ww_walk_finish(const WwWalk& w, const WwArgs& a, int t) {
   int32_t* ti = a.trk_i + (int64_t)t * N_WT;
-  ti[WT_NADM] = n_adm;
-  ti[WT_HCNT] = h_cnt;
-  ti[WT_STEPS] = steps;
-  a.trk_f[t] = h_sum;
+  ti[WT_NADM] = w.n_adm;
+  ti[WT_HCNT] = w.h_cnt;
+  ti[WT_STEPS] = w.steps;
+  a.trk_f[t] = w.h_sum;
 }
 
 // ---------------------------------------------------------------------------
-// phase B: the merge in detection order and the pulse/clock/blockmark
-// machine (ww.merge_transitions + ww.ww_global_scan), one thread
+// the merge (ww.merge_transitions): each record's place in detection
+// order, (s, track) ascending, found on its own by binary searches in the
+// other tracks' sorted records, and the records scattered into one packed
+// event array
 // ---------------------------------------------------------------------------
 
-struct WwMachine {
-  float avg;                          // clkavg.t_bitspaceavg
+// records kept for track t: min(count, K), the last in slot K-1
+NRZI_HD int ww_nrec(const WwArgs& a, int t) {
+  return ww_imin(a.trk_i[t * N_WT + WT_NADM], a.K);
+}
+
+// how many of xs[0, n) (ascending) are below s, or at most s
+NRZI_HD int ww_count_below(const int32_t* xs, int n, int s, bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (xs[mid] < s || (or_equal && xs[mid] == s)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// record k of track t (k < ww_nrec) into its place among all events: on
+// equal s the lower track goes first
+NRZI_HD void ww_scatter_one(const WwArgs& a, int t, int k) {
+  const int64_t j = (int64_t)t * a.K + k;
+  const int s = a.tr_s[j];
+  int r = k;
+  for (int u = 0; u < a.T; ++u)
+    if (u != t) r += ww_count_below(a.tr_s + (int64_t)u * a.K, ww_nrec(a, u), s, u < t);
+  a.ev_s[r] = s;
+  a.ev_frac[r] = a.tr_frac[j];
+  a.ev_tt[r] = (uint8_t)(t | (a.tr_top[j] != 0 ? 16 : 0));
+}
+
+// ---------------------------------------------------------------------------
+// phase B: the pulse/clock/blockmark machine (ww.ww_global_scan) over the
+// merged events, one thread
+// ---------------------------------------------------------------------------
+
+// the machine's arrays: shared memory on the card, the stack on the host
+struct WwMachineMem {
   float ring[WW_CLK_RING];            // clkavg.t_bitspacing
-  int bitndx;
-  float t_lcs, t_lce;                 // last clock pulse start / end
-  float t_lpcs, t_lacs, t_lpce;       // last pri/alt clock start, pri end
-  float t_lbm, ww_lastpeak;           // last blockmark, last peak
   float lps[WW_MAX_TRACKS];           // per-track last pulse start
   float lpe[WW_MAX_TRACKS];           // per-track last pulse end
   float lpk[WW_MAX_TRACKS];           // per-track last peak
   float plpk[WW_MAX_TRACKS];          // per-track peak before that
+  int32_t hist[WW_MAX_TRACKS * 50];   // the skew histogram
+  int32_t trksum[WW_MAX_TRACKS];      // its in-range counts
+};
+
+struct WwMachine {
+  float avg;                          // clkavg.t_bitspaceavg
+  int bitndx;
+  float t_lcs, t_lce;                 // last clock pulse start / end
+  float t_lpcs, t_lacs, t_lpce;       // last pri/alt clock start, pri end
+  float t_lbm, ww_lastpeak;           // last blockmark, last peak
   int datablock, flux, flux_set, nflux;
-  int datacount, blockstart, nblocks, miss1, missclk, base;
+  int datacount, blockstart, nblocks, miss1, missclk, base, nev;
+  WwMachineMem* mem;
 };
 
 NRZI_HD void ww_clock_reset(WwMachine& m, float spb) {
   m.avg = spb;
-  for (int k = 0; k < WW_CLK_RING; ++k) m.ring[k] = spb;
+  for (int k = 0; k < WW_CLK_RING; ++k) m.mem->ring[k] = spb;
   m.bitndx = 0;
 }
 
@@ -239,11 +312,12 @@ NRZI_HD void ww_rebase(WwMachine& m, int T, float dsf) {
   m.t_lpce = ww_shift(m.t_lpce, dsf);
   m.t_lbm = ww_shift(m.t_lbm, dsf);
   m.ww_lastpeak = ww_shift(m.ww_lastpeak, dsf);
+  WwMachineMem& q = *m.mem;
   for (int t = 0; t < T; ++t) {
-    m.lps[t] = ww_shift(m.lps[t], dsf);
-    m.lpe[t] = ww_shift(m.lpe[t], dsf);
-    m.lpk[t] = ww_shift(m.lpk[t], dsf);
-    m.plpk[t] = ww_shift(m.plpk[t], dsf);
+    q.lps[t] = ww_shift(q.lps[t], dsf);
+    q.lpe[t] = ww_shift(q.lpe[t], dsf);
+    q.lpk[t] = ww_shift(q.lpk[t], dsf);
+    q.plpk[t] = ww_shift(q.plpk[t], dsf);
   }
 }
 
@@ -267,15 +341,15 @@ NRZI_HD void ww_emit(WwMachine& m, const WwArgs& a, int btype, float end_t) {
   ww_clock_reset(m, a.spb);
   m.t_lcs = m.t_lce = m.t_lpce = m.t_lpcs = m.t_lacs = 0.0f;
   m.datablock = 0;
-  for (int t = 0; t < a.T; ++t) m.lpk[t] = m.plpk[t] = 0.0f;
+  for (int t = 0; t < a.T; ++t) m.mem->lpk[t] = m.mem->plpk[t] = 0.0f;
 }
 
 // common.adjust_clock: moving window, exponential or constant
 NRZI_HD void ww_adjust_clock(WwMachine& m, const WwArgs& a, float delta) {
   const int cw = a.clk_window;
   if (cw > 0) {
-    float old = m.ring[m.bitndx];
-    m.ring[m.bitndx] = delta;
+    float old = m.mem->ring[m.bitndx];
+    m.mem->ring[m.bitndx] = delta;
     m.bitndx = m.bitndx + 1 >= cw ? 0 : m.bitndx + 1;
     m.avg = m.avg + (delta - old) / (float)cw;
   } else if (a.clk_alpha > 0.0f) {
@@ -290,7 +364,7 @@ NRZI_HD void ww_adjust_clock(WwMachine& m, const WwArgs& a, float delta) {
 // start within the bit time before clkend, 2 = none, 0 = no such track
 NRZI_HD int ww_chk(const WwMachine& m, int trk, float lo, float clkend) {
   if (trk < 0) return 0;
-  float tps = m.lps[trk];
+  float tps = m.mem->lps[trk];
   return (tps > lo && tps < clkend) ? 1 : 2;
 }
 
@@ -321,13 +395,36 @@ NRZI_HD bool ww_lsb_strag(const WwMachine& m, const WwArgs& a, float b) {
   bool strag = false;
   const int lt[2] = {a.role[WW_PRI_LSB], a.role[WW_ALT_LSB]};
   for (int k = 0; k < 2; ++k)
-    if (lt[k] >= 0) strag = strag || (m.lpe[lt[k]] - m.t_lce > b * 0.5f);
+    if (lt[k] >= 0) strag = strag || (m.mem->lpe[lt[k]] - m.t_lce > b * 0.5f);
   return strag;
 }
 
-// one merged event (ww_global_scan's step for a valid event)
-NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int trk, int s, float frac,
-                      bool is_top) {
+// the machine before the first event; mem: its arrays
+NRZI_HD void ww_machine_init(WwMachine& m, const WwArgs& a, WwMachineMem* mem) {
+  m.mem = mem;
+  ww_clock_reset(m, a.spb);
+  m.t_lcs = m.t_lce = m.t_lpcs = m.t_lacs = m.t_lpce = m.t_lbm = 0.0f;
+  m.ww_lastpeak = 0.0f;
+  for (int t = 0; t < WW_MAX_TRACKS; ++t) {
+    mem->lps[t] = mem->lpe[t] = mem->lpk[t] = mem->plpk[t] = 0.0f;
+    mem->trksum[t] = 0;
+  }
+  for (int i = 0; i < WW_MAX_TRACKS * 50; ++i) mem->hist[i] = 0;
+  m.datablock = 0;
+  m.flux = a.fluxdir == WW_FLUX_AUTO ? WW_FLUX_NEG : a.fluxdir;
+  m.flux_set = 0;
+  m.nflux = 0;
+  m.datacount = m.blockstart = m.nblocks = m.miss1 = m.missclk = m.base = 0;
+  m.nev = 0;
+}
+
+// one merged event (ww_global_scan's step for a valid event); tt: the
+// packed track | is_top << 4
+NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int s, float frac, int tt) {
+  const int trk = tt & 15;
+  const bool is_top = (tt & 16) != 0;
+  WwMachineMem& q = *m.mem;
+  m.nev += 1;
   const float b = m.avg;
   // the rolling rebase: carried times are relative to an integer base
   const int ds = s - m.base;
@@ -363,10 +460,10 @@ NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int trk, int s, float frac,
 
   if (is_top == (flux == WW_FLUX_POS)) {
     // ---- pulse start (decode_ww.c:167-183) ----
-    m.lps[trk] = t;
+    q.lps[trk] = t;
     if (ww_is_clk(a, trk)) {
       m.datablock = 1;
-      float d = t - m.plpk[trk];
+      float d = t - q.plpk[trk];
       if (d < b * 2.0f) ww_adjust_clock(m, a, d);
       m.t_lcs = t;
     }
@@ -374,14 +471,14 @@ NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int trk, int s, float frac,
     if (trk == a.role[WW_ALT_CLK]) m.t_lacs = t;
   } else {
     // ---- pulse end (decode_ww.c:185-232) ----
-    m.lpe[trk] = t;
+    q.lpe[trk] = t;
     // skew statistics vs the last primary clock pulse end
     float delta = t - m.t_lpce;
     if (m.t_lpce > 0.0f && delta > -b * 1.5f && delta < b * 1.5f) {
       if (delta <= 0.0f || delta < b * 0.5f) delta = delta + b;
       int bkt = nrzi_f2i((delta - a.stat_lb) / a.stat_bw);
-      a.hist[trk * 50 + (bkt < 0 ? 0 : (bkt > 49 ? 49 : bkt))] += 1;
-      if (bkt >= 0 && bkt <= 49) a.trk_i[trk * N_WT + WT_TRKSUM] += 1;
+      q.hist[trk * 50 + (bkt < 0 ? 0 : (bkt > 49 ? 49 : bkt))] += 1;
+      if (bkt >= 0 && bkt <= 49) q.trksum[trk] += 1;
     }
     if (ww_is_clk(a, trk)) {
       if (t - m.t_lce > b * 0.5f) ww_chk_databits(m, a, t);
@@ -401,56 +498,32 @@ NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int trk, int s, float frac,
     }
   }
   // per-track peak history (process_up/down_transition tail)
-  m.plpk[trk] = m.lpk[trk];
-  m.lpk[trk] = t;
+  q.plpk[trk] = q.lpk[trk];
+  q.lpk[trk] = t;
 }
 
-// the T-way merge of the per-track records by (s, track), every event
-// through the machine, the trailing flush, the scalars
-NRZI_HD void ww_machine(const WwArgs& a) {
-  const int T = a.T, K = a.K;
-  int lim[WW_MAX_TRACKS], k[WW_MAX_TRACKS], head[WW_MAX_TRACKS];
-  for (int t = 0; t < T; ++t) {
-    int cnt = a.trk_i[t * N_WT + WT_NADM];
-    lim[t] = cnt < K ? cnt : K;
-    k[t] = 0;
-    head[t] = lim[t] > 0 ? a.tr_s[(int64_t)t * K] : NRZI_BIG_S;
-  }
-  WwMachine m;
-  ww_clock_reset(m, a.spb);
-  m.t_lcs = m.t_lce = m.t_lpcs = m.t_lacs = m.t_lpce = m.t_lbm = 0.0f;
-  m.ww_lastpeak = 0.0f;
-  for (int t = 0; t < WW_MAX_TRACKS; ++t) m.lps[t] = m.lpe[t] = m.lpk[t] = m.plpk[t] = 0.0f;
-  m.datablock = 0;
-  m.flux = a.fluxdir == WW_FLUX_AUTO ? WW_FLUX_NEG : a.fluxdir;
-  m.flux_set = 0;
-  m.nflux = 0;
-  m.datacount = m.blockstart = m.nblocks = m.miss1 = m.missclk = m.base = 0;
-
-  int nev = 0;
-  for (;;) {
-    int best = -1, bs = NRZI_BIG_S;
-    for (int t = 0; t < T; ++t)       // lower track first on equal s
-      if (head[t] < bs) { bs = head[t]; best = t; }
-    if (best < 0) break;
-    const int64_t j = (int64_t)best * K + k[best];
-    ww_event(m, a, best, bs, a.tr_frac[j], a.tr_top[j] != 0);
-    nev += 1;
-    k[best] += 1;
-    head[best] = k[best] < lim[best] ? a.tr_s[j + 1] : NRZI_BIG_S;
-  }
-
-  // flush a trailing block (samples continue past the last event, so the
-  // clock-stop check would have fired eventually)
+// after the last event: flush a trailing block (samples continue past the
+// last event, so the clock-stop check would have fired eventually), then
+// the histogram, its in-range counts and the scalars
+NRZI_HD void ww_machine_finish(WwMachine& m, const WwArgs& a) {
   bool strag = ww_lsb_strag(m, a, m.avg);
   if (m.datablock && m.t_lce > 0.0f) {
     ww_emit(m, a, WW_BS_BLOCK, m.t_lce);
     if (strag) ww_emit(m, a, WW_BS_TAPEMARK, m.t_lce);
   }
+  for (int i = 0; i < a.T * 50; ++i) a.hist[i] = m.mem->hist[i];
+  for (int t = 0; t < a.T; ++t) a.trk_i[t * N_WT + WT_TRKSUM] = m.mem->trksum[t];
   a.scal[WS_DATACOUNT] = m.datacount;
   a.scal[WS_NBLOCKS] = m.nblocks;
   a.scal[WS_FLUX] = m.flux;
   a.scal[WS_NFLUX] = m.nflux;
   a.scal[WS_BASE] = m.base;
-  a.scal[WS_NEVENTS] = nev;
+  a.scal[WS_NEVENTS] = m.nev;
+}
+
+// the number of merged events: every track's kept records
+NRZI_HD int ww_nevents(const WwArgs& a) {
+  int n = 0;
+  for (int t = 0; t < a.T; ++t) n += ww_nrec(a, t);
+  return n;
 }

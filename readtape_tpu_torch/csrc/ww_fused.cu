@@ -13,23 +13,68 @@
 // What bounds it: serial latency. WW has one lane, not a batch of
 // segments: each track's admissions form a chain of dependent steps (the
 // AGC state of one sets the thresholds of the next), and the machine is
-// one chain over every track's events in time order. Only candidacy is
-// data-parallel. So the design is three launches on one stream:
+// one chain over every track's events in time order. Each chain runs on
+// one thread, so the design keeps device memory off the chains: what a
+// chain reads does not depend on its state (the samples, each candidate's
+// window features, the merged order of the events), so other warps stage
+// it into shared memory ahead of the chain. Four launches on one stream:
 //   ww_cand_kernel     grid-wide: the loose candidate bitmask [T, S/32],
 //                      one 32-position word per thread
-//   ww_admit_kernel    one block per track, one thread working: walk the
-//                      candidates, admit peaks, append (s, frac, is_top)
-//                      to the track's [K] records
-//   ww_machine_kernel  one thread: T-way merge by (s, track), the machine
-//                      per event, the trailing flush
+//   ww_admit_kernel    one block per track. Warps 1-7 stage the track in
+//                      chunks of C samples (cp.async: the samples with a
+//                      W + 1 halo, the candidate words) and compute each
+//                      candidate's window features into a shared-memory
+//                      slot, a chunk ahead; thread 0 walks the chunks
+//                      (admission, refine_frac, AGC, height sums) from
+//                      shared memory and appends (s, frac, is_top) to the
+//                      track's [K] records. Two slots, a barrier a chunk
+//   ww_rank_kernel     grid-wide, one thread per record: its place in
+//                      (s, track) order, by binary searches in the other
+//                      tracks' sorted records; scatters it into one packed
+//                      event array
+//   ww_machine_kernel  one block: warp 1 streams the packed events into
+//                      shared memory a chunk ahead (cp.async); thread 0
+//                      runs the machine per event with its per-track
+//                      arrays, clock ring and histogram in shared memory,
+//                      then the trailing flush
 // Built with --fmad=false, fmaf() only where the JAX package's XLA scans
-// contract a multiply-add. Making it fast is later work: overlapping the
-// merge with admission, or a warp-parallel merge.
+// contract a multiply-add.
 #include <cuda_runtime.h>
 
 #include "ww_core.h"
 
 #define WW_CAND_THREADS 256
+#define WW_RANK_THREADS 256
+#define WW_ADMIT_THREADS 256     // warp 0: the walk; warps 1-7: staging
+#define WW_CHUNK 2048            // admission: samples per chunk
+#define WW_MACHINE_THREADS 64    // warp 0: the machine; warp 1: staging
+#define WW_EV_CHUNK 2048         // machine: events per chunk
+#define WW_SMEM_MAX 232448       // shared memory a block may use
+
+__device__ __forceinline__ void ww_cp4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void ww_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ww_cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ long long ww_gtimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// barrier 1 among the n staging threads only
+__device__ __forceinline__ void ww_stage_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
 
 __global__ void __launch_bounds__(WW_CAND_THREADS) ww_cand_kernel(WwArgs a) {
   const int nw = ww_nwords(a);
@@ -39,30 +84,216 @@ __global__ void __launch_bounds__(WW_CAND_THREADS) ww_cand_kernel(WwArgs a) {
     a.cand[i] = ww_cand_word(a, (int)(i / nw), (int)(i % nw));
 }
 
-__global__ void __launch_bounds__(32) ww_admit_kernel(WwArgs a) {
-  if (threadIdx.x == 0) ww_admit_track(a, blockIdx.x);
+// shared memory of ww_admit_kernel at chunk C: two feature slots (rows and
+// words), two staging slots (samples and words), the AGC window
+static size_t ww_admit_smem(int C, int W) {
+  return 2 * (size_t)C * sizeof(NrziFeat) + 4 * (size_t)(C / 32) * 4 +
+         2 * (size_t)(C + W + 1) * 4 + WW_AGC_RING * 4;
 }
 
-__global__ void __launch_bounds__(32) ww_machine_kernel(WwArgs a) {
-  if (threadIdx.x == 0) ww_machine(a);
+__global__ void __launch_bounds__(WW_ADMIT_THREADS, 1) ww_admit_kernel(WwArgs a, int C) {
+  extern __shared__ __align__(16) unsigned char ww_sm[];
+  const int t = blockIdx.x, S = a.S, W = a.W, nw = ww_nwords(a);
+  const int CW = C >> 5, VN = C + W + 1, nch = (S + C - 1) / C;
+  NrziFeat* rows = (NrziFeat*)ww_sm;                 // [2][C]
+  uint32_t* fwords = (uint32_t*)(rows + 2 * C);      // [2][CW]
+  uint32_t* swords = fwords + 2 * CW;                // [2][CW]
+  float* vst = (float*)(swords + 2 * CW);            // [2][VN]
+  float* heights = vst + 2 * VN;                     // [WW_AGC_RING]
+  const float* v = a.volts + (int64_t)t * S;
+  const uint32_t* cw = a.cand + (int64_t)t * nw;
+  const int tid = threadIdx.x, ptid = tid - 32, np = blockDim.x - 32;
+  const bool stager = tid >= 32;
+
+  // staging slot i & 1 <- chunk i's samples [c0 - W, c1] and words
+  auto stage = [&](int i) {
+    const int c0 = i * C, c1 = min(c0 + C, S), base = c0 - W;
+    float* vs = vst + (i & 1) * VN;
+    for (int k = nrzi_stage_lo(c0, W) + ptid; k < nrzi_stage_hi(c1, S); k += np)
+      ww_cp4(vs + (k - base), v + k);
+    uint32_t* ws = swords + (i & 1) * CW;
+    for (int w = ptid; w < (c1 - c0 + 31) >> 5; w += np) ww_cp4(ws + w, cw + (c0 >> 5) + w);
+    ww_cp_commit();
+  };
+  // feature slot i & 1 <- chunk i's words and candidates' window features
+  auto features = [&](int i) {
+    const int c0 = i * C, c1 = min(c0 + C, S);
+    const uint32_t* ws = swords + (i & 1) * CW;
+    uint32_t* fw = fwords + (i & 1) * CW;
+    for (int w = ptid; w < CW; w += np) fw[w] = w < (c1 - c0 + 31) >> 5 ? ws[w] : 0u;
+    nrzi_feature_rows(vst + (i & 1) * VN, c0 - W, S, W, ws, c0, c1,
+                      rows + (i & 1) * C, ptid, np);
+  };
+
+  WwWalk w;
+  const long long c_start = clock64();
+  long long walked = 0;                    // cycles spent walking
+  if (stager) {
+    stage(0);
+    ww_cp_wait();
+    ww_stage_sync(np);
+    if (nch > 1) stage(1);
+    features(0);
+  } else if (tid == 0) {
+    ww_walk_init(w, a, t, heights);
+  }
+  __syncthreads();
+  for (int i = 0; i < nch; ++i) {
+    if (stager) {
+      if (i + 1 < nch) {
+        ww_cp_wait();              // chunk i + 1 staged
+        ww_stage_sync(np);
+        if (i + 2 < nch) stage(i + 2);
+        features(i + 1);
+      }
+    } else if (tid == 0) {
+      const int c0 = i * C;
+      const long long c = clock64();
+      ww_walk_chunk(w, fwords + (i & 1) * CW, rows + (i & 1) * C, c0,
+                    min(c0 + C, S), S);
+      walked += clock64() - c;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    ww_walk_finish(w, a, t);
+    if (a.stamps) {
+      a.stamps[t] = walked;
+      a.stamps[a.T + t] = clock64() - c_start;
+    }
+  }
 }
 
-// Launches the three kernels on `stream`; returns cudaGetLastError()
-// (0 = launched).
+__global__ void __launch_bounds__(WW_RANK_THREADS) ww_rank_kernel(WwArgs a) {
+  const int64_t n = (int64_t)a.T * a.K;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int t = (int)(i / a.K), k = (int)(i % a.K);
+    if (k < ww_nrec(a, t)) ww_scatter_one(a, t, k);
+  }
+}
+
+__global__ void __launch_bounds__(WW_MACHINE_THREADS, 1) ww_machine_kernel(WwArgs a) {
+  __shared__ int32_t es[2][WW_EV_CHUNK];
+  __shared__ float ef[2][WW_EV_CHUNK];
+  __shared__ __align__(4) uint8_t et[2][WW_EV_CHUNK];
+  __shared__ WwMachineMem mem;
+  const int tid = threadIdx.x, ptid = tid - 32;
+  const bool stager = tid >= 32;
+  const int N = ww_nevents(a), nch = (N + WW_EV_CHUNK - 1) / WW_EV_CHUNK;
+
+  // slot i & 1 <- events [i E, i E + E): ev_tt is padded to whole words
+  auto stage = [&](int i) {
+    const int j0 = i * WW_EV_CHUNK, n = min(WW_EV_CHUNK, N - j0), b = i & 1;
+    for (int j = ptid; j < n; j += 32) {
+      ww_cp4(&es[b][j], a.ev_s + j0 + j);
+      ww_cp4(&ef[b][j], a.ev_frac + j0 + j);
+    }
+    for (int j = 4 * ptid; j < n; j += 128) ww_cp4(&et[b][j], a.ev_tt + j0 + j);
+    ww_cp_commit();
+  };
+
+  WwMachine m;
+  const long long c_start = clock64(), g_start = ww_gtimer();
+  long long looped = 0;                    // cycles in the event loop
+  if (stager) {
+    if (nch > 0) stage(0);
+  } else if (tid == 0) {
+    ww_machine_init(m, a, &mem);
+  }
+  for (int i = 0; i < nch; ++i) {
+    if (stager) ww_cp_wait();      // chunk i staged
+    __syncthreads();               // ... and visible; chunk i - 1 consumed
+    if (stager) {
+      if (i + 1 < nch) stage(i + 1);
+    } else if (tid == 0) {
+      const int b = i & 1, n = min(WW_EV_CHUNK, N - i * WW_EV_CHUNK);
+      const long long c = clock64();
+      for (int j = 0; j < n; ++j) ww_event(m, a, es[b][j], ef[b][j], et[b][j]);
+      looped += clock64() - c;
+    }
+  }
+  if (tid == 0) {
+    ww_machine_finish(m, a);
+    if (a.stamps) {
+      a.stamps[2 * a.T] = looped;
+      a.stamps[2 * a.T + 1] = clock64() - c_start;
+      a.stamps[2 * a.T + 2] = g_start;
+      a.stamps[2 * a.T + 3] = ww_gtimer();
+    }
+  }
+}
+
+// the admission chunk: WW_CHUNK, halved until its shared memory fits
+static int ww_admit_chunk(int W) {
+  int C = WW_CHUNK;
+  while (C > 32 && ww_admit_smem(C, W) > WW_SMEM_MAX) C >>= 1;
+  return ww_admit_smem(C, W) > WW_SMEM_MAX ? 0 : C;
+}
+
+static int ww_grid(int64_t n, int threads) {
+  int64_t blocks = (n + threads - 1) / threads;
+  return (int)(blocks > 65535 ? 65535 : (blocks < 1 ? 1 : blocks));
+}
+
+#define WW_NPHASE 4
+
+// launch phase i of the decode on st
+static cudaError_t ww_phase(const WwArgs& a, int i, cudaStream_t st) {
+  if (i == 0) {
+    ww_cand_kernel<<<ww_grid((int64_t)a.T * ww_nwords(a), WW_CAND_THREADS),
+                     WW_CAND_THREADS, 0, st>>>(a);
+  } else if (i == 1) {
+    const int C = ww_admit_chunk(a.W);
+    const size_t smem = ww_admit_smem(C, a.W);
+    cudaError_t e = cudaFuncSetAttribute(
+        ww_admit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    ww_admit_kernel<<<a.T, WW_ADMIT_THREADS, smem, st>>>(a, C);
+  } else if (i == 2) {
+    ww_rank_kernel<<<ww_grid((int64_t)a.T * a.K, WW_RANK_THREADS),
+                     WW_RANK_THREADS, 0, st>>>(a);
+  } else {
+    ww_machine_kernel<<<1, WW_MACHINE_THREADS, 0, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+static bool ww_args_ok(const WwArgs* a) {
+  return a->T >= 1 && a->T <= WW_MAX_TRACKS && a->agc_window <= WW_AGC_RING &&
+         a->clk_window <= WW_CLK_RING && a->K >= 1 && a->S >= 1 &&
+         ww_admit_chunk(a->W) > 0;
+}
+
+// Launches the kernels on `stream`; returns cudaGetLastError() (0 =
+// launched).
 extern "C" int ww_fused_launch(const WwArgs* a, void* stream) {
-  if (a->T < 1 || a->T > WW_MAX_TRACKS || a->agc_window > WW_AGC_RING ||
-      a->clk_window > WW_CLK_RING || a->K < 1 || a->S < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!ww_args_ok(a)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < WW_NPHASE; ++i) {
+    cudaError_t e = ww_phase(*a, i, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// The number of launches, for ww_fused_phase_ms.
+extern "C" int ww_fused_nphase() { return WW_NPHASE; }
+
+// The same launches with a CUDA event between each two; waits for them
+// and writes each launch's ms to ms[0 .. WW_NPHASE). For timing only.
+extern "C" int ww_fused_phase_ms(const WwArgs* a, void* stream, float* ms) {
+  if (!ww_args_ok(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t words = (int64_t)a->T * ww_nwords(*a);
-  int64_t blocks = (words + WW_CAND_THREADS - 1) / WW_CAND_THREADS;
-  if (blocks > 65535) blocks = 65535;
-  ww_cand_kernel<<<(int)blocks, WW_CAND_THREADS, 0, st>>>(*a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ww_admit_kernel<<<a->T, 32, 0, st>>>(*a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ww_machine_kernel<<<1, 32, 0, st>>>(*a);
-  return (int)cudaGetLastError();
+  cudaEvent_t ev[WW_NPHASE + 1];
+  for (int i = 0; i <= WW_NPHASE; ++i) cudaEventCreate(&ev[i]);
+  cudaError_t e = cudaEventRecord(ev[0], st);
+  for (int i = 0; i < WW_NPHASE && e == cudaSuccess; ++i) {
+    e = ww_phase(*a, i, st);
+    if (e == cudaSuccess) e = cudaEventRecord(ev[i + 1], st);
+  }
+  if (e == cudaSuccess) e = cudaEventSynchronize(ev[WW_NPHASE]);
+  for (int i = 0; i < WW_NPHASE && e == cudaSuccess; ++i)
+    e = cudaEventElapsedTime(&ms[i], ev[i], ev[i + 1]);
+  for (int i = 0; i <= WW_NPHASE; ++i) cudaEventDestroy(ev[i]);
+  return (int)e;
 }

@@ -75,9 +75,9 @@ class PeArgs(ctypes.Structure):
         "p_rise", "p_minp", "p_agc_alpha", "p_clk_alpha", "p_clk_factor",
         "p_pulse_adj", "wset", "rise_floor", "min_floor", "cand", "rec_i",
         "rec_f", "ie", "scan", "bits", "faked", "hist", "trk_i", "trk_f",
-        "lane_i")] + [
+        "lane_i", "stamps")] + [
         (n, ctypes.c_int32) for n in (
-            "B", "P", "T", "S", "G", "K", "maxb", "max_steps")] + [
+            "B", "P", "T", "S", "G", "K", "maxb", "max_steps", "wmax")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
 
@@ -98,8 +98,8 @@ class WwArgs(ctypes.Structure):
     """csrc/ww_core.h::WwArgs, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "volts", "rise_floor", "min_floor", "vah", "cand", "tr_s", "tr_frac",
-        "tr_top", "chars", "blk_i", "blk_f", "hist", "trk_i", "trk_f",
-        "scal")] + [
+        "tr_top", "ev_s", "ev_frac", "ev_tt", "chars", "blk_i", "blk_f",
+        "hist", "trk_i", "trk_f", "scal", "stamps")] + [
         (n, ctypes.c_int32) for n in (
             "T", "S", "W", "K", "maxchars", "maxblocks", "agc_window",
             "clk_window", "fluxdir", "span")] + [
@@ -111,6 +111,11 @@ class WwArgs(ctypes.Structure):
 
 # the record and scan-buffer widths of pe_core.h and gcr_core.h
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
+# pe_core.h's phase stamps: global timer (ns) at the start, clock64() at
+# the start and after phases 0, A, B and C, global timer at the end, then
+# each of up to 16 tracks' cycles spent walking in phase A, then their
+# admission steps
+PE_ST_WALK, PE_ST_STEPS, PE_NSTAMP = 7, 7 + 16, 7 + 32
 GCR_N_GR = 5
 # the launch functions of the library and their argument blocks
 LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
@@ -192,6 +197,10 @@ def load():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.ww_fused_phase_ms.argtypes = [ctypes.POINTER(WwArgs), ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_float)]
+    lib.ww_fused_phase_ms.restype = ctypes.c_int
+    lib.ww_fused_nphase.restype = ctypes.c_int
     return lib
 
 
@@ -377,17 +386,38 @@ def pe_prepare(volts, seg_lens, leads, pa, **kw):
     """The PeArgs block, outputs and scratch of one pe_fused launch
     (_prepare's return)."""
     T = volts.shape[1]
-    return _idle_prepare(
+    args, out, keep = _idle_prepare(
         PeArgs, dict(p_clk_factor="clk_factor"), PE_N_PR,
         dict(faked=((T, kw["maxb"]), I8), trk_i=((T, 6), I32),
              trk_f=((T, 4), F32), lane_i=((4,), I32)),
         volts, seg_lens, leads, pa, **kw)
+    args.wmax = max(kw["Ws"])
+    return args, out, keep
 
 
 def pe_fused(volts, seg_lens, leads, pa, **kw):
     """Launch csrc/pe_fused.cu. Arguments and outputs as
     decode.fused.pe_fused_scan."""
     return _launch("pe_fused", pe_prepare, volts, seg_lens, leads, pa, **kw)
+
+
+def pe_phase_stamps(volts, seg_lens, leads, pa, **kw):
+    """One pe_fused launch with per-lane phase stamps, synchronized (for
+    timing only). Returns (outputs, stamps [B*P, PE_NSTAMP] int64 on the
+    host)."""
+    lib = load()
+    with torch.cuda.device(volts.device):
+        block, out, keep = pe_prepare(volts, seg_lens, leads, pa, **kw)
+        st = torch.zeros((block.B * block.P, PE_NSTAMP), dtype=torch.int64,
+                         device=volts.device)
+        block.stamps = st.data_ptr()
+        stream = torch.cuda.current_stream(volts.device).cuda_stream
+        rc = lib.pe_fused_launch(ctypes.byref(block), stream)
+        torch.cuda.synchronize(volts.device)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"pe_fused kernel launch failed: CUDA error {rc}")
+    return out, st.cpu()
 
 
 def gcr_prepare(volts, seg_lens, leads, pa, **kw):
@@ -423,7 +453,12 @@ def ww_prepare(volts, *, W, rise_floor, min_floor, v_avg_height, parms, spb,
                                     device=dev),
                    tr_s=torch.empty((T, K), dtype=I32, device=dev),
                    tr_frac=torch.empty((T, K), dtype=F32, device=dev),
-                   tr_top=torch.empty((T, K), dtype=I8, device=dev))
+                   tr_top=torch.empty((T, K), dtype=I8, device=dev),
+                   # the merged events; ev_tt padded to whole 4-byte words
+                   ev_s=torch.empty((T * K,), dtype=I32, device=dev),
+                   ev_frac=torch.empty((T * K,), dtype=F32, device=dev),
+                   ev_tt=torch.empty((T * K + 4,), dtype=torch.uint8,
+                                     device=dev))
     out = {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt) in
            dict(chars=((maxchars,), I8), blk_i=((maxblocks, 6), I32),
                 blk_f=((maxblocks, 2), F32), hist=((T, 50), I32),
@@ -442,6 +477,27 @@ def ww_prepare(volts, *, W, rise_floor, min_floor, v_avg_height, parms, spb,
 
 
 def ww_fused(volts, **kw):
-    """Launch csrc/ww_fused.cu (three kernels on the current stream).
+    """Launch csrc/ww_fused.cu (four kernels on the current stream).
     Arguments and outputs as decode.fused.ww_fused_scan."""
     return _launch("ww_fused", ww_prepare, volts, **kw)
+
+
+def ww_phase_ms(volts, **kw):
+    """One ww_fused call with a CUDA event between its launches and the
+    kernels' timing stamps (ww_core.h WW_NSTAMP), synchronized (for timing
+    only). Returns (outputs, [ms per launch], stamps [2 T + 4] int64 on
+    the host)."""
+    lib = load()
+    n = lib.ww_fused_nphase()
+    ms = (ctypes.c_float * n)()
+    with torch.cuda.device(volts.device):
+        block, out, keep = ww_prepare(volts, **kw)
+        st = torch.zeros((2 * block.T + 4,), dtype=torch.int64,
+                         device=volts.device)
+        block.stamps = st.data_ptr()
+        stream = torch.cuda.current_stream(volts.device).cuda_stream
+        rc = lib.ww_fused_phase_ms(ctypes.byref(block), stream, ms)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"ww_fused kernel launch failed: CUDA error {rc}")
+    return out, list(ms), st.cpu()

@@ -4,7 +4,12 @@ phase order, must equal the plain PyTorch version
 (fused.pe_fused_scan_plain) exactly: every integer field, every bit and
 every float. This is the kernel's logic checked without a GPU; the CUDA
 build itself runs only on the card (chip_smoke.py). Nothing at run time
-uses this host build."""
+uses this host build.
+
+The host driver walks each track chunk by chunk, as the kernel's phase A
+does, over window features it computes for each chunk with a plain loop
+(the rows it did not compute hold NaN), with the kernel's chunk of 256
+samples at 9 tracks and with one of 64."""
 
 import ctypes
 import shutil
@@ -23,15 +28,43 @@ from readtape_tpu_torch.formats import tbin as tb
 torch.set_num_threads(2)
 
 _DRIVER = r"""
+#include <math.h>
+#include <vector>
 #include "pe_core.h"
-extern "C" void pe_host_run(const PeArgs* a) {
-  const int nw = pe_nwords(*a);
+
+// the kernel's phase order, phase A in chunks of C samples
+extern "C" void pe_host_run(const PeArgs* a, int C) {
+  const int nw = pe_nwords(*a), S = a->S;
+  std::vector<NrziFeat> rows(C);
+  NrziFeat poison;
+  poison.wmax = poison.wmin = poison.vleft = poison.vright = NAN;
+  poison.prevmax = poison.nextmax = poison.prevmin = poison.nextmin = NAN;
+  poison.ltop = poison.lbot = -1000000;
+  float heights[NRZI_MAX_AGC_RING], ring[NRZI_MAX_CLK_RING];
   for (int lane = 0; lane < a->B * a->P; ++lane) {
+    const int b = lane / a->P, W = a->p_w[lane % a->P];
     pe_zero_lane(*a, lane, 0, 1);
+    // the kernel's candidate words: one bit per lane of a warp
     uint32_t* cw = a->cand + (int64_t)lane * a->T * nw;
-    for (int i = 0; i < a->T * nw; ++i)
-      cw[i] = pe_cand_word(*a, lane, i / nw, i % nw);
-    for (int t = 0; t < a->T; ++t) pe_admit_track(*a, lane, t);
+    for (int i = 0; i < a->T * nw; ++i) {
+      uint32_t word = 0;
+      for (int l = 0; l < 32; ++l)
+        if (pe_cand_bit(*a, lane, i / nw, ((i % nw) << 5) + l)) word |= 1u << l;
+      cw[i] = word;
+    }
+    for (int t = 0; t < a->T; ++t) {
+      const float* v = a->volts + ((int64_t)b * a->T + t) * S;
+      const uint32_t* tw = cw + (int64_t)t * nw;
+      PeWalk w;
+      pe_walk_init(w, *a, lane, t, heights, ring);
+      for (int c0 = 0; c0 < S; c0 += C) {
+        const int c1 = c0 + C < S ? c0 + C : S;
+        for (int i = 0; i < C; ++i) rows[i] = poison;
+        nrzi_feature_rows(v, 0, S, W, tw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
+        if (!pe_walk_chunk(w, *a, tw + (c0 >> 5), rows.data(), c0, c1)) break;
+      }
+      pe_walk_finish(w, *a, lane, t);
+    }
     bool overflow, deep;
     pe_lane_flags(*a, lane, overflow, deep);
     const int tau = overflow ? PE_BIG_TAU : pe_tau_part(*a, lane, 0, 1);
@@ -61,7 +94,7 @@ def host_lib(tmp_path_factory):
                     "-fPIC", "-I", kernels.CSRC, "-o", str(so), str(src)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    lib.pe_host_run.argtypes = [ctypes.POINTER(kernels.PeArgs)]
+    lib.pe_host_run.argtypes = [ctypes.POINTER(kernels.PeArgs), ctypes.c_int]
     lib.pe_host_run.restype = None
     return lib
 
@@ -128,14 +161,26 @@ def _batches(case, monkeypatch):
     return seen
 
 
+_PLAIN = {}
+
+
+def _plain_batches(case, monkeypatch):
+    """_batches, once per case for the module (the plain decode is slow)."""
+    if case not in _PLAIN:
+        _PLAIN[case] = _batches(case, monkeypatch)
+    return _PLAIN[case]
+
+
+@pytest.mark.parametrize("chunk", [256, 64])
 @pytest.mark.parametrize("case", ["segments", "short_gap_tape",
                                   "idle_caps"])
-def test_host_state_machine_matches_plain(host_lib, case, monkeypatch):
-    batches = _batches(case, monkeypatch)
+def test_host_state_machine_matches_plain(host_lib, case, chunk,
+                                          monkeypatch):
+    batches = _plain_batches(case, monkeypatch)
     fired = 0
     for a, kw, want in batches:
         args, got, keep = kernels.pe_prepare(*a, **kw)
-        host_lib.pe_host_run(ctypes.byref(args))
+        host_lib.pe_host_run(ctypes.byref(args), chunk)
         del keep
         for k in ("bits", "faked", "hist", "trk_i", "lane_i"):
             np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
