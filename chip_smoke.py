@@ -68,7 +68,9 @@ limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
     python3 chip_smoke.py breakdown
 
 runs none of the checks: it prints nvcc's -Xptxas -v lines (registers,
-stack frame, spills of each kernel), the time of each of
+stack frame, spills of each kernel), the phases of nrzi_fused_scan and
+the slot machine of nrzi_slot_scan at their NRZI bench launches (with
+the machine's time per slot by kind of step), the time of each of
 ww_fused_scan's launches at the Whirlwind bench tape and of each phase
 of pe_fused_scan at the PE bench decode's first launch and at its
 second (a walk hop, B=1), then times where a warm decode_tape of each
@@ -1490,12 +1492,92 @@ def kernel_phases():
               flush=True)
 
 
+def mach_note(cycles, ns, nslot):
+    """The slot machine's ns per slot in each of its steps (cycles summed
+    over a lane's slots, on thread 0: a step ends when every track has)."""
+    from readtape_tpu_torch import kernels
+    return "per slot by step " + ", ".join(
+        f"{name} {float(c * ns / nslot):.0f}"
+        for name, c in zip(kernels.NRZI_MACH, cycles)) + (
+        f" ns (SM clock {float(1 / ns):.3f} GHz)")
+
+
+def nrzi_phases():
+    """Where B1's and B6's time goes at their main-path shapes (the NRZI
+    bench decode's first launch of each, fused and tiered): per-lane
+    clock64() stamps, cycles turned into ms by the global timer over the
+    same span; mean and max over lanes. B1: phases 0, A and B, the
+    longest track walk of phase A per admission, phase B per slot. B6:
+    its slot machine per slot. Both: the machine's time per slot in each
+    kind of step, on its longest lane."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = bench_tape()
+    opts = tape_options(hdr, tb.MODE_NRZI, 800)
+    volts, seg_lens, leads, pa, kw = main_path_inputs("nrzi_fused", samples,
+                                                      opts)
+    kernels.nrzi_phase_stamps(volts, seg_lens, leads, pa, **kw)
+    out, st = kernels.nrzi_phase_stamps(volts, seg_lens, leads, pa, **kw)
+    st = st.double()
+    ns = (st[:, 5] - st[:, 0]) / (st[:, 4] - st[:, 1])      # per cycle
+    parts = []
+    for k, label in ((2, "phase 0"), (3, "phase A"), (4, "phase B")):
+        d = (st[:, k] - st[:, k - 1]) * ns / 1e6
+        parts.append(f"{label} mean {float(d.mean()):.3f} max "
+                     f"{float(d.max()):.3f} ms")
+    T = volts.shape[1]
+    walk = st[:, kernels.NRZI_ST_WALK:kernels.NRZI_ST_WALK + T] * ns[:, None]
+    nadm = out["trk_i"][..., tfu.TI_NADM].reshape(-1, T).double().cpu()
+    lane = int(walk.max(dim=1).values.argmax())
+    track = int(walk[lane].argmax())
+    phase_b = (st[:, 4] - st[:, 3]) * ns
+    nslot = out["lane_i"][..., tfu.LI_NSLOT].reshape(-1).double().cpu()
+    lb = int(phase_b.argmax())
+    t = time_launches(lambda: kernels.nrzi_fused(volts, seg_lens, leads, pa,
+                                                 **kw), 10)
+    print(f"B1 nrzi_fused_scan nrzi main (B={volts.shape[0]} "
+          f"P={len(kw['Ws'])} T={T} S={volts.shape[2]}): kernel {t:.3f} ms; "
+          "per lane (clock64): " + "; ".join(parts)
+          + f"; longest track walk in phase A "
+          f"{float(walk[lane, track]) / 1e6:.3f} ms ("
+          f"{int(nadm[lane, track])} admissions, "
+          f"{float(walk[lane, track] / nadm[lane, track]):.0f} ns per "
+          f"admission); longest phase B {float(phase_b[lb]) / 1e6:.3f} ms ("
+          f"{int(nslot[lb])} slots, {float(phase_b[lb] / nslot[lb]):.0f} ns "
+          f"per slot); mean phase B per slot "
+          f"{float((phase_b / nslot).mean()):.0f} ns; "
+          + mach_note(st[lb, kernels.NRZI_ST_MACH:], ns[lb], nslot[lb]),
+          flush=True)
+    del volts
+    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, opts,
+                               "tiered")
+    kernels.slot_phase_stamps(fin, pa, **kw)
+    out, st = kernels.slot_phase_stamps(fin, pa, **kw)
+    st = st.double()
+    ns = (st[:, 3] - st[:, 0]) / (st[:, 2] - st[:, 1])
+    loop = (st[:, 2] - st[:, 1]) * ns
+    nslot = out["lane_i"][..., tfu.LI_NSLOT].reshape(-1).double().cpu()
+    lb = int(loop.argmax())
+    t = time_launches(lambda: kernels.nrzi_slot(fin, pa, **kw), 10)
+    B, P, T, K = fin["tr_s"].shape
+    print(f"B6 nrzi_slot_scan b6 main (B={B} P={P} T={T} K={K}): kernel "
+          f"{t:.3f} ms; slot machine per lane (clock64) mean "
+          f"{float(loop.mean()) / 1e6:.3f} max {float(loop.max()) / 1e6:.3f} "
+          f"ms; longest lane {int(nslot[lb])} slots, "
+          f"{float(loop[lb] / nslot[lb]):.0f} ns per slot; mean per slot "
+          f"{float((loop / nslot).mean()):.0f} ns; "
+          + mach_note(st[lb, kernels.SLOT_ST_MACH:], ns[lb], nslot[lb]),
+          flush=True)
+
+
 def breakdown(card):
     from readtape_tpu_torch import kernels, native
     from readtape_tpu_torch.formats import tbin as tb
     _, _, log = kernels.build()
     for ln in ptxas_lines(log):
         print(f"  {ln}", flush=True)
+    nrzi_phases()
     kernel_phases()
     print(f"host activity scan: "
           f"{'native tape_scan' if native.available() else 'numpy'}; {card}",

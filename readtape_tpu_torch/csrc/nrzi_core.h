@@ -2,7 +2,11 @@
 // B1, everything in one launch; nrzi_scan.cu: B5, admission alone;
 // nrzi_slot.cu: B6, the slot machine alone) and a host build used only by
 // the tests. Every function is __host__ __device__ and touches one
-// (segment, parmset) lane, or one track of it.
+// (segment, parmset) lane, or one track of it. There is one copy of each
+// machine: the admission step (NrziWalk::admit) that B1 drives chunk by
+// chunk and B5 over its jump table, and the slot machine's per-track steps
+// and per-lane combines (nrzi_slot_drive) that the card runs with one
+// thread per track of a warp and the host runs serially, track by track.
 //
 // Semantics: readtape_tpu/decode/trackscan.py (admission, AGC policy) and
 // readtape_tpu/decode/nrzi.py::nrzi_slot_scan (global slot machine,
@@ -20,9 +24,11 @@
 #ifdef __CUDACC__
 #define NRZI_HD __host__ __device__ __forceinline__
 #define NRZI_HDM __host__ __device__ __forceinline__
+#define NRZI_UNROLL _Pragma("unroll")
 #else
 #define NRZI_HD static inline
 #define NRZI_HDM inline
+#define NRZI_UNROLL
 #endif
 
 #define NRZI_MAX_TRACKS 16
@@ -51,6 +57,32 @@
 #define LI_ENDS 4
 #define LI_NSLOT 5
 #define N_LI 6
+// per-lane phase stamps (only when the argument block's stamps is set).
+// B1: the global timer (ns) at the start and end, clock64() at the start
+// and after phases 0, A and B, then each track's clock64() cycles spent
+// walking in phase A, then the slot machine's cycles in each kind of
+// step (NRZI_M_*), summed over the slots. B6: the global timer at the
+// start and end, clock64() at the start and end of the slot machine,
+// then its cycles per kind of step as B1's
+#define NRZI_M_TRACKS 0    // the tracks' steps: consume rounds, zerocheck
+#define NRZI_M_REALIGN 1
+#define NRZI_M_CLOSE 2
+#define NRZI_NMACH 3
+#define NRZI_ST_G0 0
+#define NRZI_ST_C0 1
+#define NRZI_ST_CZ 2
+#define NRZI_ST_CA 3
+#define NRZI_ST_CB 4
+#define NRZI_ST_G1 5
+#define NRZI_ST_WALK 6
+#define NRZI_ST_MACH (NRZI_ST_WALK + NRZI_MAX_TRACKS)
+#define NRZI_NSTAMP (NRZI_ST_MACH + NRZI_NMACH)
+#define SLOT_ST_G0 0
+#define SLOT_ST_C0 1
+#define SLOT_ST_C1 2
+#define SLOT_ST_G1 3
+#define SLOT_ST_MACH 4
+#define SLOT_NSTAMP (SLOT_ST_MACH + NRZI_NMACH)
 
 // Everything one launch needs. Pointers are device pointers for the
 // kernel and host pointers for the host build. Lane = b * P + p.
@@ -79,8 +111,10 @@ struct NrziArgs {
   int32_t* trk_i;            // [B*P, T, N_TI]
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_LI]
+  int64_t* stamps;           // [B*P, NRZI_NSTAMP] phase clocks, or null
   int32_t B, P, T, S, G, K, maxb, max_slots, max_steps;
   int32_t do_correct, exp_par;
+  int32_t wmax;              // the widest of p_w
   float spb, stat_lb, stat_bw;
 };
 
@@ -107,7 +141,8 @@ NRZI_HD int nrzi_ctz(uint32_t m) {
 
 // ---------------------------------------------------------------------------
 // phase 0: loose candidacy (stage1.candidate_mask over the union of window
-// widths), masked to [lead, seg_len) -- one 32-position word at a time
+// widths), masked to [lead, seg_len), one sample at a time (B1's kernel
+// gathers a warp's 32 samples into a candidate word with one ballot)
 // ---------------------------------------------------------------------------
 
 NRZI_HD bool nrzi_loose_at(const float* v, int s, int W, float rf, float mf) {
@@ -125,21 +160,17 @@ NRZI_HD bool nrzi_loose_at(const float* v, int s, int W, float rf, float mf) {
   return top || bot;
 }
 
-NRZI_HD uint32_t nrzi_cand_word(const NrziArgs& a, int lane, int t, int w) {
-  int b = lane / a.P;
+// the candidate bit of sample s of track t: the loose test over the union
+// of the window widths, masked to [lead, seg_len)
+NRZI_HD bool nrzi_cand_bit(const NrziArgs& a, int lane, int t, int s) {
+  const int b = lane / a.P;
+  const int hi = a.seg_len[b] < a.S ? a.seg_len[b] : a.S;
+  if (s < a.lead[b] || s >= hi) return false;
   const float* v = a.volts + ((int64_t)b * a.T + t) * a.S;
-  int lo = a.lead[b], hi = a.seg_len[b];
-  if (hi > a.S) hi = a.S;
-  float rf = a.rise_floor[t], mf = a.min_floor[t];
-  uint32_t word = 0;
-  for (int i = 0; i < 32; ++i) {
-    int s = (w << 5) + i;
-    if (s < lo || s >= hi) continue;
-    bool c = false;
-    for (int g = 0; g < a.G && !c; ++g) c = nrzi_loose_at(v, s, a.wset[g], rf, mf);
-    if (c) word |= 1u << i;
-  }
-  return word;
+  bool c = false;
+  for (int g = 0; g < a.G && !c; ++g)
+    c = nrzi_loose_at(v, s, a.wset[g], a.rise_floor[t], a.min_floor[t]);
+  return c;
 }
 
 // first candidate >= p, or S
@@ -157,9 +188,10 @@ NRZI_HD int nrzi_next_cand(const uint32_t* words, int nw, int S, int p) {
 
 // ---------------------------------------------------------------------------
 // phase A: one track's admission scan (trackscan.run_jump_scan_seq +
-// nrzi_track_scan_pre + nrzi_agc_policy), over a candidate source: B1's
-// candidate bitmask with features computed from the volts, or B5's masked
-// jump table with precomputed features (NrziMaskSrc / NrziTableSrc)
+// nrzi_track_scan_pre + nrzi_agc_policy), one step struct (NrziWalk)
+// driven two ways: B1 walks its candidate bitmask chunk by chunk over
+// window features computed a chunk ahead (nrzi_walk_chunk), B5 walks a
+// masked jump table over precomputed features (nrzi_admit_scan)
 // ---------------------------------------------------------------------------
 
 struct NrziFeat {
@@ -287,15 +319,133 @@ NRZI_HD bool nrzi_walk_chunk(Walk& w, const uint32_t* words,
   }
 }
 
-// B1: one track's candidate bitmask; features from the volts
-struct NrziMaskSrc {
-  const float* v;          // [S]
-  const uint32_t* cw;      // [nw]
-  int nw, S;
-  NRZI_HDM int next(int p) const { return nrzi_next_cand(cw, nw, S, p); }
-  NRZI_HDM bool cand(int s) const { return (cw[s >> 5] >> (s & 31)) & 1u; }
-  NRZI_HDM void feat(int s, int W, NrziFeat& f) const { nrzi_features(v, S, s, W, f); }
+#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// Chunk staging on the card (B1, B2, B4's admission): while the walkers
+// walk chunk i, the block's other threads (stager ptid of np) copy chunk
+// i + 2 of each of T tracks -- its samples [c0 - W, c1] and its candidate
+// words -- into staging slot i & 1 by cp.async, and turn chunk i + 1 into
+// feature slot (i + 1) & 1: its words and every candidate's window
+// features. So no step of a walk waits on device memory
+// ---------------------------------------------------------------------------
+
+// cp.async of 4 bytes (__host__ __device__ for the slot machine's ring;
+// it copies in the device build only)
+NRZI_HDM void nrzi_cp4(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+#endif
+}
+
+__device__ __forceinline__ void nrzi_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void nrzi_cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// barrier 1 among the n staging threads only
+__device__ __forceinline__ void nrzi_stage_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+__device__ __forceinline__ long long nrzi_gtimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// the two feature and two staging slots of T tracks at chunk C, window
+// widths <= Wmax
+static inline size_t nrzi_stage_smem(int T, int C, int Wmax) {
+  return (size_t)T * (2 * (size_t)C * sizeof(NrziFeat) + 4 * (size_t)(C / 32) * 4 +
+                      2 * (size_t)(C + Wmax + 1) * 4);
+}
+
+struct NrziStager {
+  const float* v;            // track t's samples at v + t * S
+  const uint32_t* cw;        // its candidate words at cw + t * nw
+  NrziFeat* rows;            // [2][T][C] feature slots: rows, words
+  uint32_t* fwords;          // [2][T][CW]
+  uint32_t* swords;          // [2][T][CW] staging slots: words, samples
+  float* vst;                // [2][T][VN]
+  int T, S, W, C, CW, VN, nw, ptid, np;
+
+  // the slots carved from sm (nrzi_stage_smem bytes); returns their end
+  __device__ unsigned char* init(unsigned char* sm, const float* v_, const uint32_t* cw_,
+                                 int T_, int S_, int W_, int C_, int Wmax, int nw_,
+                                 int ptid_, int np_) {
+    v = v_;
+    cw = cw_;
+    T = T_;
+    S = S_;
+    W = W_;
+    C = C_;
+    CW = C >> 5;
+    VN = C + Wmax + 1;
+    nw = nw_;
+    ptid = ptid_;
+    np = np_;
+    rows = (NrziFeat*)sm;
+    fwords = (uint32_t*)(rows + 2 * T * C);
+    swords = fwords + 2 * T * CW;
+    vst = (float*)(swords + 2 * T * CW);
+    return (unsigned char*)(vst + 2 * T * VN);
+  }
+  // staging slot i & 1 <- every track's samples [c0 - W, c1] and words
+  __device__ void stage(int i) const {
+    const int c0 = i * C, c1 = min(c0 + C, S), base = c0 - W;
+    const int lo = nrzi_stage_lo(c0, W), n = nrzi_stage_hi(c1, S) - lo;
+    const int nwc = (c1 - c0 + 31) >> 5;
+    for (int q = ptid; q < T * n; q += np) {
+      const int t = q / n, k = lo + q % n;
+      nrzi_cp4(vst + ((i & 1) * T + t) * VN + (k - base), v + (int64_t)t * S + k);
+    }
+    for (int q = ptid; q < T * nwc; q += np) {
+      const int t = q / nwc, w = q % nwc;
+      nrzi_cp4(swords + ((i & 1) * T + t) * CW + w, cw + (int64_t)t * nw + (c0 >> 5) + w);
+    }
+    nrzi_cp_commit();
+  }
+  // feature slot i & 1 <- every track's words and candidates' features
+  __device__ void features(int i) const {
+    const int c0 = i * C, c1 = min(c0 + C, S), nwc = (c1 - c0 + 31) >> 5;
+    const uint32_t* ws = swords + (i & 1) * T * CW;
+    uint32_t* fw = fwords + (i & 1) * T * CW;
+    for (int q = ptid; q < T * CW; q += np) fw[q] = q % CW < nwc ? ws[q] : 0u;
+    NrziFeat* rs = rows + (i & 1) * T * C;
+    const float* vs = vst + (i & 1) * T * VN;
+    for (int q = ptid; q < T * C; q += np) {
+      const int t = q / C, s = c0 + q % C;
+      if (s < c1 && nrzi_chunk_cand(ws + t * CW, c0, s))
+        nrzi_features_at(vs + t * VN, c0 - W, S, s, W, rs[q]);
+    }
+  }
+  // before the walk: chunk 0 in its feature slot, chunk 1 on its way
+  __device__ void prime(int nch) const {
+    stage(0);
+    nrzi_cp_wait();
+    nrzi_stage_sync(np);
+    if (nch > 1) stage(1);
+    features(0);
+  }
+  // while the walkers walk chunk i: chunk i + 1 into its feature slot,
+  // chunk i + 2 on its way
+  __device__ void advance(int i, int nch) const {
+    if (i + 1 >= nch) return;
+    nrzi_cp_wait();                        // chunk i + 1 staged
+    nrzi_stage_sync(np);
+    if (i + 2 < nch) stage(i + 2);
+    features(i + 1);
+  }
+  // the feature slot of chunk i, track t: its words and rows
+  __device__ const uint32_t* words(int i, int t) const { return fwords + ((i & 1) * T + t) * CW; }
+  __device__ const NrziFeat* feat(int i, int t) const { return rows + ((i & 1) * T + t) * C; }
 };
+#endif
 
 // B5: one track's masked jump table (nxt[i] = first candidate >= i, S if
 // none) and its precomputed features, rows in trackscan.FEATURES order
@@ -341,33 +491,24 @@ struct NrziAdmitRes {
   float max_agc, min_agc;
 };
 
-template <class Src>
-NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
-                                     const NrziKnobs& kn, const NrziTrack& o) {
-  const int K = o.K, W = kn.W, aw = kn.aw;
-  const float rise = kn.rise, minp = kn.minp, aa = kn.aa;
+// One track's admission walk: its cursor and step count, AGC state, knobs
+// and outputs. admit(s, f) is one step at a candidate s with the window
+// features f: the admission test, then, for a peak, the refinement, the
+// AGC policy and the output; it moves the cursor on (a search from s + 1
+// after a rejection, a blind landing at s + L + 1 after an admission)
+struct NrziWalk {
+  NrziCursor cur;
+  int steps;
+  float agc, vah, vah_sum;
+  int vah_cnt, hndx, peakcount, n_adm;
+  float max_agc, min_agc, v_lasttop, v_lastbot, v_top, v_bot;
+  float* heights;            // [NRZI_MAX_AGC_RING] the AGC window
+  NrziKnobs kn;
+  NrziTrack o;
 
-  float agc = 1.0f, vah = 4.0f, vah_sum = 0.0f;
-  int vah_cnt = 0, hndx = 0, peakcount = 0, n_adm = 0;
-  float max_agc = 0.0f, min_agc = NRZI_FLT_MAX;
-  float v_lasttop = 0.0f, v_lastbot = 0.0f, v_top = 0.0f, v_bot = 0.0f;
-  float heights[NRZI_MAX_AGC_RING];
-  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
-
-  // one step per loop pass, as the JAX XLA scan counts them: a lane stops
-  // after max_steps steps (its budget) or when its cursor passes S
-  int pos = src.next(0);
-  int steps = 0;
-  while (pos < S && steps < max_steps) {
-    const int s = pos;
-    steps += 1;
-    if (!src.cand(s)) {
-      // a blind jump landed on a non-candidate: reject and snap
-      pos = src.next(s + 1);
-      continue;
-    }
-    NrziFeat f;
-    src.feat(s, W, f);
+  NRZI_HDM void admit(int s, const NrziFeat& f) {
+    const int W = kn.W, aw = kn.aw;
+    const float rise = kn.rise, minp = kn.minp, aa = kn.aa;
     // admission_test (decoder.c:781-810)
     float scale = vah / 4.0f;
     float rise_t = rise * scale / agc;
@@ -378,8 +519,9 @@ NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
     bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
                   (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
     if (!is_top && !is_bot) {
-      pos = src.next(s + 1);
-      continue;
+      cur.pos = s + 1;
+      cur.search = true;
+      return;
     }
     // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
     int L = is_top ? f.ltop : f.lbot;
@@ -436,21 +578,74 @@ NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
     if (is_top) v_lasttop = f.wmax; else v_lastbot = f.wmin;
 
     // compact_outputs: overflow keeps the last admission in slot K-1
-    int idx = n_adm < K - 1 ? n_adm : K - 1;
+    int idx = n_adm < o.K - 1 ? n_adm : o.K - 1;
     o.s[idx] = s;
     o.t[idx] = t_peak;
     o.agc[idx] = agc;
     if (o.top) o.top[idx] = is_top;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
-    pos = s + L + 1;
+    cur.pos = s + L + 1;
+    cur.search = false;
   }
+};
+
+// a track's walk at the start of its segment; heights: NRZI_MAX_AGC_RING
+// floats
+NRZI_HD void nrzi_walk_init(NrziWalk& w, const NrziKnobs& kn, const NrziTrack& o,
+                            float* heights) {
+  w.cur.pos = 0;
+  w.cur.search = true;
+  w.steps = 0;
+  w.agc = 1.0f;
+  w.vah = 4.0f;
+  w.vah_sum = 0.0f;
+  w.vah_cnt = w.hndx = w.peakcount = w.n_adm = 0;
+  w.max_agc = 0.0f;
+  w.min_agc = NRZI_FLT_MAX;
+  w.v_lasttop = w.v_lastbot = w.v_top = w.v_bot = 0.0f;
+  w.heights = heights;
+  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
+  w.kn = kn;
+  w.o = o;
+}
+
+NRZI_HD NrziAdmitRes nrzi_walk_result(const NrziWalk& w, int S) {
   NrziAdmitRes r;
-  r.n_adm = n_adm;
-  r.incomplete = pos < S;
-  r.max_agc = max_agc;
-  r.min_agc = min_agc;
+  r.n_adm = w.n_adm;
+  r.incomplete = w.cur.pos < S;
+  r.max_agc = w.max_agc;
+  r.min_agc = w.min_agc;
   return r;
+}
+
+// The walk over a candidate source whole (B5): one step per landing, as
+// the JAX XLA scan counts them; a lane stops after max_steps steps (its
+// budget) or when its cursor passes S
+template <class Src>
+NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
+                                     const NrziKnobs& kn, const NrziTrack& o) {
+  float heights[NRZI_MAX_AGC_RING];
+  NrziWalk w;
+  nrzi_walk_init(w, kn, o, heights);
+  int pos = src.next(0);
+  while (pos < S && w.steps < max_steps) {
+    const int s = pos;
+    w.steps += 1;
+    if (src.cand(s)) {
+      NrziFeat f;
+      src.feat(s, kn.W, f);
+      w.admit(s, f);
+      if (!w.cur.search) {
+        pos = w.cur.pos;
+        continue;
+      }
+    }
+    // a rejection, or a blind jump that landed on a non-candidate: snap
+    pos = src.next(s + 1);
+  }
+  w.cur.pos = pos;
+  return nrzi_walk_result(w, S);
 }
 
 NRZI_HD NrziKnobs nrzi_knobs(const int32_t* p_w, const int32_t* p_agc_window,
@@ -465,24 +660,26 @@ NRZI_HD NrziKnobs nrzi_knobs(const int32_t* p_w, const int32_t* p_agc_window,
   return kn;
 }
 
-// B1's phase A for track t of a lane
-NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
-  const int b = lane / a.P, p = lane % a.P;
+// B1's phase A, track t of a lane: its walk at the start (heights:
+// NRZI_MAX_AGC_RING floats), and its results once the walk has stopped
+NRZI_HD void nrzi_fused_walk_init(NrziWalk& w, const NrziArgs& a, int lane, int t,
+                                  float* heights) {
   const int64_t lt = (int64_t)lane * a.T + t;
-  NrziMaskSrc src;
-  src.v = a.volts + ((int64_t)b * a.T + t) * a.S;
-  src.nw = nrzi_nwords(a);
-  src.cw = a.cand + lt * src.nw;
-  src.S = a.S;
   NrziTrack o;
   o.s = a.tr_s + lt * a.K;
   o.t = a.tr_t + lt * a.K;
   o.agc = a.tr_agc + lt * a.K;
   o.top = 0;
   o.K = a.K;
-  NrziAdmitRes r = nrzi_admit_scan(
-      src, a.S, a.max_steps,
-      nrzi_knobs(a.p_w, a.p_agc_window, a.p_rise, a.p_minp, a.p_agc_alpha, p), o);
+  nrzi_walk_init(w, nrzi_knobs(a.p_w, a.p_agc_window, a.p_rise, a.p_minp,
+                               a.p_agc_alpha, lane % a.P),
+                 o, heights);
+}
+
+NRZI_HD void nrzi_fused_walk_finish(const NrziWalk& w, const NrziArgs& a, int lane,
+                                    int t) {
+  const NrziAdmitRes r = nrzi_walk_result(w, a.S);
+  const int64_t lt = (int64_t)lane * a.T + t;
   int32_t* ti = a.trk_i + lt * N_TI;
   float* tf = a.trk_f + lt * N_TF;
   ti[TI_NADM] = r.n_adm;
@@ -492,70 +689,19 @@ NRZI_HD void nrzi_admit_track(const NrziArgs& a, int lane, int t) {
 }
 
 // ---------------------------------------------------------------------------
-// phase B: the global bit-slot machine (nrzi.nrzi_slot_scan) for one lane
+// phase B: the global bit-slot machine (nrzi.nrzi_slot_scan) for one lane.
+// Within a slot the tracks' work is independent; they meet only in a few
+// per-lane combines. So the machine is cut into per-track steps (consume,
+// zerocheck with -correct's reads) that own one track's state and hand one
+// result each (NrziSlotPart) to per-lane combines that read the results in
+// track order (open, realignment, the slot's close: clock, post-area and
+// -correct; finish). nrzi_slot_drive runs them slot by slot over an
+// executor: the host's NrziSerial loops over the tracks; the card's
+// NrziWarp runs track t on thread t of a warp and each combine on thread
+// 0, a __syncwarp() after each. A combine runs on one thread in track
+// order, so avg_pos keeps its summation order and badtrk its first-maximum
+// tie-break.
 // ---------------------------------------------------------------------------
-
-struct NrziSlot {
-  const int32_t* tr_s;
-  const float* tr_t;
-  const float* tr_agc;
-  int8_t* bits;
-  int32_t* hist;
-  int T, K, S, maxb, first_k;
-  int lim[NRZI_MAX_TRACKS];      // min(count, K): valid entries per track
-  int kvis[NRZI_MAX_TRACKS];
-  int dc[NRZI_MAX_TRACKS];
-  int trksum[NRZI_MAX_TRACKS];
-  float tfirst[NRZI_MAX_TRACKS];
-  float tlast[NRZI_MAX_TRACKS];
-  float t_lc, t_lm, lb, bw;
-  int post, missed, overflow;
-};
-
-NRZI_HD float nrzi_tt(const NrziSlot& m, int t, int k) { return m.tr_t[(int64_t)t * m.K + k]; }
-
-// one consume round: up to 3 transitions per track with s_det < s_zc become
-// 1-bits; a 4th sets the overflow flag; then the post-area realignment
-NRZI_HD void nrzi_consume(NrziSlot& m, int s_zc, float b, float midbit) {
-  float t_max = NRZI_NEG_T;
-  for (int t = 0; t < m.T; ++t) {
-    int n_new = 0;
-    for (int j = 0; j < 4; ++j) {
-      int kj = m.kvis[t] + j;
-      if (kj < m.lim[t] && m.tr_s[(int64_t)t * m.K + kj] < s_zc) n_new = j + 1;
-      else break;
-    }
-    for (int j = 0; j < 3 && j < n_new; ++j) {
-      int kj = m.kvis[t] + j;
-      float tj = nrzi_tt(m, t, kj);
-      int wi = m.dc[t] + j < m.maxb - 1 ? m.dc[t] + j : m.maxb - 1;
-      m.bits[(int64_t)t * m.maxb + wi] = 1;
-      if (m.dc[t] + j == 0) m.tfirst[t] = tj;
-      m.tlast[t] = tj;
-      t_max = nrzi_maxf(t_max, tj);
-      if (tj < m.t_lm && m.post == 0) m.missed += 1;
-      // the block's very first transition is never recorded
-      // (decode_nrzi.c:156-162)
-      if (m.post == 0 && !(t == m.first_k && kj == 0)) {
-        float val = tj - m.t_lc;
-        int bkt = nrzi_f2i((val - m.lb) / m.bw);
-        int code = bkt < 0 ? 0 : (bkt > 49 ? 49 : bkt);
-        m.hist[t * 50 + code] += 1;
-        if (bkt >= 0 && bkt <= 49) m.trksum[t] += 1;
-      }
-    }
-    if (n_new == 4) m.overflow = 1;
-    m.dc[t] = m.dc[t] + n_new < m.maxb ? m.dc[t] + n_new : m.maxb;
-    m.kvis[t] = m.kvis[t] + n_new < m.K ? m.kvis[t] + n_new : m.K;
-  }
-  if (m.post > 0 && t_max > NRZI_NEG_T / 2 && m.t_lc < fmaf(-(2.0f - midbit), b, t_max))
-    m.t_lc = t_max - 2.0f * b;
-}
-
-NRZI_HD int nrzi_boundary(float t_lc, float b) {
-  float x = floorf(t_lc + 2.0f * b);
-  return nrzi_f2i(x) + 1;
-}
 
 // one lane of the slot machine: its transition buffers, outputs and knobs
 struct NrziSlotLane {
@@ -571,176 +717,555 @@ struct NrziSlotLane {
   float ca, padj, midbit, spb, lb, bw;
 };
 
-NRZI_HD void nrzi_slot_run(const NrziSlotLane& a) {
-  NrziSlot m;
-  m.T = a.T;
-  m.K = a.K;
-  m.S = a.S;
-  m.maxb = a.maxb;
-  m.tr_s = a.tr_s;
-  m.tr_t = a.tr_t;
-  m.tr_agc = a.tr_agc;
-  m.bits = a.bits;
-  m.hist = a.hist;
-  const int32_t* ti_in = a.trk_i;
-  const int cw = a.cw;
-  const float ca = a.ca, padj = a.padj, midbit = a.midbit;
-  const float spb = a.spb;
-  m.lb = a.lb;
-  m.bw = a.bw;
-
-  bool any = false;
-  int first_key = NRZI_BIG_S;
-  m.first_k = 0;
-  for (int t = 0; t < m.T; ++t) {
-    int cnt = ti_in[t * N_TI + TI_NADM];
-    m.lim[t] = cnt < m.K ? cnt : m.K;
-    any = any || cnt > 0;
-    int key = cnt > 0 ? m.tr_s[(int64_t)t * m.K] : NRZI_BIG_S;
-    if (key < first_key) { first_key = key; m.first_k = t; }
-    m.kvis[t] = 0;
-    m.dc[t] = 0;
-    m.trksum[t] = 0;
-    m.tfirst[t] = 0.0f;
-    m.tlast[t] = 0.0f;
+// one track's state, owned by its steps
+struct NrziSlotTrk {
+  int8_t* bits;            // the track's [maxb] row
+  int32_t* hist;           // its [50] histogram row
+  int lim;                 // min(count, K): its valid transitions
+  int kvis, dc, trksum, missed, overflow;
+  int n_new;               // what the last consume round found
+  int col0;                // bits[0], the column -correct's parity reads
+  float tfirst, tlast;
+  NRZI_HDM void put(int i, int v) {
+    bits[i] = (int8_t)v;
+    if (i == 0) col0 = v;
   }
-  float ring[NRZI_MAX_CLK_RING];
-  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) ring[k] = spb;
-  int bitndx = 0;
-  float avg = spb;
-  m.t_lc = any ? nrzi_tt(m, m.first_k, 0) - spb : 0.0f;
-  m.t_lm = fmaf(midbit, spb, m.t_lc);
-  m.post = 0;
-  m.missed = 0;
-  m.overflow = 0;
-  int corrected = 0, faked = 0, end_s = m.S, nslot = 0;
-  bool done = !any;
+};
 
-  while (!done && nslot < a.max_slots) {
-    const float b = avg;
-    int s_z = nrzi_boundary(m.t_lc, b);
-    nrzi_consume(m, s_z < m.S ? s_z : m.S, b, midbit);
-    // realignment may have pushed the boundary later: recompute once
-    s_z = nrzi_boundary(m.t_lc, b);
-    nrzi_consume(m, s_z < m.S ? s_z : m.S, b, midbit);
-    bool past_end = s_z >= m.S;
+// what one track's step hands the next combine (16 bytes: one load)
+struct alignas(16) NrziSlotPart {
+  float x;     // open: its first transition's time; consume: its latest
+               // consumed time (NRZI_NEG_T if none); zerocheck: its avg_pos term
+  float g;     // zerocheck: the AGC gain -correct reads
+  int key;     // open: its first transition's sample; finish: missed mid-bits
+  int flags;   // NRZI_PF_*
+};
+#define NRZI_PF_ANY 1      // open: it admitted transitions
+#define NRZI_PF_BIT 2      // zerocheck: a 1-bit in the window (numbits)
+#define NRZI_PF_LATER 4    // zerocheck: a later peak (numlater)
+#define NRZI_PF_COL0 8     // zerocheck: its bit in column 0
+#define NRZI_PF_OVF 16     // finish: a consume round overflowed
 
-    // ---- zerocheck (decode_nrzi.c:232-314) ----
-    const float left = m.t_lm;
-    const float right = fmaf(1.0f + midbit, b, m.t_lc);
-    const float tz = m.t_lc + b;
-    int numbits = 0, numlater = 0;
-    float avg_pos = 0.0f;
-    for (int t = 0; t < m.T; ++t) {
-      int k = m.kvis[t];
-      float lastpeak = k >= 1 ? nrzi_tt(m, t, k - 1) : NRZI_NEG_T;
-      float prevlast = k >= 2 ? nrzi_tt(m, t, k - 2) : NRZI_NEG_T;
-      bool last_in = lastpeak > left && lastpeak < right;
-      bool prev_in = prevlast > left && prevlast < right;
-      bool dup = last_in && prev_in;          // noisy double peak
-      bool b2 = !last_in && prev_in;
-      bool later = !last_in && !prev_in && lastpeak > right;
-      bool zero = !last_in && !prev_in && !later;
-      int8_t* bt = m.bits + (int64_t)t * m.maxb;
-      int dc0 = m.dc[t];
-      int d = dup ? dc0 - 1 : dc0;
-      if (later) {                 // insert 0 before the 1 just appended
-        bt[d - 1 > 0 ? d - 1 : 0] = 0;
-        bt[d < m.maxb - 1 ? d : m.maxb - 1] = 1;
-        d = d + 1 < m.maxb ? d + 1 : m.maxb;
-      }
-      if (zero) {                  // plain zero: append a 0
-        bt[d < m.maxb - 1 ? d : m.maxb - 1] = 0;
-        d = d + 1 < m.maxb ? d + 1 : m.maxb;
-      }
-      if ((later || zero) && dc0 == 0 && d > dc0) m.tfirst[t] = tz;
-      if (later) m.tlast[t] = lastpeak;
-      else if (zero) m.tlast[t] = tz;
-      m.dc[t] = d;
-      if (last_in || b2) numbits += 1;
-      if (later) numlater += 1;
-      avg_pos = avg_pos + (last_in ? lastpeak : (b2 ? prevlast : 0.0f));
-    }
-    const bool have = numbits > 0;
-    const int post = m.post;
-    int post_h = post == 1 ? 0 : post;        // cancel a fresh post
-    float avgp = avg_pos / (float)(numbits > 1 ? numbits : 1);
-    float expected = m.t_lc + b;
-    float adjusted = post_h > 0 ? avgp : fmaf(padj, avgp - expected, expected);
-    float delta = adjusted - m.t_lc;
-    if (have && post_h == 0) {                // adjust_clock
-      if (cw > 0) {
-        float old = ring[bitndx];
-        ring[bitndx] = delta;
-        bitndx = bitndx + 1 >= cw ? 0 : bitndx + 1;
-        avg = b + (delta - old) / (float)cw;
-      } else if (ca > 0.0f) {
-        avg = fmaf(ca, delta, (1.0f - ca) * b);
-      } else {
-        avg = spb;
-      }
-    }
-    post_h = post_h > 0 ? post_h + 1 : post_h;
-    int post_n = (numlater == 0 && post == 0) ? 1 : (post > 0 ? post + 1 : post);
-    m.post = have ? post_h : post_n;
-    m.t_lc = have ? adjusted : m.t_lc + b;
-    m.t_lm = right;
+// the lane's state, owned by the combines
+struct alignas(16) NrziSlotState {
+  float t_lc, t_lm, avg;
+  int post, first_k, nslot, end_s, corrected, faked, bitndx;
+  int flip;                // the track -correct flips before the next slot, or -1
+  int done;
+  float ring[NRZI_MAX_CLK_RING];   // the clock window
+};
 
-    // -correct, release-binary semantics: the parity check reads column 0
-    // (readtape.c nrzi_zerocheck:245,302)
-    if (a.do_correct) {
-      int frame0 = 0;
-      for (int t = 0; t < m.T; ++t) frame0 |= (m.bits[(int64_t)t * m.maxb] & 1) << (m.T - 1 - t);
-      int par = 0;
-      for (int x = frame0; x; x >>= 1) par ^= x & 1;
-      float hi = -1.0f;
-      int badtrk = 0;
-      for (int t = 0; t < m.T; ++t) {
-        int k = m.kvis[t];
-        float g = k >= 1 ? m.tr_agc[(int64_t)t * m.K + k - 1] : 1.0f;
-        if (t == 0 || g > hi) { hi = g; badtrk = t; }
-      }
-      float next_hi = -1.0f;
-      for (int t = 0; t < m.T; ++t) {
-        int k = m.kvis[t];
-        float g = t == badtrk ? -1.0f
-                  : (k >= 1 ? m.tr_agc[(int64_t)t * m.K + k - 1] : 1.0f);
-        if (t == 0 || g > next_hi) next_hi = g;
-      }
-      if (have && par != a.exp_par && hi >= 2.0f * next_hi) {
-        m.bits[(int64_t)badtrk * m.maxb] ^= 1;
-        corrected += 1;
-        faked |= 1 << (m.T - 1 - badtrk);
-      }
-    }
-    nslot += 1;
-    if (m.post >= 8) {
-      end_s = s_z < m.S ? s_z : m.S;
-      done = true;
-    }
-    if (past_end) done = true;
-  }
+// A track's transitions read from its [K] rows (the host). Every source
+// has s(k), t(k), agc(k) for k < lim, and s_near, t_near for k in
+// [kvis - 2, kvis + 8): the entry for 0 <= k < lim, anything elsewhere
+// (the card's ring reads them unguarded, several at once)
+struct NrziRowSrc {
+  const int32_t* rs;
+  const float* rt;
+  const float* ragc;
+  int K;
+  NRZI_HDM void start(int) {}
+  NRZI_HDM void ahead(int) {}
+  NRZI_HDM int s(int k) const { return rs[k]; }
+  NRZI_HDM float t(int k) const { return rt[k]; }
+  NRZI_HDM float agc(int k) const { return ragc[k]; }
+  NRZI_HDM int s_near(int k) const { return k >= 0 && k < K ? rs[k] : 0; }
+  NRZI_HDM float t_near(int k) const { return k >= 0 && k < K ? rt[k] : 0.0f; }
+};
 
-  int32_t* ti = a.trk_i;
-  float* tf = a.trk_f;
-  for (int t = 0; t < m.T; ++t) {
-    ti[t * N_TI + TI_DC] = m.dc[t];
-    ti[t * N_TI + TI_KVIS] = m.kvis[t];
-    ti[t * N_TI + TI_TRKSUM] = m.trksum[t];
-    tf[t * N_TF + TF_TFIRST] = m.tfirst[t];
-    tf[t * N_TF + TF_TLAST] = m.tlast[t];
-  }
-  int32_t* li = a.lane_i;
-  li[LI_MISSMID] = m.missed;
-  li[LI_CORR] = corrected;
-  li[LI_FAKED] = faked;
-  li[LI_CONSOVF] = m.overflow;
-  li[LI_ENDS] = end_s;
-  li[LI_NSLOT] = nslot;
+NRZI_HD int nrzi_boundary(float t_lc, float b) {
+  float x = floorf(t_lc + 2.0f * b);
+  return nrzi_f2i(x) + 1;
 }
 
-// B1's phase B for a lane, over the buffers phase A filled
-NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
+// track t at the start of the lane; k.bits and k.hist are set
+template <class Tr>
+NRZI_HD NrziSlotPart nrzi_slot_track_open(NrziSlotTrk& k, Tr& tr, const NrziSlotLane& a,
+                                          int t) {
+  const int cnt = a.trk_i[t * N_TI + TI_NADM];
+  k.lim = cnt < a.K ? cnt : a.K;
+  k.kvis = k.dc = k.trksum = k.missed = k.overflow = k.col0 = 0;
+  k.tfirst = k.tlast = 0.0f;
+  tr.start(k.lim);
+  tr.ahead(0);
+  NrziSlotPart p;
+  p.flags = cnt > 0 ? NRZI_PF_ANY : 0;
+  p.key = cnt > 0 ? tr.s(0) : NRZI_BIG_S;
+  p.x = cnt > 0 ? tr.t(0) : 0.0f;
+  p.g = 0.0f;
+  return p;
+}
+
+// the lane at its start: the block's first transition sets the clock
+NRZI_HD void nrzi_slot_open(NrziSlotState& L, const NrziSlotPart* part,
+                            const NrziSlotLane& a) {
+  bool any = false;
+  int first_key = NRZI_BIG_S, first_k = 0;
+NRZI_UNROLL
+  for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+    const NrziSlotPart p = part[t];
+    if (t >= a.T) continue;
+    any = any || (p.flags & NRZI_PF_ANY);
+    if (p.key < first_key) {
+      first_key = p.key;
+      first_k = t;
+    }
+  }
+  L.first_k = first_k;
+  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) L.ring[k] = a.spb;
+  L.bitndx = 0;
+  L.avg = a.spb;
+  L.t_lc = any ? part[L.first_k].x - a.spb : 0.0f;
+  L.t_lm = fmaf(a.midbit, a.spb, L.t_lc);
+  L.post = 0;
+  L.nslot = 0;
+  L.end_s = a.S;
+  L.corrected = 0;
+  L.faked = 0;
+  L.flip = -1;
+  L.done = !any;
+}
+
+// one consume round of track t: up to 3 of its transitions with s_det <
+// s_zc become 1-bits; a 4th sets the overflow flag. Returns the latest of
+// their times (NRZI_NEG_T if none) for the realignment, and leaves in
+// k.n_new how many it found
+template <class Tr>
+NRZI_HD float nrzi_consume_track(NrziSlotTrk& k, const Tr& tr, int t, int s_zc,
+                                 const NrziSlotState& L, const NrziSlotLane& a) {
+  // the next four samples and three times, read at once
+  int sv[4];
+  float tv[3];
+NRZI_UNROLL
+  for (int j = 0; j < 4; ++j) sv[j] = tr.s_near(k.kvis + j);
+NRZI_UNROLL
+  for (int j = 0; j < 3; ++j) tv[j] = tr.t_near(k.kvis + j);
+  float t_max = NRZI_NEG_T;
+  int n_new = 0;
+NRZI_UNROLL
+  for (int j = 0; j < 4; ++j)
+    if (n_new == j && k.kvis + j < k.lim && sv[j] < s_zc) n_new = j + 1;
+NRZI_UNROLL
+  for (int j = 0; j < 3; ++j) {
+    if (j >= n_new) break;
+    const int kj = k.kvis + j;
+    const float tj = tv[j];
+    k.put(k.dc + j < a.maxb - 1 ? k.dc + j : a.maxb - 1, 1);
+    if (k.dc + j == 0) k.tfirst = tj;
+    k.tlast = tj;
+    t_max = nrzi_maxf(t_max, tj);
+    if (tj < L.t_lm && L.post == 0) k.missed += 1;
+    // the block's very first transition is never recorded
+    // (decode_nrzi.c:156-162)
+    if (L.post == 0 && !(t == L.first_k && kj == 0)) {
+      const float val = tj - L.t_lc;
+      const int bkt = nrzi_f2i((val - a.lb) / a.bw);
+      k.hist[bkt < 0 ? 0 : (bkt > 49 ? 49 : bkt)] += 1;
+      if (bkt >= 0 && bkt <= 49) k.trksum += 1;
+    }
+  }
+  if (n_new == 4) k.overflow = 1;
+  k.dc = k.dc + n_new < a.maxb ? k.dc + n_new : a.maxb;
+  k.kvis = k.kvis + n_new < a.K ? k.kvis + n_new : a.K;
+  k.n_new = n_new;
+  return t_max;
+}
+
+// after a consume round: the post-area realignment to the latest
+// transition of any track (the max of each track's latest, in track order,
+// is the max over all of them in the reference's order, ties included)
+NRZI_HD void nrzi_slot_realign(NrziSlotState& L, const NrziSlotPart* part,
+                               const NrziSlotLane& a, float b) {
+  float t_max = NRZI_NEG_T;
+NRZI_UNROLL
+  for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+    if (t >= a.T) break;
+    t_max = nrzi_maxf(t_max, part[t].x);
+  }
+  if (L.post > 0 && t_max > NRZI_NEG_T / 2 && L.t_lc < fmaf(-(2.0f - a.midbit), b, t_max))
+    L.t_lc = t_max - 2.0f * b;
+}
+
+// the zerocheck of one track (decode_nrzi.c:232-314), and what -correct
+// reads of it: its bit in column 0 and the gain of its last consumed
+// transition
+template <class Tr>
+NRZI_HD NrziSlotPart nrzi_zerocheck_track(NrziSlotTrk& k, const Tr& tr,
+                                          const NrziSlotState& L,
+                                          const NrziSlotLane& a, float b) {
+  const float left = L.t_lm;
+  const float right = fmaf(1.0f + a.midbit, b, L.t_lc);
+  const float tz = L.t_lc + b;
+  const int kv = k.kvis, maxb = a.maxb, dc0 = k.dc;
+  const float t1 = tr.t_near(kv - 1), t2 = tr.t_near(kv - 2);
+  const float lastpeak = kv >= 1 ? t1 : NRZI_NEG_T;
+  const float prevlast = kv >= 2 ? t2 : NRZI_NEG_T;
+  const bool last_in = lastpeak > left && lastpeak < right;
+  const bool prev_in = prevlast > left && prevlast < right;
+  const bool dup = last_in && prev_in;          // noisy double peak
+  const bool b2 = !last_in && prev_in;
+  const bool later = !last_in && !prev_in && lastpeak > right;
+  const bool zero = !last_in && !prev_in && !later;
+  int d = dup ? dc0 - 1 : dc0;
+  if (later) {                 // insert 0 before the 1 just appended
+    k.put(d - 1 > 0 ? d - 1 : 0, 0);
+    k.put(d < maxb - 1 ? d : maxb - 1, 1);
+    d = d + 1 < maxb ? d + 1 : maxb;
+  }
+  if (zero) {                  // plain zero: append a 0
+    k.put(d < maxb - 1 ? d : maxb - 1, 0);
+    d = d + 1 < maxb ? d + 1 : maxb;
+  }
+  if ((later || zero) && dc0 == 0 && d > dc0) k.tfirst = tz;
+  if (later) k.tlast = lastpeak;
+  else if (zero) k.tlast = tz;
+  k.dc = d;
+  NrziSlotPart p;
+  p.x = last_in ? lastpeak : (b2 ? prevlast : 0.0f);
+  p.g = a.do_correct && kv >= 1 ? tr.agc(kv - 1) : 1.0f;
+  p.key = 0;
+  p.flags = (last_in || b2 ? NRZI_PF_BIT : 0) | (later ? NRZI_PF_LATER : 0) |
+            ((k.col0 & 1) ? NRZI_PF_COL0 : 0);
+  return p;
+}
+
+// the slot's close over the tracks' zerocheck parts: the clock, the
+// post-area count, the next slot's window and -correct; s_z: the slot's
+// boundary
+NRZI_HD void nrzi_slot_close(NrziSlotState& L, const NrziSlotPart* part,
+                             const NrziSlotLane& a, float b, int s_z) {
+  int numbits = 0, numlater = 0, par = 0;
+  float avg_pos = 0.0f;
+NRZI_UNROLL
+  for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+    if (t >= a.T) break;
+    const NrziSlotPart p = part[t];
+    numbits += (p.flags & NRZI_PF_BIT) != 0;
+    numlater += (p.flags & NRZI_PF_LATER) != 0;
+    par ^= (p.flags & NRZI_PF_COL0) != 0;
+    avg_pos = avg_pos + p.x;
+  }
+  const bool have = numbits > 0;
+  const int post = L.post;
+  const float right = fmaf(1.0f + a.midbit, b, L.t_lc);
+  int post_h = post == 1 ? 0 : post;        // cancel a fresh post
+  const float avgp = avg_pos / (float)(numbits > 1 ? numbits : 1);
+  const float expected = L.t_lc + b;
+  const float adjusted = post_h > 0 ? avgp : fmaf(a.padj, avgp - expected, expected);
+  const float delta = adjusted - L.t_lc;
+  if (have && post_h == 0) {                // adjust_clock
+    if (a.cw > 0) {
+      const float old = L.ring[L.bitndx];
+      L.ring[L.bitndx] = delta;
+      L.bitndx = L.bitndx + 1 >= a.cw ? 0 : L.bitndx + 1;
+      L.avg = b + (delta - old) / (float)a.cw;
+    } else if (a.ca > 0.0f) {
+      L.avg = fmaf(a.ca, delta, (1.0f - a.ca) * b);
+    } else {
+      L.avg = a.spb;
+    }
+  }
+  post_h = post_h > 0 ? post_h + 1 : post_h;
+  const int post_n = (numlater == 0 && post == 0) ? 1 : (post > 0 ? post + 1 : post);
+  L.post = have ? post_h : post_n;
+  L.t_lc = have ? adjusted : L.t_lc + b;
+  L.t_lm = right;
+
+  // -correct, release-binary semantics: the parity check reads column 0
+  // (readtape.c nrzi_zerocheck:245,302); the first track of the highest
+  // gain is flipped when it is at least twice the next highest
+  L.flip = -1;
+  if (a.do_correct && have && par != a.exp_par) {
+    float hi = -1.0f;
+    int badtrk = 0;
+NRZI_UNROLL
+    for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+      const float g = part[t].g;
+      if (t < a.T && (t == 0 || g > hi)) {
+        hi = g;
+        badtrk = t;
+      }
+    }
+    float next_hi = -1.0f;
+NRZI_UNROLL
+    for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+      const float g = t == badtrk ? -1.0f : part[t].g;
+      if (t < a.T && (t == 0 || g > next_hi)) next_hi = g;
+    }
+    if (hi >= 2.0f * next_hi) {
+      L.flip = badtrk;
+      L.corrected += 1;
+      L.faked |= 1 << (a.T - 1 - badtrk);
+    }
+  }
+  L.nslot += 1;
+  if (L.post >= 8) {
+    L.end_s = s_z < a.S ? s_z : a.S;
+    L.done = 1;
+  }
+  if (s_z >= a.S) L.done = 1;
+}
+
+// -correct's flip of the slot just closed, by the track it flips
+NRZI_HD void nrzi_slot_flip(NrziSlotTrk& k, const NrziSlotState& L, int t) {
+  if (t == L.flip) k.put(0, k.col0 ^ 1);
+}
+
+// track t's outputs once the machine has stopped, and its counts
+NRZI_HD NrziSlotPart nrzi_slot_track_finish(const NrziSlotTrk& k, const NrziSlotLane& a,
+                                            int t) {
+  int32_t* ti = a.trk_i + t * N_TI;
+  float* tf = a.trk_f + t * N_TF;
+  ti[TI_DC] = k.dc;
+  ti[TI_KVIS] = k.kvis;
+  ti[TI_TRKSUM] = k.trksum;
+  tf[TF_TFIRST] = k.tfirst;
+  tf[TF_TLAST] = k.tlast;
+  NrziSlotPart p;
+  p.x = p.g = 0.0f;
+  p.key = k.missed;
+  p.flags = k.overflow ? NRZI_PF_OVF : 0;
+  return p;
+}
+
+NRZI_HD void nrzi_slot_finish(const NrziSlotState& L, const NrziSlotPart* part,
+                              const NrziSlotLane& a) {
+  int missed = 0, overflow = 0;
+NRZI_UNROLL
+  for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+    const NrziSlotPart p = part[t];
+    if (t >= a.T) continue;
+    missed += p.key;
+    overflow |= (p.flags & NRZI_PF_OVF) != 0;
+  }
+  int32_t* li = a.lane_i;
+  li[LI_MISSMID] = missed;
+  li[LI_CORR] = L.corrected;
+  li[LI_FAKED] = L.faked;
+  li[LI_CONSOVF] = overflow;
+  li[LI_ENDS] = L.end_s;
+  li[LI_NSLOT] = L.nslot;
+}
+
+// The machine over one lane. ex.each(m, f) calls f(track state,
+// transition source, t) for every track and ex.one(m, f) calls f() once;
+// each returns once every call is done (m: the kind of step, NRZI_M_*,
+// or -1). L and part: the lane's state and NRZI_MAX_TRACKS parts, where
+// every track and the combines see them (the combines read all of them
+// at once and use the first T)
+template <class Exec>
+NRZI_HD void nrzi_slot_drive(Exec& ex, const NrziSlotLane& a, NrziSlotState& L,
+                             NrziSlotPart* part) {
+  ex.each(-1, [&](NrziSlotTrk& k, auto& tr, int t) {
+    part[t] = nrzi_slot_track_open(k, tr, a, t);
+  });
+  ex.one(-1, [&] { nrzi_slot_open(L, part, a); });
+  while (!L.done && L.nslot < a.max_slots) {
+    const float b = L.avg;
+    // Two consume rounds, then the zerocheck. In the post area a
+    // realignment follows each round and may push the next boundary
+    // later. Elsewhere both rounds share one boundary, so a track runs
+    // its steps at once: its second round only after a first that filled
+    // all four places (else it finds nothing), then its zerocheck
+    const bool realign = L.post > 0;
+    for (int r = 0; r < (realign ? 2 : 1); ++r) {
+      ex.each(NRZI_M_TRACKS, [&](NrziSlotTrk& k, auto& tr, int t) {
+        if (r == 0) {
+          nrzi_slot_flip(k, L, t);
+          tr.ahead(k.kvis);
+        }
+        const int s_z = nrzi_boundary(L.t_lc, b);
+        const int s_zc = s_z < a.S ? s_z : a.S;
+        part[t].x = nrzi_consume_track(k, tr, t, s_zc, L, a);
+        if (!realign) {
+          if (k.n_new == 4) nrzi_consume_track(k, tr, t, s_zc, L, a);
+          part[t] = nrzi_zerocheck_track(k, tr, L, a, b);
+        }
+      });
+      if (realign) ex.one(NRZI_M_REALIGN, [&] { nrzi_slot_realign(L, part, a, b); });
+    }
+    if (realign)
+      ex.each(NRZI_M_TRACKS, [&](NrziSlotTrk& k, auto& tr, int t) {
+        part[t] = nrzi_zerocheck_track(k, tr, L, a, b);
+      });
+    const int s_z = nrzi_boundary(L.t_lc, b);
+    ex.one(NRZI_M_CLOSE, [&] { nrzi_slot_close(L, part, a, b, s_z); });
+  }
+  ex.each(-1, [&](NrziSlotTrk& k, auto&, int t) {
+    nrzi_slot_flip(k, L, t);
+    part[t] = nrzi_slot_track_finish(k, a, t);
+  });
+  ex.one(-1, [&] { nrzi_slot_finish(L, part, a); });
+}
+
+// the host's executor: the tracks one after another
+struct NrziSerial {
+  NrziSlotTrk k[NRZI_MAX_TRACKS];
+  NrziRowSrc tr[NRZI_MAX_TRACKS];
+  int T;
+  template <class F> NRZI_HDM void each(int, F f) {
+    for (int t = 0; t < T; ++t) f(k[t], tr[t], t);
+  }
+  template <class F> NRZI_HDM void one(int, F f) { f(); }
+};
+
+// the slot machine of one lane, serially (the host build)
+NRZI_HD void nrzi_slot_run(const NrziSlotLane& a) {
+  NrziSerial ex;
+  ex.T = a.T;
+  for (int t = 0; t < a.T; ++t) {
+    ex.k[t].bits = a.bits + (int64_t)t * a.maxb;
+    ex.k[t].hist = a.hist + t * 50;
+    ex.tr[t].rs = a.tr_s + (int64_t)t * a.K;
+    ex.tr[t].rt = a.tr_t + (int64_t)t * a.K;
+    ex.tr[t].ragc = a.tr_agc + (int64_t)t * a.K;
+    ex.tr[t].K = a.K;
+  }
+  NrziSlotState L;
+  NrziSlotPart part[NRZI_MAX_TRACKS] = {};
+  nrzi_slot_drive(ex, a, L, part);
+}
+
+#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// the card's executor: one lane per warp, track t on thread t (T <= 16),
+// the combines on thread 0. Each track's transitions come from a ring of
+// NRZI_RING entries in shared memory, refilled by cp.async NRZI_RING_BLK
+// entries at a time, two blocks ahead of the one its cursor reads: kvis
+// grows by at most 8 a slot and a slot reads kvis - 2 .. kvis + 7, so no
+// slot waits on device memory once the first two blocks have arrived
+// ---------------------------------------------------------------------------
+
+#define NRZI_RING 128
+#define NRZI_RING_BLK 32
+
+// (the executor's members are __host__ __device__ so that the drive's
+// template may call them; they do their work in the device build only)
+struct NrziRingSrc {
+  int32_t* rs;               // shared [NRZI_RING]
+  float* rt;
+  float* ragc;
+  const int32_t* gs;         // the track's [K] rows in device memory
+  const float* gt;
+  const float* gagc;
+  int lim, nxt;              // valid entries; the next block to load
+  NRZI_HDM int s(int k) const { return rs[k & (NRZI_RING - 1)]; }
+  NRZI_HDM float t(int k) const { return rt[k & (NRZI_RING - 1)]; }
+  NRZI_HDM float agc(int k) const { return ragc[k & (NRZI_RING - 1)]; }
+  NRZI_HDM int s_near(int k) const { return s(k); }
+  NRZI_HDM float t_near(int k) const { return t(k); }
+  // one block, as one cp.async group (empty past lim)
+  NRZI_HDM void load(int blk) {
+    const int k0 = blk * NRZI_RING_BLK;
+    const int k1 = k0 + NRZI_RING_BLK < lim ? k0 + NRZI_RING_BLK : lim;
+    for (int k = k0; k < k1; ++k) {
+      const int r = k & (NRZI_RING - 1);
+      nrzi_cp4(rs + r, gs + k);
+      nrzi_cp4(rt + r, gt + k);
+      nrzi_cp4(ragc + r, gagc + k);
+    }
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+  }
+  NRZI_HDM void start(int n) {
+    lim = n;
+    for (nxt = 0; nxt < 3; ++nxt) load(nxt);
+  }
+  // before a slot at kvis: the blocks through kvis's next resident, the
+  // one after that on its way
+  NRZI_HDM void ahead(int kvis) {
+    if (nxt <= (kvis >> 5) + 2) load(nxt++);
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#endif
+  }
+};
+
+NRZI_HDM long long nrzi_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+
+struct NrziWarp {
+  NrziSlotTrk k;
+  NrziRingSrc tr;
+  int t;                     // this thread's track, if own
+  bool own;
+  long long* acc;            // shared [NRZI_NMACH] cycles per step, or null
+  template <class F> NRZI_HDM void each(int m, F f) {
+    const long long c = acc ? nrzi_clock() : 0;
+    if (own) f(k, tr, t);
+    sync(m, c);
+  }
+  template <class F> NRZI_HDM void one(int m, F f) {
+    const long long c = acc ? nrzi_clock() : 0;
+    if (t == 0) f();
+    sync(m, c);
+  }
+  NRZI_HDM void sync(int m, long long c) {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+    if (acc && t == 0 && m >= 0) acc[m] += clock64() - c;
+#endif
+  }
+};
+
+// shared memory of one warp's slot machine for T tracks
+static inline size_t nrzi_slot_smem(int T) {
+  return sizeof(NrziSlotState) + NRZI_MAX_TRACKS * sizeof(NrziSlotPart) +
+         NRZI_NMACH * 8 + (size_t)T * (NRZI_RING * 12 + 50 * 4);
+}
+
+// The slot machine of one lane on one warp: all 32 threads call it. sm:
+// nrzi_slot_smem(a.T) bytes of shared memory, 16-byte aligned. The
+// histogram rows live there and are written out at the end. mach: null,
+// or where thread 0 writes the cycles spent in each step (NRZI_NMACH)
+static __device__ void nrzi_slot_warp(const NrziSlotLane& a, unsigned char* sm,
+                                      int64_t* mach) {
+  NrziSlotState& L = *(NrziSlotState*)sm;
+  NrziSlotPart* part = (NrziSlotPart*)(&L + 1);              // [NRZI_MAX_TRACKS]
+  long long* acc = (long long*)(part + NRZI_MAX_TRACKS);     // [NRZI_NMACH]
+  int32_t* rs = (int32_t*)(acc + NRZI_NMACH);                // [T][NRZI_RING]
+  float* rt = (float*)(rs + a.T * NRZI_RING);
+  float* ragc = rt + a.T * NRZI_RING;
+  int32_t* hist = (int32_t*)(ragc + a.T * NRZI_RING);        // [T][50]
+  NrziWarp ex;
+  ex.t = threadIdx.x & 31;
+  ex.own = ex.t < a.T;
+  ex.acc = mach ? acc : 0;
+  if (mach && ex.t == 0)
+    for (int i = 0; i < NRZI_NMACH; ++i) acc[i] = 0;
+  if (ex.own) {
+    const int t = ex.t;
+    ex.k.bits = a.bits + (int64_t)t * a.maxb;
+    ex.k.hist = hist + t * 50;
+    for (int i = 0; i < 50; ++i) ex.k.hist[i] = 0;
+    ex.tr.rs = rs + t * NRZI_RING;
+    ex.tr.rt = rt + t * NRZI_RING;
+    ex.tr.ragc = ragc + t * NRZI_RING;
+    ex.tr.gs = a.tr_s + (int64_t)t * a.K;
+    ex.tr.gt = a.tr_t + (int64_t)t * a.K;
+    ex.tr.gagc = a.tr_agc + (int64_t)t * a.K;
+  }
+  nrzi_slot_drive(ex, a, L, part);
+  if (ex.own) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    for (int i = 0; i < 50; ++i) a.hist[ex.t * 50 + i] = ex.k.hist[i];
+  }
+  if (mach && ex.t == 0)
+    for (int i = 0; i < NRZI_NMACH; ++i) mach[i] = acc[i];
+}
+#endif
+
+// lane b*P + p of the slot machine, over its [T, K] buffers: B1's phase
+// B (NrziArgs, the buffers phase A filled) or B6 (NrziSlotArgs, the
+// admission's), whose blocks share these fields
+template <class A>
+NRZI_HD NrziSlotLane nrzi_slot_lane_of(const A& a, int lane) {
   const int p = lane % a.P;
   const int64_t row = (int64_t)lane * a.T;
   NrziSlotLane L;
@@ -766,7 +1291,12 @@ NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
   L.spb = a.spb;
   L.lb = a.stat_lb;
   L.bw = a.stat_bw;
-  nrzi_slot_run(L);
+  return L;
+}
+
+// B1's phase B for a lane, serially (the host build)
+NRZI_HD void nrzi_slot_machine(const NrziArgs& a, int lane) {
+  nrzi_slot_run(nrzi_slot_lane_of(a, lane));
 }
 
 // zero one lane's bit buffer and histogram (threads tid of n cooperate)
@@ -779,10 +1309,11 @@ NRZI_HD void nrzi_zero_lane(const NrziArgs& a, int lane, int tid, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// B5 (admission alone) and B6 (the slot machine alone), one lane each; the
-// kernels of nrzi_scan.cu and nrzi_slot.cu call these per thread. Their
-// outputs come pre-filled from the wrapper (kernels.py): transition buffers
-// with compact_outputs' fill (BIG_S, 0.0, 1.0, false), bits and hist zeroed
+// B5 (admission alone: nrzi_scan.cu calls nrzi_scan_lane per thread) and
+// B6 (the slot machine alone: nrzi_slot.cu runs a lane per warp, the host
+// build nrzi_slot_lane). Their outputs come pre-filled from the wrapper
+// (kernels.py): transition buffers with compact_outputs' fill (BIG_S, 0.0,
+// 1.0, false), bits and hist zeroed
 // ---------------------------------------------------------------------------
 
 struct NrziScanArgs {
@@ -846,43 +1377,23 @@ struct NrziSlotArgs {
   int32_t* trk_i;            // [B*P, T, N_TI]
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_LI]
+  int64_t* stamps;           // [B*P, SLOT_NSTAMP] loop clocks, or null
   int32_t B, P, T, S, K, maxb, max_slots, do_correct, exp_par;
   float spb, stat_lb, stat_bw;
 };
 
-// lane = b*P + p: copy the admission's per-track fields into B1's output
-// columns, then run the slot machine over the lane's buffers
+// track t's admission fields copied into B1's output columns, which the
+// machine's open reads
+NRZI_HD void nrzi_slot_copy_track(const NrziSlotArgs& a, int lane, int t) {
+  const int64_t lt = (int64_t)lane * a.T + t;
+  a.trk_i[lt * N_TI + TI_NADM] = a.n_admitted[lt];
+  a.trk_i[lt * N_TI + TI_INCOMP] = a.incomplete[lt] != 0;
+  a.trk_f[lt * N_TF + TF_MAXAGC] = a.max_agc_gain[lt];
+  a.trk_f[lt * N_TF + TF_MINAGC] = a.min_agc_gain[lt];
+}
+
+// B6 for a lane, serially (the host build)
 NRZI_HD void nrzi_slot_lane(const NrziSlotArgs& a, int lane) {
-  const int p = lane % a.P;
-  const int64_t row = (int64_t)lane * a.T;
-  NrziSlotLane L;
-  L.trk_i = a.trk_i + row * N_TI;
-  L.trk_f = a.trk_f + row * N_TF;
-  for (int t = 0; t < a.T; ++t) {
-    L.trk_i[t * N_TI + TI_NADM] = a.n_admitted[row + t];
-    L.trk_i[t * N_TI + TI_INCOMP] = a.incomplete[row + t] != 0;
-    L.trk_f[t * N_TF + TF_MAXAGC] = a.max_agc_gain[row + t];
-    L.trk_f[t * N_TF + TF_MINAGC] = a.min_agc_gain[row + t];
-  }
-  L.tr_s = a.tr_s + row * a.K;
-  L.tr_t = a.tr_t + row * a.K;
-  L.tr_agc = a.tr_agc + row * a.K;
-  L.bits = a.bits + row * a.maxb;
-  L.hist = a.hist + row * 50;
-  L.lane_i = a.lane_i + (int64_t)lane * N_LI;
-  L.T = a.T;
-  L.K = a.K;
-  L.S = a.S;
-  L.maxb = a.maxb;
-  L.max_slots = a.max_slots;
-  L.do_correct = a.do_correct;
-  L.exp_par = a.exp_par;
-  L.cw = a.p_clk_window[p];
-  L.ca = a.p_clk_alpha[p];
-  L.padj = a.p_pulse_adj[p];
-  L.midbit = a.p_midbit[p];
-  L.spb = a.spb;
-  L.lb = a.stat_lb;
-  L.bw = a.stat_bw;
-  nrzi_slot_run(L);
+  for (int t = 0; t < a.T; ++t) nrzi_slot_copy_track(a, lane, t);
+  nrzi_slot_run(nrzi_slot_lane_of(a, lane));
 }

@@ -48,37 +48,18 @@
 #define PE_CHUNK 256             // phase A: samples per chunk, at most
 #define PE_SMEM_MAX 232448       // shared memory a block may use
 
-__device__ __forceinline__ long long pe_gtimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // thread 0 stamps column k of the lane's phase clocks (breakdown only)
 __device__ __forceinline__ void pe_stamp(const PeArgs& a, int lane, int k) {
   if (a.stamps && threadIdx.x == 0)
     a.stamps[(int64_t)lane * PE_NSTAMP + k] =
-        k == PE_ST_G0 || k == PE_ST_G1 ? pe_gtimer() : clock64();
-}
-
-__device__ __forceinline__ void pe_cp4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-// barrier 1 among the n staging threads only
-__device__ __forceinline__ void pe_stage_sync(int n) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+        k == PE_ST_G0 || k == PE_ST_G1 ? nrzi_gtimer() : clock64();
 }
 
 // phase A's shared memory at chunk C for T tracks, window widths <= Wmax:
-// two feature slots (rows, words), two staging slots (samples, words),
-// each track's AGC and clock rings
+// the staging and feature slots, each track's AGC and clock rings
 static size_t pe_smem(int T, int C, int Wmax) {
-  return (size_t)T * (2 * (size_t)C * sizeof(NrziFeat) + 4 * (size_t)(C / 32) * 4 +
-                      2 * (size_t)(C + Wmax + 1) * 4 +
-                      (NRZI_MAX_AGC_RING + NRZI_MAX_CLK_RING) * 4);
+  return nrzi_stage_smem(T, C, Wmax) +
+         (size_t)T * (NRZI_MAX_AGC_RING + NRZI_MAX_CLK_RING) * 4;
 }
 
 __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C) {
@@ -106,83 +87,40 @@ __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C
   pe_stamp(a, lane, PE_ST_CZ);
 
   // ---- phase A ----
-  const int CW = C >> 5, VN = C + a.wmax + 1, nch = (S + C - 1) / C;
-  NrziFeat* rows = (NrziFeat*)pe_sm;                 // [2][T][C]
-  uint32_t* fwords = (uint32_t*)(rows + 2 * T * C);  // [2][T][CW]
-  uint32_t* swords = fwords + 2 * T * CW;            // [2][T][CW]
-  float* vst = (float*)(swords + 2 * T * CW);        // [2][T][VN]
-  float* heights = vst + 2 * T * VN;                 // [T][NRZI_MAX_AGC_RING]
-  float* rings = heights + T * NRZI_MAX_AGC_RING;    // [T][NRZI_MAX_CLK_RING]
-  const float* v = a.volts + (int64_t)b * T * S;
+  const int nch = (S + C - 1) / C;
   // the walker of track t: lane t / nww of warp t % nww
   const int nww = T < PE_WALK_WARPS ? T : PE_WALK_WARPS;
   const int wt = (tid & 31) * nww + (tid >> 5);
   const int track = (tid >> 5) < nww && wt < T ? wt : -1;
   const int np = blockDim.x - 32 * nww, ptid = tid - 32 * nww;
   const bool stager = ptid >= 0;
-
-  // staging slot i & 1 <- every track's samples [c0 - W, c1] and words
-  auto stage = [&](int i) {
-    const int c0 = i * C, c1 = min(c0 + C, S), base = c0 - W;
-    const int lo = nrzi_stage_lo(c0, W), n = nrzi_stage_hi(c1, S) - lo;
-    const int nwc = (c1 - c0 + 31) >> 5;
-    for (int q = ptid; q < T * n; q += np) {
-      const int t = q / n, k = lo + q % n;
-      pe_cp4(vst + ((i & 1) * T + t) * VN + (k - base), v + (int64_t)t * S + k);
-    }
-    for (int q = ptid; q < T * nwc; q += np) {
-      const int t = q / nwc, w = q % nwc;
-      pe_cp4(swords + ((i & 1) * T + t) * CW + w, cw + (int64_t)t * nw + (c0 >> 5) + w);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-  // feature slot i & 1 <- every track's words and candidates' features
-  auto features = [&](int i) {
-    const int c0 = i * C, c1 = min(c0 + C, S), nwc = (c1 - c0 + 31) >> 5;
-    const uint32_t* ws = swords + (i & 1) * T * CW;
-    uint32_t* fw = fwords + (i & 1) * T * CW;
-    for (int q = ptid; q < T * CW; q += np) fw[q] = q % CW < nwc ? ws[q] : 0u;
-    NrziFeat* rs = rows + (i & 1) * T * C;
-    const float* vs = vst + (i & 1) * T * VN;
-    for (int q = ptid; q < T * C; q += np) {
-      const int t = q / C, s = c0 + q % C;
-      if (s < c1 && nrzi_chunk_cand(ws + t * CW, c0, s))
-        nrzi_features_at(vs + t * VN, c0 - W, S, s, W, rs[q]);
-    }
-  };
+  NrziStager sg;
+  float* heights = (float*)sg.init(pe_sm, a.volts + (int64_t)b * T * S, cw, T, S, W, C,
+                                   a.wmax, nw, ptid, np);   // [T][NRZI_MAX_AGC_RING]
+  float* rings = heights + T * NRZI_MAX_AGC_RING;           // [T][NRZI_MAX_CLK_RING]
 
   PeWalk w;
   bool alive = track >= 0;
   long long walked = 0;                    // cycles spent walking
-  if (stager) {
-    stage(0);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    pe_stage_sync(np);
-    if (nch > 1) stage(1);
-    features(0);
-  } else if (alive) {
+  if (stager)
+    sg.prime(nch);
+  else if (alive)
     pe_walk_init(w, a, lane, track, heights + track * NRZI_MAX_AGC_RING,
                  rings + track * NRZI_MAX_CLK_RING);
-  }
   __syncthreads();
   for (int i = 0; i < nch; ++i) {
     if (stager) {
-      if (i + 1 < nch) {
-        asm volatile("cp.async.wait_all;\n" ::: "memory");   // chunk i + 1 staged
-        pe_stage_sync(np);
-        if (i + 2 < nch) stage(i + 2);
-        features(i + 1);
-      }
+      sg.advance(i, nch);
     } else if (alive) {
-      const int c0 = i * C, slot = (i & 1) * T + track;
+      const int c0 = i * C;
       const long long c = clock64();
-      alive = pe_walk_chunk(w, a, fwords + slot * CW, rows + slot * C, c0,
+      alive = pe_walk_chunk(w, a, sg.words(i, track), sg.feat(i, track), c0,
                             min(c0 + C, S));
       walked += clock64() - c;
     }
     if (!__syncthreads_or(alive)) break;
   }
-  if (stager) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (stager) nrzi_cp_wait();
   if (track >= 0) {
     pe_walk_finish(w, a, lane, track);
     if (a.stamps) {

@@ -51,31 +51,6 @@
 #define WW_EV_CHUNK 2048         // machine: events per chunk
 #define WW_SMEM_MAX 232448       // shared memory a block may use
 
-__device__ __forceinline__ void ww_cp4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void ww_cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ww_cp_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ long long ww_gtimer() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// barrier 1 among the n staging threads only
-__device__ __forceinline__ void ww_stage_sync(int n) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
-}
-
 __global__ void __launch_bounds__(WW_CAND_THREADS) ww_cand_kernel(WwArgs a) {
   const int nw = ww_nwords(a);
   const int64_t n = (int64_t)a.T * nw;
@@ -84,73 +59,36 @@ __global__ void __launch_bounds__(WW_CAND_THREADS) ww_cand_kernel(WwArgs a) {
     a.cand[i] = ww_cand_word(a, (int)(i / nw), (int)(i % nw));
 }
 
-// shared memory of ww_admit_kernel at chunk C: two feature slots (rows and
-// words), two staging slots (samples and words), the AGC window
+// shared memory of ww_admit_kernel at chunk C: the staging and feature
+// slots of its track, the AGC window
 static size_t ww_admit_smem(int C, int W) {
-  return 2 * (size_t)C * sizeof(NrziFeat) + 4 * (size_t)(C / 32) * 4 +
-         2 * (size_t)(C + W + 1) * 4 + WW_AGC_RING * 4;
+  return nrzi_stage_smem(1, C, W) + WW_AGC_RING * 4;
 }
 
 __global__ void __launch_bounds__(WW_ADMIT_THREADS, 1) ww_admit_kernel(WwArgs a, int C) {
   extern __shared__ __align__(16) unsigned char ww_sm[];
   const int t = blockIdx.x, S = a.S, W = a.W, nw = ww_nwords(a);
-  const int CW = C >> 5, VN = C + W + 1, nch = (S + C - 1) / C;
-  NrziFeat* rows = (NrziFeat*)ww_sm;                 // [2][C]
-  uint32_t* fwords = (uint32_t*)(rows + 2 * C);      // [2][CW]
-  uint32_t* swords = fwords + 2 * CW;                // [2][CW]
-  float* vst = (float*)(swords + 2 * CW);            // [2][VN]
-  float* heights = vst + 2 * VN;                     // [WW_AGC_RING]
-  const float* v = a.volts + (int64_t)t * S;
-  const uint32_t* cw = a.cand + (int64_t)t * nw;
+  const int nch = (S + C - 1) / C;
   const int tid = threadIdx.x, ptid = tid - 32, np = blockDim.x - 32;
   const bool stager = tid >= 32;
-
-  // staging slot i & 1 <- chunk i's samples [c0 - W, c1] and words
-  auto stage = [&](int i) {
-    const int c0 = i * C, c1 = min(c0 + C, S), base = c0 - W;
-    float* vs = vst + (i & 1) * VN;
-    for (int k = nrzi_stage_lo(c0, W) + ptid; k < nrzi_stage_hi(c1, S); k += np)
-      ww_cp4(vs + (k - base), v + k);
-    uint32_t* ws = swords + (i & 1) * CW;
-    for (int w = ptid; w < (c1 - c0 + 31) >> 5; w += np) ww_cp4(ws + w, cw + (c0 >> 5) + w);
-    ww_cp_commit();
-  };
-  // feature slot i & 1 <- chunk i's words and candidates' window features
-  auto features = [&](int i) {
-    const int c0 = i * C, c1 = min(c0 + C, S);
-    const uint32_t* ws = swords + (i & 1) * CW;
-    uint32_t* fw = fwords + (i & 1) * CW;
-    for (int w = ptid; w < CW; w += np) fw[w] = w < (c1 - c0 + 31) >> 5 ? ws[w] : 0u;
-    nrzi_feature_rows(vst + (i & 1) * VN, c0 - W, S, W, ws, c0, c1,
-                      rows + (i & 1) * C, ptid, np);
-  };
+  NrziStager sg;
+  float* heights = (float*)sg.init(ww_sm, a.volts + (int64_t)t * S,
+                                   a.cand + (int64_t)t * nw, 1, S, W, C, W, nw,
+                                   ptid, np);        // [WW_AGC_RING]
 
   WwWalk w;
   const long long c_start = clock64();
   long long walked = 0;                    // cycles spent walking
-  if (stager) {
-    stage(0);
-    ww_cp_wait();
-    ww_stage_sync(np);
-    if (nch > 1) stage(1);
-    features(0);
-  } else if (tid == 0) {
-    ww_walk_init(w, a, t, heights);
-  }
+  if (stager) sg.prime(nch);
+  else if (tid == 0) ww_walk_init(w, a, t, heights);
   __syncthreads();
   for (int i = 0; i < nch; ++i) {
     if (stager) {
-      if (i + 1 < nch) {
-        ww_cp_wait();              // chunk i + 1 staged
-        ww_stage_sync(np);
-        if (i + 2 < nch) stage(i + 2);
-        features(i + 1);
-      }
+      sg.advance(i, nch);
     } else if (tid == 0) {
       const int c0 = i * C;
       const long long c = clock64();
-      ww_walk_chunk(w, fwords + (i & 1) * CW, rows + (i & 1) * C, c0,
-                    min(c0 + C, S), S);
+      ww_walk_chunk(w, sg.words(i, 0), sg.feat(i, 0), c0, min(c0 + C, S), S);
       walked += clock64() - c;
     }
     __syncthreads();
@@ -186,15 +124,15 @@ __global__ void __launch_bounds__(WW_MACHINE_THREADS, 1) ww_machine_kernel(WwArg
   auto stage = [&](int i) {
     const int j0 = i * WW_EV_CHUNK, n = min(WW_EV_CHUNK, N - j0), b = i & 1;
     for (int j = ptid; j < n; j += 32) {
-      ww_cp4(&es[b][j], a.ev_s + j0 + j);
-      ww_cp4(&ef[b][j], a.ev_frac + j0 + j);
+      nrzi_cp4(&es[b][j], a.ev_s + j0 + j);
+      nrzi_cp4(&ef[b][j], a.ev_frac + j0 + j);
     }
-    for (int j = 4 * ptid; j < n; j += 128) ww_cp4(&et[b][j], a.ev_tt + j0 + j);
-    ww_cp_commit();
+    for (int j = 4 * ptid; j < n; j += 128) nrzi_cp4(&et[b][j], a.ev_tt + j0 + j);
+    nrzi_cp_commit();
   };
 
   WwMachine m;
-  const long long c_start = clock64(), g_start = ww_gtimer();
+  const long long c_start = clock64(), g_start = nrzi_gtimer();
   long long looped = 0;                    // cycles in the event loop
   if (stager) {
     if (nch > 0) stage(0);
@@ -202,7 +140,7 @@ __global__ void __launch_bounds__(WW_MACHINE_THREADS, 1) ww_machine_kernel(WwArg
     ww_machine_init(m, a, &mem);
   }
   for (int i = 0; i < nch; ++i) {
-    if (stager) ww_cp_wait();      // chunk i staged
+    if (stager) nrzi_cp_wait();      // chunk i staged
     __syncthreads();               // ... and visible; chunk i - 1 consumed
     if (stager) {
       if (i + 1 < nch) stage(i + 1);
@@ -219,7 +157,7 @@ __global__ void __launch_bounds__(WW_MACHINE_THREADS, 1) ww_machine_kernel(WwArg
       a.stamps[2 * a.T] = looped;
       a.stamps[2 * a.T + 1] = clock64() - c_start;
       a.stamps[2 * a.T + 2] = g_start;
-      a.stamps[2 * a.T + 3] = ww_gtimer();
+      a.stamps[2 * a.T + 3] = nrzi_gtimer();
     }
   }
 }

@@ -38,10 +38,11 @@ class NrziArgs(ctypes.Structure):
         "volts", "seg_len", "lead", "p_w", "p_agc_window", "p_clk_window",
         "p_rise", "p_minp", "p_agc_alpha", "p_clk_alpha", "p_pulse_adj",
         "p_midbit", "wset", "rise_floor", "min_floor", "cand", "tr_s",
-        "tr_t", "tr_agc", "bits", "hist", "trk_i", "trk_f", "lane_i")] + [
+        "tr_t", "tr_agc", "bits", "hist", "trk_i", "trk_f", "lane_i",
+        "stamps")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "G", "K", "maxb", "max_slots",
-            "max_steps", "do_correct", "exp_par")] + [
+            "max_steps", "do_correct", "exp_par", "wmax")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
 
@@ -61,7 +62,7 @@ class NrziSlotArgs(ctypes.Structure):
         "tr_s", "tr_t", "tr_agc", "n_admitted", "max_agc_gain",
         "min_agc_gain", "incomplete", "p_clk_window", "p_clk_alpha",
         "p_pulse_adj", "p_midbit", "bits", "hist", "trk_i", "trk_f",
-        "lane_i")] + [
+        "lane_i", "stamps")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "K", "maxb", "max_slots", "do_correct",
             "exp_par")] + [
@@ -116,6 +117,17 @@ PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
 # each of up to 16 tracks' cycles spent walking in phase A, then their
 # admission steps
 PE_ST_WALK, PE_ST_STEPS, PE_NSTAMP = 7, 7 + 16, 7 + 32
+# nrzi_core.h's phase stamps. B1: global timer at the start, clock64() at
+# the start and after phases 0, A and B, global timer at the end, then
+# each of up to 16 tracks' cycles spent walking in phase A, then the slot
+# machine's cycles in each kind of step (NRZI_MACH), summed over the slots.
+# B6: global timer, clock64() at the start and end of the slot machine,
+# global timer, then its cycles per step as B1's
+NRZI_MACH = ("tracks", "realign", "close")
+NRZI_ST_WALK, NRZI_ST_MACH = 6, 6 + 16
+NRZI_NSTAMP = NRZI_ST_MACH + len(NRZI_MACH)
+SLOT_ST_MACH = 4
+SLOT_NSTAMP = SLOT_ST_MACH + len(NRZI_MACH)
 GCR_N_GR = 5
 # the launch functions of the library and their argument blocks
 LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
@@ -267,7 +279,8 @@ def nrzi_prepare(volts, seg_lens, leads, pa, *, Ws, rise_floor, min_floor,
                  lane_i=((B, P, 6), I32)),
         K=K, maxb=maxb, max_slots=max_slots, max_steps=max_steps,
         do_correct=int(bool(do_correct)), exp_par=int(expected_parity),
-        spb=float(spb), stat_lb=float(stat_lb), stat_bw=float(stat_bw))
+        wmax=max(Ws), spb=float(spb), stat_lb=float(stat_lb),
+        stat_bw=float(stat_bw))
 
 
 def nrzi_fused(volts, seg_lens, leads, pa, **kw):
@@ -401,23 +414,42 @@ def pe_fused(volts, seg_lens, leads, pa, **kw):
     return _launch("pe_fused", pe_prepare, volts, seg_lens, leads, pa, **kw)
 
 
-def pe_phase_stamps(volts, seg_lens, leads, pa, **kw):
-    """One pe_fused launch with per-lane phase stamps, synchronized (for
-    timing only). Returns (outputs, stamps [B*P, PE_NSTAMP] int64 on the
+def _phase_stamps(name, prepare, nstamp, first, *args, **kw):
+    """One <name>_launch with per-lane phase stamps (nstamp int64 each),
+    synchronized (for timing only); `first` is the tensor whose device the
+    launch runs on. Returns (outputs, stamps [lanes, nstamp] on the
     host)."""
     lib = load()
-    with torch.cuda.device(volts.device):
-        block, out, keep = pe_prepare(volts, seg_lens, leads, pa, **kw)
-        st = torch.zeros((block.B * block.P, PE_NSTAMP), dtype=torch.int64,
-                         device=volts.device)
+    with torch.cuda.device(first.device):
+        block, out, keep = prepare(first, *args, **kw)
+        st = torch.zeros((block.B * block.P, nstamp), dtype=torch.int64,
+                         device=first.device)
         block.stamps = st.data_ptr()
-        stream = torch.cuda.current_stream(volts.device).cuda_stream
-        rc = lib.pe_fused_launch(ctypes.byref(block), stream)
-        torch.cuda.synchronize(volts.device)
+        stream = torch.cuda.current_stream(first.device).cuda_stream
+        rc = getattr(lib, name + "_launch")(ctypes.byref(block), stream)
+        torch.cuda.synchronize(first.device)
     del keep
     if rc != 0:
-        raise RuntimeError(f"pe_fused kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out, st.cpu()
+
+
+def pe_phase_stamps(volts, seg_lens, leads, pa, **kw):
+    """pe_fused with pe_core.h's phase stamps [B*P, PE_NSTAMP]."""
+    return _phase_stamps("pe_fused", pe_prepare, PE_NSTAMP, volts, seg_lens,
+                         leads, pa, **kw)
+
+
+def nrzi_phase_stamps(volts, seg_lens, leads, pa, **kw):
+    """nrzi_fused with nrzi_core.h's phase stamps [B*P, NRZI_NSTAMP]."""
+    return _phase_stamps("nrzi_fused", nrzi_prepare, NRZI_NSTAMP, volts,
+                         seg_lens, leads, pa, **kw)
+
+
+def slot_phase_stamps(fin, pa, **kw):
+    """nrzi_slot with nrzi_core.h's loop stamps [B*P, SLOT_NSTAMP]."""
+    return _phase_stamps("nrzi_slot", nrzi_slot_prepare, SLOT_NSTAMP,
+                         fin["tr_s"], fin, pa, **kw)
 
 
 def gcr_prepare(volts, seg_lens, leads, pa, **kw):

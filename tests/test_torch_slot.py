@@ -11,9 +11,17 @@ The port's result is B1's FusedOut, read out by fused.fused_state.
 The 3-block and 7-track cases run in test_torch_slot_more.py, so that
 xdist runs them beside these.
 
-Then csrc/nrzi_core.h's B6 lane (nrzi_slot_lane, what csrc/nrzi_slot.cu
-runs per thread), compiled for the host with g++, against the plain
-version on the same inputs.
+Then csrc/nrzi_core.h's B6 lane (nrzi_slot_lane: the per-track steps and
+per-lane combines that csrc/nrzi_slot.cu runs one track per thread of a
+warp, here track by track), compiled for the host with g++, against the
+plain version on the same inputs, also on one -correct case whose two
+highest AGC gains tie (made-up buffers: nine tracks with a transition at
+every bit, checked for even parity), which pins -correct's choice of the
+track to flip: the first of the highest. That case is not held to the
+JAX package: with all nine tracks in every window, its XLA scan's sum of
+the window positions (8 strided partial sums on the CPU, not the track
+order of the C program and the port) rounds differently
+(scripts/probe_slot_sum_order.py).
 
 Tolerance: none; bits, counts, histograms and f32 times are exact.
 """
@@ -26,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+from readtape_tpu.formats import tbin as tb
+from readtape_tpu.formats.parms import builtin_parmsets
 from readtape_tpu_torch import kernels
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import slot as tsl
@@ -45,11 +55,16 @@ CASES = {"1blk": (1, 0.002, 9), "3blk": (3, 0.0008, 9), "7trk": (1, 0.002, 7)}
 def slot_case(name):
     """(admission outputs fin [1, P, T, ...], pa, slot kwargs, the JAX
     admission's per-parmset transitions, their parmsets)."""
-    nblocks, ibg, ntrks = CASES["1blk" if name == "correct" else name]
-    S, P = 8192 if nblocks == 1 else 16384, 3
-    trans, sets, spb, T, K = _segment_transitions(
-        S, P, nblocks=nblocks, ibg=ibg, ntrks=ntrks)
-    trans = [{k: np.asarray(x) for k, x in tr.items()} for tr in trans]
+    if name == "tie":
+        S, P = 4096, 3
+        trans, spb, T = tie_transitions(S, P)
+        sets = builtin_parmsets(tb.MODE_NRZI).sets[:P]
+    else:
+        nblocks, ibg, ntrks = CASES["1blk" if name == "correct" else name]
+        S, P = 8192 if nblocks == 1 else 16384, 3
+        trans, sets, spb, T, K = _segment_transitions(
+            S, P, nblocks=nblocks, ibg=ibg, ntrks=ntrks)
+        trans = [{k: np.asarray(x) for k, x in tr.items()} for tr in trans]
     if name == "correct":
         trans = [drop_first_bit(tr, spb) for tr in trans]
     rng = np.random.default_rng(3)
@@ -66,11 +81,39 @@ def slot_case(name):
                min_agc_gain=torch.from_numpy(
                    rng.random((1, P, T), np.float32)),
                incomplete=torch.from_numpy(rng.random((1, P, T)) < 0.5))
-    kw = dict(S=S, spb=spb, expected_parity=1,
-              do_correct=name == "correct",
+    kw = dict(S=S, spb=spb, expected_parity=0 if name == "tie" else 1,
+              do_correct=name in ("correct", "tie"),
               maxb=int(S / spb * 1.3) + 64,
               max_slots=int(S / spb * 1.25) + 48, stat_lb=0.0, stat_bw=1.0)
     return fin, port_parms(P), kw, trans, sets
+
+
+TIE = (2, 5)          # the tracks that tie for the highest gain
+
+
+def tie_transitions(S, P, T=9, nbits=150, spb=19.53125):
+    """Transition buffers (the same for each of P parmsets) of nine
+    tracks with a transition at every bit, jittered by up to 1.5 samples:
+    every frame has odd parity. Every gain is -1.0 but those of the TIE
+    tracks, 0.0: checked for even parity, the first slot flips the first
+    of the two, the reference's first maximum (a tie can flip only at
+    gains <= 0, since the flip needs the highest gain to be at least twice
+    the next). Returns (transitions, spb, T)."""
+    K = nbits + 8
+    rng = np.random.default_rng(7)
+    t = (64.0 + spb * np.arange(nbits))[None] + rng.uniform(
+        -1.5, 1.5, (T, nbits))
+    tr_s = np.full((T, K), 2 ** 30, np.int32)
+    tr_t = np.zeros((T, K), np.float32)
+    tr_agc = np.ones((T, K), np.float32)
+    tr_t[:, :nbits] = t
+    tr_s[:, :nbits] = np.ceil(t).astype(np.int32) + 3
+    tr_agc[:, :nbits] = -1.0
+    tr_agc[list(TIE), :nbits] = 0.0
+    tr = dict(tr_s=tr_s, tr_t=tr_t, tr_agc=tr_agc,
+              counts=np.full(T, nbits, np.int32))
+    assert S > tr_s[:, nbits - 1].max() + 40 * spb
+    return [tr] * P, spb, T
 
 
 def drop_first_bit(tr, spb):
@@ -135,7 +178,7 @@ def test_slot_matches_jax_xla(name):
     check_slot(name)
 
 
-@pytest.mark.parametrize("name", ["1blk", "correct"])
+@pytest.mark.parametrize("name", ["1blk", "correct", "tie"])
 def test_host_slot_lane_matches_plain(tiered_host_lib, name):  # noqa: F811
     fin, pa, kw, _, _ = slot_case(name)
     want = tsl.nrzi_slot_scan_plain(fin, pa, **kw)
@@ -145,3 +188,7 @@ def test_host_slot_lane_matches_plain(tiered_host_lib, name):  # noqa: F811
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
                                       err_msg=k)
+    if name == "tie":         # one flip, of the first tied track
+        lane = want["lane_i"][0]
+        assert (lane[:, tfu.LI_CORR] == 1).all()
+        assert (lane[:, tfu.LI_FAKED] == 1 << (8 - TIE[0])).all()
