@@ -20,7 +20,9 @@ non-zero:
               nrzi_track_scan_tracks (B5b, parmset 0), nrzi_slot_scan (B6,
               over B5a's buffers, with and without -correct, and on the
               7-track segments), and each at the first batch that phase
-              4's tiered decode hands it; pe_fused_scan on synthesized
+              4's tiered decode hands it (B5b also at its second batch,
+              B=34, and at density detection's launch, B=1, under the
+              step budget); pe_fused_scan on synthesized
               9-track PE segments (B=4, 8 parmsets, S=16384: clean, noisy
               with a weak track, a dropout that forces fake bits, two
               blocks behind a short gap so that the all-idle point falls
@@ -70,7 +72,9 @@ limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
 runs none of the checks: it prints nvcc's -Xptxas -v lines (registers,
 stack frame, spills of each kernel), the phases of nrzi_fused_scan and
 the slot machine of nrzi_slot_scan at their NRZI bench launches (with
-the machine's time per slot by kind of step), the time of each of
+the machine's time per slot by kind of step), nrzi_track_scan_tracks'
+walk per lane at the tiered bench's first launch, the phases of
+gcr_fused_scan at the GCR bench's launch, the time of each of
 ww_fused_scan's launches at the Whirlwind bench tape and of each phase
 of pe_fused_scan at the PE bench decode's first launch and at its
 second (a walk hop, B=1), then times where a warm decode_tape of each
@@ -954,7 +958,11 @@ def phase_tiered_kernel():
     -correct over them with one first-frame bit per lane removed; the
     same, without -correct, on 7-track segments), then each at the
     first batch that phase 4's tiered decode hands it (B5b and B6 on the
-    NRZI bench tape's first pass, B5a on the noisy tape's retry)."""
+    NRZI bench tape's first pass, B5a on the noisy tape's retry); B5b
+    also at the bench decode's second batch and at density detection's
+    launch."""
+    import dataclasses
+
     from readtape_tpu_torch import kernels
     from readtape_tpu_torch.formats import tbin as tb
     res = {}
@@ -984,11 +992,16 @@ def phase_tiered_kernel():
             del feat, nxt
     _, hdr, samples = bench_tape()
     opts = tape_options(hdr, tb.MODE_NRZI, 800)
-    (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan_tracks", samples,
-                                     opts, "tiered")
-    res["b5b main"] = compare_scan("b5b main", "nrzi_track_scan_tracks",
-                                   feat, nxt, pa, kw)
-    del feat, nxt
+    # B5b at the tiered decode's two batches (B=128, then 34) and at
+    # density detection's (B=1, window 8, the XLA scan's step budget)
+    for case, o, path, index in (
+            ("b5b main", opts, "tiered", 0), ("b5b main2", opts, "tiered", 1),
+            ("b5b density", dataclasses.replace(opts, bpi=0.0), "fused", 0)):
+        (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan_tracks", samples,
+                                         o, path, index=index)
+        res[case] = compare_scan(case, "nrzi_track_scan_tracks", feat, nxt,
+                                 pa, kw)
+        del feat, nxt
     (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, opts,
                                "tiered")
     res["b6 main"] = compare_slot("b6 main", fin, pa, kw)
@@ -1422,6 +1435,20 @@ def ptxas_lines(log):
             or "stack frame" in ln]
 
 
+def idle_phases(st):
+    """B2's or B3's per-lane phase stamps (pe_core.h PE_ST_*, as float64):
+    (ns per clock64() cycle of each lane, by the global timer over the
+    same span; "phase X mean .. max .. ms" for phases 0, A, B and C)."""
+    ns = (st[:, 6] - st[:, 0]) / (st[:, 5] - st[:, 1])
+    parts = []
+    for k, label in ((2, "phase 0"), (3, "phase A"), (4, "phase B"),
+                     (5, "phase C")):
+        d = (st[:, k] - st[:, k - 1]) * ns / 1e6
+        parts.append(f"{label} mean {float(d.mean()):.3f} max "
+                     f"{float(d.max()):.3f} ms")
+    return ns, parts
+
+
 def kernel_phases():
     """Where B4's and B2's time goes at their main-path shapes: B4's
     launches each timed with CUDA events (mean of 3 calls after a warm
@@ -1467,13 +1494,8 @@ def kernel_phases():
         kernels.pe_phase_stamps(volts, seg_lens, leads, pa, **kw)
         _, st = kernels.pe_phase_stamps(volts, seg_lens, leads, pa, **kw)
         st = st.double()
-        ns = ((st[:, 6] - st[:, 0]) / (st[:, 5] - st[:, 1])).mean()
-        parts = []
-        for k, label in ((2, "phase 0"), (3, "phase A"), (4, "phase B"),
-                         (5, "phase C")):
-            d = (st[:, k] - st[:, k - 1]) * ns / 1e6
-            parts.append(f"{label} mean {float(d.mean()):.3f} max "
-                         f"{float(d.max()):.3f} ms")
+        ns, parts = idle_phases(st)
+        ns = ns.mean()
         walk = st[:, kernels.PE_ST_WALK:kernels.PE_ST_STEPS]
         steps = st[:, kernels.PE_ST_STEPS:]
         lane = int(walk.max(dim=1).values.argmax())
@@ -1490,6 +1512,78 @@ def kernel_phases():
               f"({int(steps[lane, track])} steps, {per_step:.0f} ns per "
               f"step); lane wall max {float(whole.max()):.3f} ms",
               flush=True)
+
+
+def gcr_phases():
+    """Where B3's time goes at its main-path shape (the GCR bench decode's
+    first launch, B=40): per-lane clock64() stamps of phases 0, A, B and
+    C, mean and max over lanes, and the longest track walk of phase A per
+    admission and per step; cycles turned into ms by the global timer
+    over the same span."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = gcr_bench_tape()
+    volts, seg_lens, leads, pa, kw = main_path_inputs(
+        "gcr_fused", samples, tape_options(hdr, tb.MODE_GCR, 9042, 25))
+    kernels.gcr_phase_stamps(volts, seg_lens, leads, pa, **kw)
+    out, st = kernels.gcr_phase_stamps(volts, seg_lens, leads, pa, **kw)
+    st = st.double()
+    ns, parts = idle_phases(st)
+    T = volts.shape[1]
+    walk = st[:, kernels.PE_ST_WALK:kernels.PE_ST_WALK + T] * ns[:, None]
+    steps = st[:, kernels.PE_ST_STEPS:kernels.PE_ST_STEPS + T]
+    nadm = out["trk_i"][..., tfu.GI_NTOTAL].reshape(-1, T).double().cpu()
+    lane = int(walk.max(dim=1).values.argmax())
+    track = int(walk[lane].argmax())
+    w = float(walk[lane, track])
+    t = time_launches(lambda: kernels.gcr_fused(volts, seg_lens, leads, pa,
+                                                **kw), 10)
+    print(f"B3 gcr_fused_scan gcr main (B={volts.shape[0]} "
+          f"P={len(kw['Ws'])} T={T} S={volts.shape[2]}): kernel {t:.3f} ms; "
+          "per lane (clock64): " + "; ".join(parts)
+          + f"; longest track walk in phase A {w / 1e6:.3f} ms "
+          f"({int(nadm[lane, track])} admissions, "
+          f"{w / float(nadm[lane, track]):.0f} ns per admission; "
+          f"{int(steps[lane, track])} steps, "
+          f"{w / float(steps[lane, track]):.0f} ns per step); SM clock "
+          f"{float(1 / ns.mean()):.3f} GHz", flush=True)
+
+
+def b5b_phases():
+    """Where B5b's time goes at its main-path shape (the tiered NRZI bench
+    decode's first launch, B=128): per (segment, parmset, track) lane, the
+    walker's clock64() cycles walking and its steps, and the lane's wall
+    from its first stamp to its last; the longest walk per admission and
+    per step."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = bench_tape()
+    (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan_tracks", samples,
+                                     tape_options(hdr, tb.MODE_NRZI, 800),
+                                     "tiered")
+    kernels.scan_tracks_stamps(feat, nxt, pa, **kw)
+    out, st = kernels.scan_tracks_stamps(feat, nxt, pa, **kw)
+    st = st.double()
+    ns = ((st[:, kernels.SCAN_ST_G1] - st[:, kernels.SCAN_ST_G0])
+          / (st[:, kernels.SCAN_ST_C1] - st[:, kernels.SCAN_ST_C0]))
+    walk = st[:, kernels.SCAN_ST_WALK] * ns
+    steps = st[:, kernels.SCAN_ST_STEPS]
+    wall = (st[:, kernels.SCAN_ST_G1] - st[:, kernels.SCAN_ST_G0]) / 1e6
+    nadm = out["n_admitted"].reshape(-1).double().cpu()
+    lane = int(walk.argmax())
+    w = float(walk[lane])
+    t = time_launches(lambda: kernels.nrzi_scan_tracks(feat, nxt, pa, **kw),
+                      10)
+    G, B, T, S, _ = feat.shape
+    print(f"B5b nrzi_track_scan_tracks b5b main (B={B} P={len(kw['Ws'])} "
+          f"T={T} S={S}): kernel {t:.3f} ms; per lane walk (clock64) mean "
+          f"{float(walk.mean()) / 1e6:.3f} max {w / 1e6:.3f} ms ("
+          f"{int(nadm[lane])} admissions, {w / float(nadm[lane]):.0f} ns "
+          f"per admission; {int(steps[lane])} steps, "
+          f"{w / float(steps[lane]):.0f} ns per step); lane wall mean "
+          f"{float(wall.mean()):.3f} max {float(wall.max()):.3f} ms; SM "
+          f"clock {float(1 / ns.mean()):.3f} GHz", flush=True)
 
 
 def mach_note(cycles, ns, nslot):
@@ -1578,6 +1672,8 @@ def breakdown(card):
     for ln in ptxas_lines(log):
         print(f"  {ln}", flush=True)
     nrzi_phases()
+    b5b_phases()
+    gcr_phases()
     kernel_phases()
     print(f"host activity scan: "
           f"{'native tape_scan' if native.available() else 'numpy'}; {card}",

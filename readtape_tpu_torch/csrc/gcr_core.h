@@ -7,7 +7,8 @@
 // gcr_track_scan(pre=True, idle_out=True) and gcr_apply_tau -- and, for
 // the all-idle point, pe.pe_idle_tau, which the plain PyTorch version
 // (readtape_tpu_torch/decode/fused.py::gcr_fused_scan_plain) mirrors.
-// Phase 0 (the candidacy bitmask) and phase B (tau) are pe_core.h's.
+// Phase 0 (the candidacy bitmask) and phase B (tau) are pe_core.h's, the
+// admission test and AGC policy nrzi_core.h's.
 // Float expressions keep the reference's operation order; fmaf() stands
 // exactly where the plain version calls common.fma (XLA's CPU
 // contractions), and everything else rounds on its own (--fmad=false;
@@ -67,7 +68,9 @@ struct GcrArgs {
   int32_t* trk_i;            // [B*P, T, N_GI]
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_GL]
+  int64_t* stamps;           // [B*P, PE_NSTAMP] phase clocks, or null
   int32_t B, P, T, S, G, K, maxb, max_steps;
+  int32_t wmax;              // the widest of p_w
   float spb, stat_lb, stat_bw;
 };
 
@@ -86,7 +89,7 @@ NRZI_HD int gcr_idle_entry(float t_lp, float b, int s_floor) {
 
 // the per-track clock (common.clkavg_init / adjust_clock / force_clock)
 struct GcrClock {
-  float ring[NRZI_MAX_CLK_RING];
+  float* ring;               // [NRZI_MAX_CLK_RING]: the first cwin are read
   int ndx;
   float avg;
 };
@@ -115,9 +118,10 @@ struct GcrBits {
 
 // one gcr_addbit (decode_gcr.c:731-787): write, shift the pattern
 // register, resync detection at 5-bit boundaries, the mid-resync
-// force_clock; returns the write index (maxb = none)
+// force_clock (of the cwin ring entries that are ever read); returns the
+// write index (maxb = none)
 NRZI_HD int gcr_add_bit(GcrBits& g, int bitval, bool enable, float tpd_new,
-                        int maxb) {
+                        int maxb, int cwin) {
   if (!enable) return maxb;
   const int w = pe_imin(g.dc, maxb - 1);
   g.dc = pe_imin(g.dc + 1, maxb);
@@ -129,7 +133,7 @@ NRZI_HD int gcr_add_bit(GcrBits& g, int bitval, bool enable, float tpd_new,
   }
   if (g.rsc > 0) {
     if (g.rsc == 5) {
-      for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) g.clk.ring[k] = tpd_new;
+      for (int k = 0; k < cwin; ++k) g.clk.ring[k] = tpd_new;
       g.clk.avg = tpd_new;
     }
     g.rsc += 1;
@@ -152,13 +156,13 @@ NRZI_HD void gcr_bit_step(GcrBits& g, float t_this, float z1, float z2,
   const int numbits = 1 + (int)zero1 + (int)zero2;
   const float tpd_new = in_blk ? delta : g.t_peakdelta;
   const int dc0 = g.dc;
-  wr[0] = gcr_add_bit(g, 0, zero1, tpd_new, maxb);
-  wr[1] = gcr_add_bit(g, 0, zero2, tpd_new, maxb);
+  wr[0] = gcr_add_bit(g, 0, zero1, tpd_new, maxb, cwin);
+  wr[1] = gcr_add_bit(g, 0, zero2, tpd_new, maxb, cwin);
   const int prev2 = g.dc >= 2 ? (g.lastbits >> 1) & 1 : 0;
   if (in_blk && g.dc > 3 && numbits == 1 && prev2 == 1)
     gcr_adjust_clock(g.clk, g.t_peakdelta, cwin, ca, spb);
   if (in_blk) g.t_pulse_adj = padj * fmaf((float)numbits, g.clk.avg, -delta);
-  wr[2] = gcr_add_bit(g, 1, true, tpd_new, maxb);
+  wr[2] = gcr_add_bit(g, 1, true, tpd_new, maxb, cwin);
   g.t_peakdelta = tpd_new;
   g.datablock = true;
   if (dc0 == 0) g.t_firstbit = t_this;
@@ -171,133 +175,58 @@ NRZI_HD void gcr_bit_step(GcrBits& g, float t_this, float z1, float z2,
 // nrzi_agc_policy, then gcr.gcr_track_scan's step). Non-admitting steps
 // leave the state untouched, so only admissions run it; each admission
 // appends one record and, when the track had gone idle before it, one
-// idle interval (entry, wake).
+// idle interval (entry, wake). The walk goes chunk by chunk
+// (nrzi_walk_chunk) over feature rows the caller computes ahead of it
+// (nrzi_feature_rows); the admission test, refinement and AGC policy are
+// NrziWalk's (nrzi_core.h)
 // ---------------------------------------------------------------------------
 
-NRZI_HD void gcr_admit_track(const GcrArgs& a, int lane, int t) {
-  const int b = lane / a.P, p = lane % a.P, S = a.S, maxb = a.maxb;
-  const int nw = pe_nwords(a);
-  const float* v = a.volts + ((int64_t)b * a.T + t) * S;
-  const uint32_t* cw = a.cand + ((int64_t)lane * a.T + t) * nw;
-  const int64_t row = (int64_t)lane * a.T + t;
-  int32_t* rec_i = a.rec_i + row * a.K * N_GR;
-  float* rec_f = a.rec_f + row * a.K * N_PRF;
-  int32_t* ie = a.ie + row * PE_IDLE_CAP * 2;
-  const int W = a.p_w[p], aw = a.p_agc_window[p], cwin = a.p_clk_window[p];
-  const float rise = a.p_rise[p], minp = a.p_minp[p], aa = a.p_agc_alpha[p];
-  const float ca = a.p_clk_alpha[p], z1 = a.p_z1pt[p], z2 = a.p_z2pt[p];
-  const float padj = a.p_pulse_adj[p], spb = a.spb;
+// one track's admission walk: its knobs, outputs and state
+struct GcrWalk {
+  NrziCursor cur;
+  int steps, n_adm;
+  NrziAgc g;
+  GcrBits gb;
+  bool had_data;
+  int s_lastdet, n_ie;
+  // knobs and outputs
+  int W, aw, cwin, maxb;
+  float rise, minp, aa, ca, z1, z2, padj, spb, stat_lb, stat_bw;
+  int32_t* rec_i;            // [K, N_GR]
+  float* rec_f;              // [K, N_PRF]
+  int32_t* ie;               // [PE_IDLE_CAP, 2]
 
-  // admission + AGC state (trackscan.admission_init, common.agc_state_init)
-  float agc = 1.0f, vah = 4.0f, vah_sum = 0.0f;
-  int vah_cnt = 0, hndx = 0, peakcount = 0, n_adm = 0;
-  float max_agc = 0.0f, min_agc = NRZI_FLT_MAX;
-  float v_lasttop = 0.0f, v_lastbot = 0.0f, v_top = 0.0f, v_bot = 0.0f;
-  float heights[NRZI_MAX_AGC_RING];
-  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
-  GcrBits g;
-  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) g.clk.ring[k] = spb;
-  g.clk.ndx = 0;
-  g.clk.avg = spb;
-  g.t_pulse_adj = g.t_peakdelta = g.t_firstbit = g.t_lastbit = 0.0f;
-  g.t_lastpeak = 0.0f;
-  g.datablock = false;
-  g.dc = g.lastbits = g.rsc = 0;
-  bool had_data = false;
-  int s_lastdet = a.lead[b] + t + 1, n_ie = 0;
-
-  int pos = nrzi_next_cand(cw, nw, S, 0);
-  int steps = 0;
-  while (pos < S && steps < a.max_steps) {
-    const int s = pos;
-    steps += 1;
-    if (!((cw[s >> 5] >> (s & 31)) & 1u)) {
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
-      continue;
+  // one step at a candidate s with window features f
+  NRZI_HDM void admit(int s, const NrziFeat& f) {
+    const int adm = nrzi_admission_test(g, f, rise, minp);
+    if (!adm) {
+      cur.pos = s + 1;
+      cur.search = true;
+      return;
     }
-    NrziFeat f;
-    nrzi_features(v, S, s, W, f);
-    // admission_test (decoder.c:781-810)
-    float scale = vah / 4.0f;
-    float rise_t = rise * scale / agc;
-    float rmin = minp * scale / agc;
-    bool no_min = minp == 0.0f;
-    bool is_top = (f.wmax > f.vleft + rise_t) && (f.wmax > f.vright + rise_t) &&
-                  (no_min || f.wmax > rmin);
-    bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
-                  (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
-    if (!is_top && !is_bot) {
-      pos = nrzi_next_cand(cw, nw, S, s + 1);
-      continue;
-    }
-    // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
-    int L = is_top ? f.ltop : f.lbot;
-    float val = is_top ? f.wmax : f.wmin;
-    float prv = is_top ? f.prevmax : f.prevmin;
-    float nxt = is_top ? f.nextmax : f.nextmin;
-    float thr0 = 0.005f / agc;
-    float ref = is_top ? val - thr0 : val + thr0;
-    bool pclose = is_top ? prv > ref : prv < ref;
-    bool nclose = is_top ? nxt > ref : nxt < ref;
-    float adj = (pclose && !nclose) ? -0.5f : ((nclose && !pclose) ? 0.5f : 0.0f);
-    const float t_this = (float)s + (-((float)(W - L) - adj));
-    if (is_top) v_top = val; else v_bot = val;
-    if (g.dc == 0) max_agc = agc;      // the first bit (gcr_addbit)
-
-    // nrzi_agc_policy
-    const int pc = peakcount + 1;
-    const float height = v_top - v_bot;
-    if (is_top && pc >= 5 && pc <= 15) {            // accumulate_baseline
-      vah_sum = vah_sum + height;
-      vah_cnt += 1;
-      heights[hndx] = height;
-      hndx = (hndx + 1 >= aw) ? 0 : hndx + 1;
-    } else if (is_top && pc > 15 && vah_cnt > 0) {  // finish_baseline
-      vah = vah_sum / (float)(vah_cnt > 1 ? vah_cnt : 1);
-      vah_cnt = 0;
-    } else if (pc > 15 && vah_cnt == 0) {           // adjust_agc
-      const float lastheight = v_lasttop - v_lastbot;
-      float g_exp = vah / nrzi_maxf(lastheight, 1e-9f);
-      g_exp = fmaf(aa, g_exp, (1.0f - aa) * agc);
-      g_exp = nrzi_minf(g_exp, 2.0f);
-      const bool use_exp = aa > 0.0f && lastheight > 0.0f;
-      const bool use_win = aw > 0 && lastheight > 0.0f;
-      float gain = agc;
-      if (use_exp) gain = g_exp;
-      if (use_win) {
-        heights[hndx] = lastheight;
-        hndx = (hndx + 1 >= aw) ? 0 : hndx + 1;
-        float minh = NRZI_FLT_MAX;
-        for (int k = 0; k < NRZI_MAX_AGC_RING && k < aw; ++k)
-          minh = nrzi_minf(minh, heights[k]);
-        gain = nrzi_minf(vah / nrzi_maxf(minh, 1e-9f), 2.0f);
-      }
-      if (use_exp || use_win) {
-        if (gain > max_agc) max_agc = gain;
-        if (gain < min_agc) min_agc = gain;
-      }
-      agc = gain;
-    }
-    peakcount = pc;
-    if (is_top) v_lasttop = f.wmax; else v_lastbot = f.wmin;
+    const bool is_top = adm > 0;
+    int L;
+    const float t_this = nrzi_refine_frac(g, f, is_top, s, W, L);
+    if (gb.dc == 0) g.max_agc = g.agc;      // the first bit (gcr_addbit)
+    nrzi_agc_policy(g, is_top, f, aw, aa);
 
     // peak statistics once the track has ever had data (decode_gcr.c:839)
     int hb = 50;
     if (had_data) {
-      const int bkt = nrzi_f2i(((t_this - g.t_lastpeak) - a.stat_lb) / a.stat_bw);
+      const int bkt = nrzi_f2i(((t_this - gb.t_lastpeak) - stat_lb) / stat_bw);
       hb = bkt < 0 ? 52 : (bkt > 49 ? 53 : bkt);
     }
     // mid-scan idle (decoder.c:879-888): an idle entry before this
     // detection drops datablock, so this admission re-seeds the block;
     // compact_outputs' overflow rule keeps the last interval in the last
     // slot
-    const int entry = gcr_idle_entry(g.t_lastpeak, g.clk.avg, s_lastdet);
-    if (g.datablock && entry <= s - 1) {
+    const int entry = gcr_idle_entry(gb.t_lastpeak, gb.clk.avg, s_lastdet);
+    if (gb.datablock && entry <= s - 1) {
       const int slot = n_ie < PE_IDLE_CAP - 1 ? n_ie : PE_IDLE_CAP - 1;
       ie[2 * slot] = entry;
       ie[2 * slot + 1] = s;
       n_ie += 1;
-      g.datablock = false;
+      gb.datablock = false;
     }
     s_lastdet = s;
     had_data = true;
@@ -305,24 +234,70 @@ NRZI_HD void gcr_admit_track(const GcrArgs& a, int lane, int t) {
     // the record (K >= max_steps: one per step at most, never overflows)
     int32_t* ri = rec_i + (int64_t)n_adm * N_GR;
     float* rf = rec_f + (int64_t)n_adm * N_PRF;
-    gcr_bit_step(g, t_this, z1, z2, padj, cwin, ca, spb, maxb, ri + GR_WR0);
+    gcr_bit_step(gb, t_this, z1, z2, padj, cwin, ca, spb, maxb, ri + GR_WR0);
     ri[GR_SDET] = s;
     ri[GR_HB] = hb;
-    rf[PRF_TFB] = g.t_firstbit;
-    rf[PRF_TLB] = g.t_lastbit;
-    rf[PRF_AGCMX] = max_agc;
-    rf[PRF_AGCMN] = min_agc;
+    rf[PRF_TFB] = gb.t_firstbit;
+    rf[PRF_TLB] = gb.t_lastbit;
+    rf[PRF_AGCMX] = g.max_agc;
+    rf[PRF_AGCMN] = g.min_agc;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
-    pos = s + L + 1;
+    cur.pos = s + L + 1;
+    cur.search = false;
   }
-  int32_t* sc = a.scan + row * N_PS;
-  sc[PS_NADM] = n_adm;
-  sc[PS_INCOMP] = pos < S;
-  sc[PS_NIE] = n_ie;
+};
+
+// track t of a lane at the start of its segment; heights, ring:
+// NRZI_MAX_AGC_RING and NRZI_MAX_CLK_RING floats
+NRZI_HD void gcr_walk_init(GcrWalk& w, const GcrArgs& a, int lane, int t,
+                           float* heights, float* ring) {
+  const int b = lane / a.P, p = lane % a.P;
+  const int64_t row = (int64_t)lane * a.T + t;
+  w.cur.pos = 0;
+  w.cur.search = true;
+  w.steps = w.n_adm = 0;
+  nrzi_agc_init(w.g, heights);
+  w.spb = a.spb;
+  w.gb.clk.ring = ring;
+  for (int k = 0; k < NRZI_MAX_CLK_RING; ++k) ring[k] = a.spb;
+  w.gb.clk.ndx = 0;
+  w.gb.clk.avg = a.spb;
+  w.gb.t_pulse_adj = w.gb.t_peakdelta = w.gb.t_firstbit = w.gb.t_lastbit = 0.0f;
+  w.gb.t_lastpeak = 0.0f;
+  w.gb.datablock = false;
+  w.gb.dc = w.gb.lastbits = w.gb.rsc = 0;
+  w.had_data = false;
+  w.s_lastdet = a.lead[b] + t + 1;
+  w.n_ie = 0;
+  w.W = a.p_w[p];
+  w.aw = a.p_agc_window[p];
+  w.cwin = a.p_clk_window[p];
+  w.maxb = a.maxb;
+  w.rise = a.p_rise[p];
+  w.minp = a.p_minp[p];
+  w.aa = a.p_agc_alpha[p];
+  w.ca = a.p_clk_alpha[p];
+  w.z1 = a.p_z1pt[p];
+  w.z2 = a.p_z2pt[p];
+  w.padj = a.p_pulse_adj[p];
+  w.stat_lb = a.stat_lb;
+  w.stat_bw = a.stat_bw;
+  w.rec_i = a.rec_i + row * a.K * N_GR;
+  w.rec_f = a.rec_f + row * a.K * N_PRF;
+  w.ie = a.ie + row * PE_IDLE_CAP * 2;
+}
+
+// the track's scan results once its walk has stopped
+NRZI_HD void gcr_walk_finish(const GcrWalk& w, const GcrArgs& a, int lane, int t) {
+  int32_t* sc = a.scan + ((int64_t)lane * a.T + t) * N_PS;
+  sc[PS_NADM] = w.n_adm;
+  sc[PS_INCOMP] = w.cur.pos < a.S;
+  sc[PS_NIE] = w.n_ie;
   // a dead or never-written track never goes idle (decoder.c:879)
-  sc[PS_TRAIL] = g.datablock ? gcr_idle_entry(g.t_lastpeak, g.clk.avg, s_lastdet)
-                             : PE_BIG_TAU;
+  sc[PS_TRAIL] = w.gb.datablock
+                     ? gcr_idle_entry(w.gb.t_lastpeak, w.gb.clk.avg, w.s_lastdet)
+                     : PE_BIG_TAU;
 }
 
 // ---------------------------------------------------------------------------

@@ -11,17 +11,30 @@
 // candidate after it. The group-level postprocess (5-bit groups, ECC,
 // -correct) stays outside, in PyTorch (decode/gcr.py::gcr_finish).
 //
-// What bounds it: serial latency in phase A (each track's admissions form
-// a chain of dependent steps: the AGC, clock and pulse-adjust state of one
-// admission set the thresholds of the next) and, in phase B, T * ECAP
-// candidate entries per lane, each tested against every other track. The
-// card's width is used only through the B * P blocks and the 128 threads
-// of phases 0 and B. The design keeps it simple and exact, as pe_fused.cu:
+// What bounds it: serial latency in phase A. Each track's admissions form
+// a chain of dependent steps (the AGC, clock and pulse-adjust state of one
+// admission set the thresholds of the next), one thread per track. What a
+// chain reads does not depend on its state -- the samples, the candidate
+// words, each candidate's window features -- so, as in pe_fused.cu, the
+// threads that are not walking stage it into shared memory ahead of the
+// walkers, and no step of a chain waits on device memory. The phases, one
+// block of 512 threads per lane:
 //   phase 0  all threads: zero the lane's outputs and build its candidate
-//            bitmask [T, S/32], masked to each track's own lead
-//   phase A  one thread per track: walk the candidates, admit peaks, run
-//            the GCR bit machine, append one record per admission and one
-//            interval per idle stretch to device buffers (K >= max_steps)
+//            bitmask [T, S/32], masked to each track's own lead, a warp
+//            per 32-sample word (pe_cand_bit per lane, one ballot)
+//   phase A  the walkers: one thread per track, each in a warp of its own
+//            (two per warp beyond 12 tracks); the other warps stage the
+//            lane in chunks of C samples (NrziStager: cp.async of each
+//            track's samples with a W + 1 halo and its candidate words,
+//            then every candidate's window features for the lane's width
+//            W) into one of two shared-memory slots, a chunk ahead. The
+//            walkers run GcrWalk::admit (the admission test and AGC policy
+//            of nrzi_core.h, then the GCR bit machine) from shared memory,
+//            with their AGC and clock rings there too, and append one
+//            record per admission and one interval per idle stretch to
+//            device buffers (K >= max_steps). The tracks hand chunks over
+//            at a block barrier, which also ends the phase once every
+//            track has stopped
 //   phase B  all threads: the candidate entries split over the threads,
 //            block-wide min -> tau
 //   phase C  one thread per track: replay the records before tau into
@@ -33,37 +46,58 @@
 
 #include "gcr_core.h"
 
-#define GCR_THREADS 128
-
-__global__ void __launch_bounds__(GCR_THREADS) gcr_fused_kernel(GcrArgs a) {
-  const int lane = blockIdx.x;
-  const int nw = pe_nwords(a);
+__global__ void __launch_bounds__(PE_THREADS, 1) gcr_fused_kernel(GcrArgs a, int C) {
+  extern __shared__ __align__(16) unsigned char gcr_sm[];
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const int T = a.T, S = a.S;
+  pe_stamp(a, lane, PE_ST_G0);
+  pe_stamp(a, lane, PE_ST_C0);
   __shared__ int tau_sh, after_sh;
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     tau_sh = PE_BIG_TAU;
-    after_sh = a.S;
+    after_sh = S;
   }
-  gcr_zero_lane(a, lane, threadIdx.x, blockDim.x);
-  uint32_t* cw = a.cand + (int64_t)lane * a.T * nw;
-  for (int i = threadIdx.x; i < a.T * nw; i += blockDim.x)
-    cw[i] = pe_cand_word(a, lane, i / nw, i % nw);
+  gcr_zero_lane(a, lane, tid, blockDim.x);
+  uint32_t* cw = a.cand + (int64_t)lane * T * pe_nwords(a);
+  pe_cand_words(a, lane, cw);
   __syncthreads();
-  if (threadIdx.x < a.T) gcr_admit_track(a, lane, threadIdx.x);
-  __syncthreads();
+  pe_stamp(a, lane, PE_ST_CZ);
+
+  // ---- phase A ----
+  pe_phase_a<GcrWalk>(
+      a, lane, cw, gcr_sm, C,
+      [&](GcrWalk& w, int t, float* heights, float* ring) {
+        gcr_walk_init(w, a, lane, t, heights, ring);
+      },
+      [&](const GcrWalk& w, int t) { gcr_walk_finish(w, a, lane, t); });
+  pe_stamp(a, lane, PE_ST_CA);
+
+  // ---- phase B ----
   bool overflow, deep;
   pe_lane_flags(a, lane, overflow, deep);
-  if (!overflow) atomicMin(&tau_sh, pe_tau_part(a, lane, threadIdx.x, blockDim.x));
+  if (!overflow) atomicMin(&tau_sh, pe_tau_part(a, lane, tid, blockDim.x));
   __syncthreads();
+  pe_stamp(a, lane, PE_ST_CB);
+
+  // ---- phase C ----
   const int tau = overflow ? PE_BIG_TAU : tau_sh;
-  if (threadIdx.x < a.T) atomicMin(&after_sh, gcr_apply_track(a, lane, threadIdx.x, tau));
+  if (tid < T) atomicMin(&after_sh, gcr_apply_track(a, lane, tid, tau));
   __syncthreads();
-  if (threadIdx.x == 0) gcr_write_lane(a, lane, tau, overflow, after_sh);
+  pe_stamp(a, lane, PE_ST_CC);
+  if (tid == 0) gcr_write_lane(a, lane, tau, overflow, after_sh);
+  pe_stamp(a, lane, PE_ST_G1);
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int gcr_fused_launch(const GcrArgs* a, void* stream) {
-  if (a->T > NRZI_MAX_TRACKS || a->T > GCR_THREADS || a->K < a->max_steps)
+  if (a->T < 1 || a->T > NRZI_MAX_TRACKS || a->K < a->max_steps || a->wmax < 1 ||
+      pe_chunk(a->T, a->wmax) == 0)
     return (int)cudaErrorInvalidValue;
-  gcr_fused_kernel<<<a->B * a->P, GCR_THREADS, 0, (cudaStream_t)stream>>>(*a);
+  const int C = pe_chunk(a->T, a->wmax);
+  const size_t smem = pe_smem(a->T, C, a->wmax);
+  cudaError_t e = cudaFuncSetAttribute(
+      gcr_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  gcr_fused_kernel<<<a->B * a->P, PE_THREADS, smem, (cudaStream_t)stream>>>(*a, C);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 // nrzi_slot.cu: B6, the slot machine alone) and a host build used only by
 // the tests. Every function is __host__ __device__ and touches one
 // (segment, parmset) lane, or one track of it. There is one copy of each
-// machine: the admission step (NrziWalk::admit) that B1 drives chunk by
-// chunk and B5 over its jump table, and the slot machine's per-track steps
+// machine: the admission step (NrziWalk::admit, whose admission test and
+// AGC policy GCR's walk shares) that B1 and B5b drive chunk by chunk and
+// B5a over its whole jump table, and the slot machine's per-track steps
 // and per-lane combines (nrzi_slot_drive) that the card runs with one
 // thread per track of a warp and the host runs serially, track by track.
 //
@@ -83,6 +84,17 @@
 #define SLOT_ST_G1 3
 #define SLOT_ST_MACH 4
 #define SLOT_NSTAMP (SLOT_ST_MACH + NRZI_NMACH)
+// B5b's per-lane stamps (only when NrziScanArgs::stamps is set): the
+// global timer (ns) at the start and end of the lane's walk, clock64() at
+// its start and end, the walker's clock64() cycles spent walking (the rest
+// it waits for staged chunks), and its steps
+#define SCAN_ST_G0 0
+#define SCAN_ST_C0 1
+#define SCAN_ST_C1 2
+#define SCAN_ST_G1 3
+#define SCAN_ST_WALK 4
+#define SCAN_ST_STEPS 5
+#define SCAN_NSTAMP 6
 
 // Everything one launch needs. Pointers are device pointers for the
 // kernel and host pointers for the host build. Lane = b * P + p.
@@ -189,9 +201,10 @@ NRZI_HD int nrzi_next_cand(const uint32_t* words, int nw, int S, int p) {
 // ---------------------------------------------------------------------------
 // phase A: one track's admission scan (trackscan.run_jump_scan_seq +
 // nrzi_track_scan_pre + nrzi_agc_policy), one step struct (NrziWalk)
-// driven two ways: B1 walks its candidate bitmask chunk by chunk over
-// window features computed a chunk ahead (nrzi_walk_chunk), B5 walks a
-// masked jump table over precomputed features (nrzi_admit_scan)
+// driven two ways: B1 and B5b walk chunk by chunk (nrzi_walk_chunk), B1
+// over window features computed a chunk ahead, B5b over its table's rows
+// staged a chunk ahead; B5a walks a masked jump table over precomputed
+// features whole (nrzi_admit_scan)
 // ---------------------------------------------------------------------------
 
 struct NrziFeat {
@@ -226,16 +239,37 @@ NRZI_HD void nrzi_features_at(const float* v, int base, int S, int s, int W,
   f.lbot = kb - lo + 1;
 }
 
-NRZI_HD void nrzi_features(const float* v, int S, int s, int W, NrziFeat& f) {
-  nrzi_features_at(v, 0, S, s, W, f);
+// B5: a row of a track's precomputed feature table, in trackscan.FEATURES
+// order (the offsets ltop and lbot as floats)
+#define NRZI_NFEAT 10
+struct NrziTableRow {
+  float r[NRZI_NFEAT];
+};
+
+// the walk's features of a row: computed (NrziFeat) or read from B5's table
+NRZI_HD const NrziFeat& nrzi_feat_of(const NrziFeat& f) { return f; }
+NRZI_HD NrziFeat nrzi_feat_of(const NrziTableRow& row) {
+  const float* r = row.r;
+  NrziFeat f;
+  f.wmax = r[0];
+  f.wmin = r[1];
+  f.vleft = r[2];
+  f.vright = r[3];
+  f.ltop = (int)r[4];
+  f.prevmax = r[5];
+  f.nextmax = r[6];
+  f.lbot = (int)r[7];
+  f.prevmin = r[8];
+  f.nextmin = r[9];
+  return f;
 }
 
 // ---------------------------------------------------------------------------
-// The chunked admission walk (B2, B4): a track's tape is cut into chunks
-// of C samples (C a multiple of 32); for each chunk the caller provides
-// the chunk's candidate words and the window features at its candidates,
-// and the walk runs the same steps run_jump_scan_seq takes over the whole
-// track. The cursor carries across chunks: a blind jump may land past the
+// The chunked admission walk (B1, B2, B3, B4, B5b): a track's tape is cut
+// into chunks of C samples (C a multiple of 32); for each chunk the caller
+// provides the chunk's candidate words and the window features at its
+// candidates (computed rows, or B5b's table rows), and the walk runs the
+// same steps run_jump_scan_seq takes over the whole track. The cursor carries across chunks: a blind jump may land past the
 // chunk, and a search for the next candidate goes on in the next one.
 // ---------------------------------------------------------------------------
 
@@ -292,14 +326,13 @@ NRZI_HD int nrzi_stage_lo(int c0, int W) { return c0 - W > 0 ? c0 - W : 0; }
 NRZI_HD int nrzi_stage_hi(int c1, int S) { return c1 + 1 < S ? c1 + 1 : S; }
 
 // Walk one track through the chunk [c0, c1): w.admit(s, f) runs one step
-// at a candidate s with its features f = rows[s - c0] and moves w.cur (a
+// at a candidate s with its features f of rows[s - c0] and moves w.cur (a
 // blind jump, or a search from s + 1). One step per landing, as the JAX
-// XLA scan counts them; a track stops at S or, landed, after max_steps
-// steps. Returns false once the track has stopped.
-template <class Walk>
-NRZI_HD bool nrzi_walk_chunk(Walk& w, const uint32_t* words,
-                             const NrziFeat* rows, int c0, int c1, int S,
-                             int max_steps) {
+// XLA scan counts them (and nrzi_admit_scan); a track stops at S or,
+// landed, after max_steps steps. Returns false once the track has stopped.
+template <class Walk, class Row>
+NRZI_HD bool nrzi_walk_chunk(Walk& w, const uint32_t* words, const Row* rows,
+                             int c0, int c1, int S, int max_steps) {
   for (;;) {
     if (w.cur.search) {
       nrzi_cursor_seek(w.cur, words, c0, c1, S);
@@ -315,13 +348,13 @@ NRZI_HD bool nrzi_walk_chunk(Walk& w, const uint32_t* words,
       w.cur.search = true;
       continue;
     }
-    w.admit(s, rows[s - c0]);
+    w.admit(s, nrzi_feat_of(rows[s - c0]));
   }
 }
 
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
-// Chunk staging on the card (B1, B2, B4's admission): while the walkers
+// Chunk staging on the card (B1, B2, B3, B4's admission): while the walkers
 // walk chunk i, the block's other threads (stager ptid of np) copy chunk
 // i + 2 of each of T tracks -- its samples [c0 - W, c1] and its candidate
 // words -- into staging slot i & 1 by cp.async, and turn chunk i + 1 into
@@ -448,27 +481,14 @@ struct NrziStager {
 #endif
 
 // B5: one track's masked jump table (nxt[i] = first candidate >= i, S if
-// none) and its precomputed features, rows in trackscan.FEATURES order
-#define NRZI_NFEAT 10
+// none: s is a candidate iff nxt[s] == s) and its precomputed features
 struct NrziTableSrc {
-  const float* ft;         // [S, NRZI_NFEAT]
+  const NrziTableRow* ft;  // [S]
   const int32_t* nxt;      // [S + 1]
   int S;
   NRZI_HDM int next(int p) const { return nxt[p < S ? p : S]; }
   NRZI_HDM bool cand(int s) const { return nxt[s] == s; }
-  NRZI_HDM void feat(int s, int, NrziFeat& f) const {
-    const float* r = ft + (int64_t)s * NRZI_NFEAT;
-    f.wmax = r[0];
-    f.wmin = r[1];
-    f.vleft = r[2];
-    f.vright = r[3];
-    f.ltop = (int)r[4];
-    f.prevmax = r[5];
-    f.nextmax = r[6];
-    f.lbot = (int)r[7];
-    f.prevmin = r[8];
-    f.nextmin = r[9];
-  }
+  NRZI_HDM void feat(int s, int, NrziFeat& f) const { f = nrzi_feat_of(ft[s]); }
 };
 
 // one parmset's admission knobs
@@ -491,6 +511,109 @@ struct NrziAdmitRes {
   float max_agc, min_agc;
 };
 
+// ---------------------------------------------------------------------------
+// The admission test, the peak's refinement and the AGC policy, shared by
+// the NRZI walk (NrziWalk::admit) and the GCR walk (gcr_core.h GcrWalk):
+// trackscan.admission_test, refine_frac and nrzi_agc_policy
+// ---------------------------------------------------------------------------
+
+// a track's admission and AGC state (trackscan.admission_init,
+// common.agc_state_init)
+struct NrziAgc {
+  float agc, vah, vah_sum;
+  int vah_cnt, hndx, peakcount;
+  float max_agc, min_agc, v_lasttop, v_lastbot, v_top, v_bot;
+  float* heights;            // [NRZI_MAX_AGC_RING] the AGC window
+};
+
+// heights: NRZI_MAX_AGC_RING floats
+NRZI_HD void nrzi_agc_init(NrziAgc& g, float* heights) {
+  g.agc = 1.0f;
+  g.vah = 4.0f;
+  g.vah_sum = 0.0f;
+  g.vah_cnt = g.hndx = g.peakcount = 0;
+  g.max_agc = 0.0f;
+  g.min_agc = NRZI_FLT_MAX;
+  g.v_lasttop = g.v_lastbot = g.v_top = g.v_bot = 0.0f;
+  g.heights = heights;
+  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
+}
+
+// admission_test (decoder.c:781-810): 1 a top, -1 a bottom, 0 neither
+NRZI_HD int nrzi_admission_test(const NrziAgc& g, const NrziFeat& f, float rise,
+                                float minp) {
+  const float scale = g.vah / 4.0f;
+  const float rise_t = rise * scale / g.agc;
+  const float rmin = minp * scale / g.agc;
+  const bool no_min = minp == 0.0f;
+  const bool is_top = (f.wmax > f.vleft + rise_t) && (f.wmax > f.vright + rise_t) &&
+                      (no_min || f.wmax > rmin);
+  if (is_top) return 1;
+  const bool is_bot = (f.wmin < f.vleft - rise_t) && (f.wmin < f.vright - rise_t) &&
+                      (no_min || f.wmin < -rmin);
+  return is_bot ? -1 : 0;
+}
+
+// refine_frac (decoder.c:700-749): the peak's time at a candidate s with
+// window width W, by +-0.5-sample interpolation; its window offset into L.
+// Records the peak's value as the track's top or bottom
+NRZI_HD float nrzi_refine_frac(NrziAgc& g, const NrziFeat& f, bool is_top, int s,
+                               int W, int& L) {
+  L = is_top ? f.ltop : f.lbot;
+  const float val = is_top ? f.wmax : f.wmin;
+  const float prv = is_top ? f.prevmax : f.prevmin;
+  const float nxt = is_top ? f.nextmax : f.nextmin;
+  const float thr = 0.005f / g.agc;
+  const float ref = is_top ? val - thr : val + thr;
+  const bool pclose = is_top ? prv > ref : prv < ref;
+  const bool nclose = is_top ? nxt > ref : nxt < ref;
+  const float adj = (pclose && !nclose) ? -0.5f : ((nclose && !pclose) ? 0.5f : 0.0f);
+  if (is_top) g.v_top = val; else g.v_bot = val;
+  return (float)s + (-((float)(W - L) - adj));
+}
+
+// nrzi_agc_policy after an admitted peak: the baseline over peaks 5..15,
+// then adjust_agc (aw: the AGC window, aa: its alpha)
+NRZI_HD void nrzi_agc_policy(NrziAgc& g, bool is_top, const NrziFeat& f, int aw,
+                             float aa) {
+  const int pc = g.peakcount + 1;
+  const float height = g.v_top - g.v_bot;
+  const bool past = pc > 15;
+  if (is_top && pc >= 5 && !past) {                // accumulate_baseline
+    g.vah_sum = g.vah_sum + height;
+    g.vah_cnt += 1;
+    g.heights[g.hndx] = height;
+    g.hndx = (g.hndx + 1 >= aw) ? 0 : g.hndx + 1;
+  } else if (is_top && past && g.vah_cnt > 0) {    // finish_baseline
+    g.vah = g.vah_sum / (float)(g.vah_cnt > 1 ? g.vah_cnt : 1);
+    g.vah_cnt = 0;
+  } else if (past && g.vah_cnt == 0) {             // adjust_agc
+    const float lastheight = g.v_lasttop - g.v_lastbot;
+    float g_exp = g.vah / nrzi_maxf(lastheight, 1e-9f);
+    g_exp = fmaf(aa, g_exp, (1.0f - aa) * g.agc);
+    g_exp = nrzi_minf(g_exp, 2.0f);
+    const bool use_exp = aa > 0.0f && lastheight > 0.0f;
+    const bool use_win = aw > 0 && lastheight > 0.0f;
+    float gain = g.agc;
+    if (use_exp) gain = g_exp;
+    if (use_win) {
+      g.heights[g.hndx] = lastheight;
+      g.hndx = (g.hndx + 1 >= aw) ? 0 : g.hndx + 1;
+      float minh = NRZI_FLT_MAX;
+      for (int k = 0; k < NRZI_MAX_AGC_RING && k < aw; ++k)
+        minh = nrzi_minf(minh, g.heights[k]);
+      gain = nrzi_minf(g.vah / nrzi_maxf(minh, 1e-9f), 2.0f);
+    }
+    if (use_exp || use_win) {
+      if (gain > g.max_agc) g.max_agc = gain;
+      if (gain < g.min_agc) g.min_agc = gain;
+    }
+    g.agc = gain;
+  }
+  g.peakcount = pc;
+  if (is_top) g.v_lasttop = f.wmax; else g.v_lastbot = f.wmin;
+}
+
 // One track's admission walk: its cursor and step count, AGC state, knobs
 // and outputs. admit(s, f) is one step at a candidate s with the window
 // features f: the admission test, then, for a peak, the refinement, the
@@ -498,90 +621,29 @@ struct NrziAdmitRes {
 // after a rejection, a blind landing at s + L + 1 after an admission)
 struct NrziWalk {
   NrziCursor cur;
-  int steps;
-  float agc, vah, vah_sum;
-  int vah_cnt, hndx, peakcount, n_adm;
-  float max_agc, min_agc, v_lasttop, v_lastbot, v_top, v_bot;
-  float* heights;            // [NRZI_MAX_AGC_RING] the AGC window
+  int steps, n_adm;
+  NrziAgc g;
   NrziKnobs kn;
   NrziTrack o;
 
   NRZI_HDM void admit(int s, const NrziFeat& f) {
-    const int W = kn.W, aw = kn.aw;
-    const float rise = kn.rise, minp = kn.minp, aa = kn.aa;
-    // admission_test (decoder.c:781-810)
-    float scale = vah / 4.0f;
-    float rise_t = rise * scale / agc;
-    float rmin = minp * scale / agc;
-    bool no_min = minp == 0.0f;
-    bool is_top = (f.wmax > f.vleft + rise_t) && (f.wmax > f.vright + rise_t) &&
-                  (no_min || f.wmax > rmin);
-    bool is_bot = !is_top && (f.wmin < f.vleft - rise_t) &&
-                  (f.wmin < f.vright - rise_t) && (no_min || f.wmin < -rmin);
-    if (!is_top && !is_bot) {
+    const int adm = nrzi_admission_test(g, f, kn.rise, kn.minp);
+    if (!adm) {
       cur.pos = s + 1;
       cur.search = true;
       return;
     }
-    // refine_frac: +-0.5-sample interpolation (decoder.c:700-749)
-    int L = is_top ? f.ltop : f.lbot;
-    float val = is_top ? f.wmax : f.wmin;
-    float prv = is_top ? f.prevmax : f.prevmin;
-    float nxt = is_top ? f.nextmax : f.nextmin;
-    float thr = 0.005f / agc;
-    float ref = is_top ? val - thr : val + thr;
-    bool pclose = is_top ? prv > ref : prv < ref;
-    bool nclose = is_top ? nxt > ref : nxt < ref;
-    float adj = (pclose && !nclose) ? -0.5f : ((nclose && !pclose) ? 0.5f : 0.0f);
-    float t_peak = (float)s + (-((float)(W - L) - adj));
-
-    if (is_top) v_top = val; else v_bot = val;
-    if (n_adm == 0) max_agc = agc;   // first data bit (nrzi_addbit:149)
-
-    // nrzi_agc_policy
-    int pc = peakcount + 1;
-    float height = v_top - v_bot;
-    bool in_base = is_top && pc >= 5 && pc <= 15;
-    bool past = pc > 15;
-    if (in_base) {                         // accumulate_baseline
-      vah_sum = vah_sum + height;
-      vah_cnt += 1;
-      heights[hndx] = height;
-      hndx = (hndx + 1 >= aw) ? 0 : hndx + 1;
-    } else if (is_top && past && vah_cnt > 0) {   // finish_baseline
-      vah = vah_sum / (float)(vah_cnt > 1 ? vah_cnt : 1);
-      vah_cnt = 0;
-    } else if (past && vah_cnt == 0) {            // adjust_agc
-      float lastheight = v_lasttop - v_lastbot;
-      float g_exp = vah / nrzi_maxf(lastheight, 1e-9f);
-      g_exp = fmaf(aa, g_exp, (1.0f - aa) * agc);
-      g_exp = nrzi_minf(g_exp, 2.0f);
-      bool use_exp = aa > 0.0f && lastheight > 0.0f;
-      bool use_win = aw > 0 && lastheight > 0.0f;
-      float gain = agc;
-      if (use_exp) gain = g_exp;
-      if (use_win) {
-        heights[hndx] = lastheight;
-        hndx = (hndx + 1 >= aw) ? 0 : hndx + 1;
-        float minh = NRZI_FLT_MAX;
-        for (int k = 0; k < NRZI_MAX_AGC_RING && k < aw; ++k)
-          minh = nrzi_minf(minh, heights[k]);
-        gain = nrzi_minf(vah / nrzi_maxf(minh, 1e-9f), 2.0f);
-      }
-      if (use_exp || use_win) {
-        if (gain > max_agc) max_agc = gain;
-        if (gain < min_agc) min_agc = gain;
-      }
-      agc = gain;
-    }
-    peakcount = pc;
-    if (is_top) v_lasttop = f.wmax; else v_lastbot = f.wmin;
+    const bool is_top = adm > 0;
+    int L;
+    const float t_peak = nrzi_refine_frac(g, f, is_top, s, kn.W, L);
+    if (n_adm == 0) g.max_agc = g.agc;   // first data bit (nrzi_addbit:149)
+    nrzi_agc_policy(g, is_top, f, kn.aw, kn.aa);
 
     // compact_outputs: overflow keeps the last admission in slot K-1
     int idx = n_adm < o.K - 1 ? n_adm : o.K - 1;
     o.s[idx] = s;
     o.t[idx] = t_peak;
-    o.agc[idx] = agc;
+    o.agc[idx] = g.agc;
     if (o.top) o.top[idx] = is_top;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
@@ -597,15 +659,8 @@ NRZI_HD void nrzi_walk_init(NrziWalk& w, const NrziKnobs& kn, const NrziTrack& o
   w.cur.pos = 0;
   w.cur.search = true;
   w.steps = 0;
-  w.agc = 1.0f;
-  w.vah = 4.0f;
-  w.vah_sum = 0.0f;
-  w.vah_cnt = w.hndx = w.peakcount = w.n_adm = 0;
-  w.max_agc = 0.0f;
-  w.min_agc = NRZI_FLT_MAX;
-  w.v_lasttop = w.v_lastbot = w.v_top = w.v_bot = 0.0f;
-  w.heights = heights;
-  for (int k = 0; k < NRZI_MAX_AGC_RING; ++k) heights[k] = 0.0f;
+  w.n_adm = 0;
+  nrzi_agc_init(w.g, heights);
   w.kn = kn;
   w.o = o;
 }
@@ -614,27 +669,23 @@ NRZI_HD NrziAdmitRes nrzi_walk_result(const NrziWalk& w, int S) {
   NrziAdmitRes r;
   r.n_adm = w.n_adm;
   r.incomplete = w.cur.pos < S;
-  r.max_agc = w.max_agc;
-  r.min_agc = w.min_agc;
+  r.max_agc = w.g.max_agc;
+  r.min_agc = w.g.min_agc;
   return r;
 }
 
-// The walk over a candidate source whole (B5): one step per landing, as
-// the JAX XLA scan counts them; a lane stops after max_steps steps (its
-// budget) or when its cursor passes S
+// The walk w (initialised) over a candidate source whole (B5a): one step
+// per landing, as the JAX XLA scan counts them; a lane stops after
+// max_steps steps (its budget) or when its cursor passes S
 template <class Src>
-NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
-                                     const NrziKnobs& kn, const NrziTrack& o) {
-  float heights[NRZI_MAX_AGC_RING];
-  NrziWalk w;
-  nrzi_walk_init(w, kn, o, heights);
+NRZI_HD void nrzi_admit_scan(NrziWalk& w, const Src& src, int S, int max_steps) {
   int pos = src.next(0);
   while (pos < S && w.steps < max_steps) {
     const int s = pos;
     w.steps += 1;
     if (src.cand(s)) {
       NrziFeat f;
-      src.feat(s, kn.W, f);
+      src.feat(s, w.kn.W, f);
       w.admit(s, f);
       if (!w.cur.search) {
         pos = w.cur.pos;
@@ -645,7 +696,6 @@ NRZI_HD NrziAdmitRes nrzi_admit_scan(const Src& src, int S, int max_steps,
     pos = src.next(s + 1);
   }
   w.cur.pos = pos;
-  return nrzi_walk_result(w, S);
 }
 
 NRZI_HD NrziKnobs nrzi_knobs(const int32_t* p_w, const int32_t* p_agc_window,
@@ -1309,11 +1359,13 @@ NRZI_HD void nrzi_zero_lane(const NrziArgs& a, int lane, int tid, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// B5 (admission alone: nrzi_scan.cu calls nrzi_scan_lane per thread) and
-// B6 (the slot machine alone: nrzi_slot.cu runs a lane per warp, the host
-// build nrzi_slot_lane). Their outputs come pre-filled from the wrapper
-// (kernels.py): transition buffers with compact_outputs' fill (BIG_S, 0.0,
-// 1.0, false), bits and hist zeroed
+// B5 (admission alone, nrzi_scan.cu: B5a walks the whole table per
+// thread with nrzi_scan_lane, B5b walks it per block, chunk by chunk, over
+// entries staged in shared memory) and B6 (the slot machine alone:
+// nrzi_slot.cu runs a lane per warp, the host build nrzi_slot_lane).
+// Their outputs come pre-filled from the wrapper (kernels.py): transition
+// buffers with compact_outputs' fill (BIG_S, 0.0, 1.0, false), bits and
+// hist zeroed
 // ---------------------------------------------------------------------------
 
 struct NrziScanArgs {
@@ -1333,31 +1385,54 @@ struct NrziScanArgs {
   float* max_agc_gain;
   float* min_agc_gain;
   int8_t* incomplete;
+  int64_t* stamps;           // [B*P*T, SCAN_NSTAMP] B5b's walk clocks, or null
   int32_t B, P, T, S, G, K, max_steps;
 };
 
-// lane = (b*P + p)*T + t. incomplete: the cursor stopped before S (the
-// step budget) or admissions overflowed the K buffer entries
-NRZI_HD void nrzi_scan_lane(const NrziScanArgs& a, int lane) {
+// lane = (b*P + p)*T + t: its jump table and feature rows
+NRZI_HD NrziTableSrc nrzi_scan_src(const NrziScanArgs& a, int lane) {
   const int t = lane % a.T, bp = lane / a.T;
   const int p = bp % a.P, b = bp / a.P;
   NrziTableSrc src;
-  src.ft = a.feat + (((int64_t)a.grp[p] * a.B + b) * a.T + t) * a.S * NRZI_NFEAT;
+  src.ft = (const NrziTableRow*)(a.feat + (((int64_t)a.grp[p] * a.B + b) * a.T + t) *
+                                              a.S * NRZI_NFEAT);
   src.nxt = a.nxt + ((int64_t)b * a.T + t) * (a.S + 1);
   src.S = a.S;
+  return src;
+}
+
+// the lane's walk at its start (heights: NRZI_MAX_AGC_RING floats)
+NRZI_HD void nrzi_scan_walk_init(NrziWalk& w, const NrziScanArgs& a, int lane,
+                                 float* heights) {
   NrziTrack o;
   o.s = a.tr_s + (int64_t)lane * a.K;
   o.t = a.tr_t + (int64_t)lane * a.K;
   o.agc = a.tr_agc + (int64_t)lane * a.K;
   o.top = a.tr_top + (int64_t)lane * a.K;
   o.K = a.K;
-  NrziAdmitRes r = nrzi_admit_scan(
-      src, a.S, a.max_steps,
-      nrzi_knobs(a.p_w, a.p_agc_window, a.p_rise, a.p_minp, a.p_agc_alpha, p), o);
+  nrzi_walk_init(w, nrzi_knobs(a.p_w, a.p_agc_window, a.p_rise, a.p_minp, a.p_agc_alpha,
+                               (lane / a.T) % a.P),
+                 o, heights);
+}
+
+// the lane's results once its walk has stopped. incomplete: the cursor
+// stopped before S (the step budget) or admissions overflowed the K
+// buffer entries
+NRZI_HD void nrzi_scan_walk_finish(const NrziWalk& w, const NrziScanArgs& a, int lane) {
+  const NrziAdmitRes r = nrzi_walk_result(w, a.S);
   a.n_admitted[lane] = r.n_adm;
   a.max_agc_gain[lane] = r.max_agc;
   a.min_agc_gain[lane] = r.min_agc;
   a.incomplete[lane] = r.incomplete || r.n_adm > a.K;
+}
+
+// B5a's lane: the walk over its table whole
+NRZI_HD void nrzi_scan_lane(const NrziScanArgs& a, int lane) {
+  float heights[NRZI_MAX_AGC_RING];
+  NrziWalk w;
+  nrzi_scan_walk_init(w, a, lane, heights);
+  nrzi_admit_scan(w, nrzi_scan_src(a, lane), a.S, a.max_steps);
+  nrzi_scan_walk_finish(w, a, lane);
 }
 
 struct NrziSlotArgs {

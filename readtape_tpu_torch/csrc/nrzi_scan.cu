@@ -8,16 +8,25 @@
 // precomputed window features and a masked jump table, for every
 // (segment, parmset, track) lane, into [B, P, T, K] transition buffers.
 // Unlike B1 no slot machine couples the tracks here, so every lane is
-// independent: one thread per lane, 32 lanes per block.
+// independent.
 //
 // What bounds it: serial latency. A lane's steps form a dependent chain
 // (the AGC state of one admission sets the thresholds of the next), and
-// each step gathers one 40-byte feature row and a jump-table entry at a
-// data-dependent position. The card's width is used only through the
-// B*P*T lanes. The two entry points differ in which lanes share a warp:
-// B5a puts a track's parmsets side by side (they read the same jump
-// table), B5b a lane's tracks (as the TPU kernel's sublanes). Built with
-// --fmad=false; the AGC's one fused multiply-add is an explicit fmaf().
+// each step reads a 40-byte feature row and a jump-table entry at a
+// data-dependent position. The two entry points:
+//   B5a  one thread per lane, 32 lanes per block, a track's parmsets side
+//        by side (they read the same jump table); each step reads device
+//        memory (nrzi_admit_scan over the table)
+//   B5b  one block per lane: thread 0 of warp 0 walks, warp 1 stages the
+//        lane's table in chunks of C entries, a chunk ahead of the walk:
+//        the chunk's jump-table entries by cp.async, its candidate words
+//        by ballot (bit s: nxt[s] == s), and the feature rows of its
+//        candidates only by cp.async, into one of two shared-memory
+//        slots. The walk (nrzi_walk_chunk with NrziWalk, B1's step) reads
+//        only shared memory; walker and stager hand chunks over at a
+//        barrier of the block alone, so no lane waits for another
+// Built with --fmad=false; the AGC's one fused multiply-add is an explicit
+// fmaf().
 //
 // The wrapper (kernels.py) pre-fills the outputs with compact_outputs'
 // fill; there is no step budget unless the caller passes one (density
@@ -26,38 +35,157 @@
 
 #include "nrzi_core.h"
 
-#define NRZI_SCAN_THREADS 32
+#define NRZI_SCAN_THREADS 32     // B5a: lanes per block
+#define SCAN_CHUNK 256           // B5b: table entries per chunk
+#define SCAN_THREADS 64          // B5b: the walker's warp, the staging warp
+#define SCAN_MIN_BLOCKS 9        // B5b: blocks per SM (1,152 lanes, 132 SMs)
 
-template <bool PARMSET_MINOR>
 __global__ void __launch_bounds__(NRZI_SCAN_THREADS) nrzi_scan_kernel(NrziScanArgs a) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= a.B * a.P * a.T) return;
-  int lane = j;                            // B5b: (b, p, t), t fastest
-  if (PARMSET_MINOR) {                     // B5a: (b, t, p), p fastest
-    const int p = j % a.P, t = (j / a.P) % a.T, b = j / (a.P * a.T);
-    lane = (b * a.P + p) * a.T + t;
-  }
-  nrzi_scan_lane(a, lane);
+  // lanes (b, t, p), p fastest
+  const int p = j % a.P, t = (j / a.P) % a.T, b = j / (a.P * a.T);
+  nrzi_scan_lane(a, (b * a.P + p) * a.T + t);
 }
 
-template <bool PARMSET_MINOR>
-static int nrzi_scan_go(const NrziScanArgs* a, void* stream) {
-  const int n = a->B * a->P * a->T;
-  if (n <= 0) return 0;
-  nrzi_scan_kernel<PARMSET_MINOR>
-      <<<(n + NRZI_SCAN_THREADS - 1) / NRZI_SCAN_THREADS, NRZI_SCAN_THREADS, 0,
-         (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+// cp.async of 8 bytes
+__device__ __forceinline__ void scan_cp8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// B5b's staging of one lane's table (the staging threads ptid of np, whole
+// warps): chunk i's jump-table entries into entry slot i & 1, then its
+// candidate words and its candidates' feature rows into row slot i & 1
+struct ScanStager {
+  NrziTableSrc src;
+  int32_t* ent;              // [2][C] staged jump-table entries
+  uint32_t* wd;              // [2][CW] candidate words
+  NrziTableRow* rows;        // [2][C] feature rows, at candidates only
+  int S, C, CW, ptid, np;
+
+  // the slots carved from sm; returns their end
+  __device__ unsigned char* init(unsigned char* sm, const NrziTableSrc& src_, int C_,
+                                 int ptid_, int np_) {
+    src = src_;
+    S = src.S;
+    C = C_;
+    CW = C >> 5;
+    ptid = ptid_;
+    np = np_;
+    rows = (NrziTableRow*)sm;
+    ent = (int32_t*)(rows + 2 * C);
+    wd = (uint32_t*)(ent + 2 * C);
+    return (unsigned char*)(wd + 2 * CW);
+  }
+  // entry slot i & 1 <- nxt[c0 .. c1)
+  __device__ void stage(int i) const {
+    const int c0 = i * C, c1 = min(c0 + C, S);
+    int32_t* e = ent + (i & 1) * C;
+    for (int s = c0 + ptid; s < c1; s += np) nrzi_cp4(e + (s - c0), src.nxt + s);
+    nrzi_cp_commit();
+  }
+  // row slot i & 1 <- the words of chunk i, one ballot per word, and each
+  // candidate's row (its lane copies it)
+  __device__ void rows_of(int i) const {
+    const int c0 = i * C, c1 = min(c0 + C, S), l = ptid & 31;
+    const int32_t* e = ent + (i & 1) * C;
+    uint32_t* w = wd + (i & 1) * CW;
+    NrziTableRow* r = rows + (i & 1) * C;
+    for (int q = ptid >> 5; q < CW; q += np >> 5) {
+      const int s = c0 + (q << 5) + l;
+      const bool c = s < c1 && e[s - c0] == s;
+      const unsigned word = __ballot_sync(0xffffffffu, c);
+      if (l == 0) w[q] = word;
+      if (c)
+        for (int k = 0; k < NRZI_NFEAT; k += 2) scan_cp8(&r[s - c0].r[k], &src.ft[s].r[k]);
+    }
+    nrzi_cp_commit();
+  }
+  // chunk i's rows, with chunk i + 1's entries on their way; returns once
+  // chunk i's rows have landed
+  __device__ void fill(int i, int nch) const {
+    nrzi_cp_wait();                        // chunk i's entries
+    nrzi_stage_sync(np);
+    rows_of(i);
+    if (i + 1 < nch) stage(i + 1);
+    else nrzi_cp_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  }
+  __device__ const uint32_t* words(int i) const { return wd + (i & 1) * CW; }
+  __device__ const NrziTableRow* feat(int i) const { return rows + (i & 1) * C; }
+};
+
+static size_t scan_smem(int C) {
+  return (size_t)C * 2 * (sizeof(NrziTableRow) + 4) + (size_t)(C / 32) * 2 * 4 +
+         NRZI_MAX_AGC_RING * 4;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
+    nrzi_scan_tracks_kernel(NrziScanArgs a, int C) {
+  extern __shared__ __align__(16) unsigned char scan_sm[];
+  const int lane = blockIdx.x, tid = threadIdx.x, S = a.S;
+  int64_t* st = a.stamps && tid == 0 ? a.stamps + (int64_t)lane * SCAN_NSTAMP : 0;
+  if (st) {
+    st[SCAN_ST_G0] = nrzi_gtimer();
+    st[SCAN_ST_C0] = clock64();
+  }
+  const int nch = (S + C - 1) / C;
+  const bool stager = tid >= 32;
+  ScanStager sg;
+  float* heights = (float*)sg.init(scan_sm, nrzi_scan_src(a, lane), C, tid - 32,
+                                   blockDim.x - 32);
+  NrziWalk w;
+  bool alive = tid == 0;
+  long long walked = 0;                    // cycles spent walking
+  if (stager) {
+    sg.stage(0);
+    if (nch > 0) sg.fill(0, nch);
+  } else if (alive) {
+    nrzi_scan_walk_init(w, a, lane, heights);
+  }
+  __syncthreads();
+  for (int i = 0; i < nch; ++i) {
+    if (stager) {
+      if (i + 1 < nch) sg.fill(i + 1, nch);
+    } else if (alive) {
+      const int c0 = i * C;
+      const long long c = clock64();
+      alive = nrzi_walk_chunk(w, sg.words(i), sg.feat(i), c0, min(c0 + C, S), S,
+                              a.max_steps);
+      walked += clock64() - c;
+    }
+    if (!__syncthreads_or(alive)) break;
+  }
+  if (stager) nrzi_cp_wait();
+  if (tid == 0) {
+    nrzi_scan_walk_finish(w, a, lane);
+    if (st) {
+      st[SCAN_ST_C1] = clock64();
+      st[SCAN_ST_G1] = nrzi_gtimer();
+      st[SCAN_ST_WALK] = walked;
+      st[SCAN_ST_STEPS] = w.steps;
+    }
+  }
 }
 
 // B5a: parmsets of any window widths (G feature groups). Launches on
 // `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int nrzi_scan_launch(const NrziScanArgs* a, void* stream) {
-  return nrzi_scan_go<true>(a, stream);
+  const int n = a->B * a->P * a->T;
+  if (n <= 0) return 0;
+  nrzi_scan_kernel<<<(n + NRZI_SCAN_THREADS - 1) / NRZI_SCAN_THREADS, NRZI_SCAN_THREADS,
+                     0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
-// B5b: every parmset shares one window width (G = 1)
+// B5b: every parmset shares one window width (G = 1); a block per lane
 extern "C" int nrzi_scan_tracks_launch(const NrziScanArgs* a, void* stream) {
   if (a->G != 1) return (int)cudaErrorInvalidValue;
-  return nrzi_scan_go<false>(a, stream);
+  const int n = a->B * a->P * a->T;
+  if (n <= 0) return 0;
+  nrzi_scan_tracks_kernel<<<n, SCAN_THREADS, scan_smem(SCAN_CHUNK),
+                            (cudaStream_t)stream>>>(*a, SCAN_CHUNK);
+  return (int)cudaGetLastError();
 }

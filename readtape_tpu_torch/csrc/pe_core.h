@@ -54,11 +54,11 @@
 #define PS_NIE 2
 #define PS_TRAIL 3
 #define N_PS 4
-// per-lane phase stamps (only when PeArgs::stamps is set): the global
-// timer (ns) at the start and end, clock64() at the start and after
-// phases 0, A, B and C, then each track's clock64() cycles spent walking
-// in phase A (the rest of the phase it waits at the chunk barriers), then
-// each track's admission steps
+// per-lane phase stamps (only when the PE or GCR argument block's stamps
+// is set): the global timer (ns) at the start and end, clock64() at the
+// start and after phases 0, A, B and C, then each track's clock64()
+// cycles spent walking in phase A (the rest of the phase it waits at the
+// chunk barriers), then each track's admission steps
 #define PE_ST_G0 0
 #define PE_ST_C0 1
 #define PE_ST_CZ 2
@@ -69,6 +69,38 @@
 #define PE_ST_WALK 7
 #define PE_ST_STEPS (PE_ST_WALK + NRZI_MAX_TRACKS)
 #define PE_NSTAMP (PE_ST_STEPS + NRZI_MAX_TRACKS)
+
+#ifdef __CUDACC__
+// The PE and GCR kernels (one block per lane, argument blocks with stamps
+// and the lane's widest window wmax)
+#define PE_THREADS 512
+#define PE_WALK_WARPS 12         // at most this many warps hold walkers
+#define PE_CHUNK 256             // phase A: samples per chunk, at most
+#define PE_SMEM_MAX 232448       // shared memory a block may use
+
+// thread 0 stamps column k of the lane's phase clocks (breakdown only)
+template <class A>
+__device__ __forceinline__ void pe_stamp(const A& a, int lane, int k) {
+  if (a.stamps && threadIdx.x == 0)
+    a.stamps[(int64_t)lane * PE_NSTAMP + k] =
+        k == PE_ST_G0 || k == PE_ST_G1 ? nrzi_gtimer() : clock64();
+}
+
+// phase A's shared memory at chunk C for T tracks, window widths <= Wmax:
+// the staging and feature slots, each track's AGC and clock rings
+static inline size_t pe_smem(int T, int C, int Wmax) {
+  return nrzi_stage_smem(T, C, Wmax) +
+         (size_t)T * (NRZI_MAX_AGC_RING + NRZI_MAX_CLK_RING) * 4;
+}
+
+// phase A's chunk: PE_CHUNK, halved until the shared memory fits (0: none
+// fits)
+static inline int pe_chunk(int T, int Wmax) {
+  int C = PE_CHUNK;
+  while (C > 32 && pe_smem(T, C, Wmax) > PE_SMEM_MAX) C >>= 1;
+  return pe_smem(T, C, Wmax) > PE_SMEM_MAX ? 0 : C;
+}
+#endif
 
 // Everything one launch needs. Pointers are device pointers for the
 // kernel and host pointers for the host build. Lane = b * P + p.
@@ -130,24 +162,11 @@ NRZI_HD bool pe_union_at(const A& a, const float* v, int t, int s) {
   return c;
 }
 
-template <class A>
-NRZI_HD uint32_t pe_cand_word(const A& a, int lane, int t, int w) {
-  const int b = lane / a.P, p = lane % a.P;
-  const float* v = a.volts + ((int64_t)b * a.T + t) * a.S;
-  const int lo = a.lead[b] + t + a.p_w[p] - 1;
-  const int hi = pe_imin(a.seg_len[b], a.S);
-  uint32_t word = 0;
-  for (int i = 0; i < 32; ++i) {
-    int s = (w << 5) + i;
-    if (s >= lo && s < hi && pe_union_at(a, v, t, s)) word |= 1u << i;
-  }
-  return word;
-}
-
-// the bit of pe_cand_word at sample s, for a kernel that builds a word
-// from 32 lanes (each reads its own window, so neighbouring lanes read
+// the candidate bit of sample s of track t (a kernel builds a word from 32
+// lanes: each reads its own window, so neighbouring lanes read
 // neighbouring samples)
-NRZI_HD bool pe_cand_bit(const PeArgs& a, int lane, int t, int s) {
+template <class A>
+NRZI_HD bool pe_cand_bit(const A& a, int lane, int t, int s) {
   const int b = lane / a.P, p = lane % a.P;
   const float* v = a.volts + ((int64_t)b * a.T + t) * a.S;
   const int lo = a.lead[b] + t + a.p_w[p] - 1;
@@ -418,12 +437,6 @@ NRZI_HD void pe_walk_init(PeWalk& w, const PeArgs& a, int lane, int t,
   w.ie = a.ie + row * PE_IDLE_CAP * 2;
 }
 
-// the walk of a chunk under the lane's step budget
-NRZI_HD bool pe_walk_chunk(PeWalk& w, const PeArgs& a, const uint32_t* words,
-                           const NrziFeat* rows, int c0, int c1) {
-  return nrzi_walk_chunk(w, words, rows, c0, c1, a.S, a.max_steps);
-}
-
 // the track's scan results once its walk has stopped
 NRZI_HD void pe_walk_finish(const PeWalk& w, const PeArgs& a, int lane, int t) {
   int32_t* sc = a.scan + ((int64_t)lane * a.T + t) * N_PS;
@@ -628,3 +641,79 @@ NRZI_HD void pe_zero_lane(const PeArgs& a, int lane, int tid, int n) {
   int32_t* hist = a.hist + (int64_t)lane * a.T * 50;
   for (int i = tid; i < a.T * 50; i += n) hist[i] = 0;
 }
+
+#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// Phases 0 and A of the PE and GCR kernels (one block of PE_THREADS per
+// lane), over their argument blocks A and their walks Walk
+// ---------------------------------------------------------------------------
+
+// phase 0's candidate words of a lane, cw [T, NW]: a warp per word, lane
+// l tests sample 32 w + l (coalesced) and one ballot makes the word
+template <class A>
+__device__ void pe_cand_words(const A& a, int lane, uint32_t* cw) {
+  const int nw = pe_nwords(a), tid = threadIdx.x;
+  for (int q = tid >> 5; q < a.T * nw; q += blockDim.x >> 5) {
+    const bool c = pe_cand_bit(a, lane, q / nw, ((q % nw) << 5) + (tid & 31));
+    const unsigned word = __ballot_sync(0xffffffffu, c);
+    if ((tid & 31) == 0) cw[q] = word;
+  }
+}
+
+// Phase A: one walker thread per track, each in a warp of its own (two
+// per warp beyond PE_WALK_WARPS tracks); the other warps stage the lane in
+// chunks of C samples a chunk ahead (NrziStager, with the lane's width
+// W); the walkers walk each chunk (nrzi_walk_chunk) with their AGC and
+// clock rings in shared memory and hand chunks over at a block barrier,
+// which also ends the phase once every track has stopped. init(w, t,
+// heights, ring) starts track t's walk, finish(w, t) writes its results.
+// sm: pe_smem(T, C, a.wmax) bytes. Stamps each track's walking cycles and
+// steps when a.stamps is set
+template <class Walk, class A, class Init, class Finish>
+__device__ void pe_phase_a(const A& a, int lane, const uint32_t* cw, unsigned char* sm,
+                           int C, Init init, Finish finish) {
+  const int tid = threadIdx.x, b = lane / a.P, T = a.T, S = a.S;
+  const int nch = (S + C - 1) / C;
+  // the walker of track t: lane t / nww of warp t % nww
+  const int nww = T < PE_WALK_WARPS ? T : PE_WALK_WARPS;
+  const int wt = (tid & 31) * nww + (tid >> 5);
+  const int track = (tid >> 5) < nww && wt < T ? wt : -1;
+  const int np = blockDim.x - 32 * nww, ptid = tid - 32 * nww;
+  const bool stager = ptid >= 0;
+  NrziStager sg;
+  float* heights = (float*)sg.init(sm, a.volts + (int64_t)b * T * S, cw, T, S,
+                                   a.p_w[lane % a.P], C, a.wmax, pe_nwords(a), ptid,
+                                   np);                     // [T][NRZI_MAX_AGC_RING]
+  float* rings = heights + T * NRZI_MAX_AGC_RING;           // [T][NRZI_MAX_CLK_RING]
+
+  Walk w;
+  bool alive = track >= 0;
+  long long walked = 0;                    // cycles spent walking
+  if (stager)
+    sg.prime(nch);
+  else if (alive)
+    init(w, track, heights + track * NRZI_MAX_AGC_RING, rings + track * NRZI_MAX_CLK_RING);
+  __syncthreads();
+  for (int i = 0; i < nch; ++i) {
+    if (stager) {
+      sg.advance(i, nch);
+    } else if (alive) {
+      const int c0 = i * C;
+      const long long c = clock64();
+      alive = nrzi_walk_chunk(w, sg.words(i, track), sg.feat(i, track), c0,
+                              min(c0 + C, S), S, a.max_steps);
+      walked += clock64() - c;
+    }
+    if (!__syncthreads_or(alive)) break;
+  }
+  if (stager) nrzi_cp_wait();
+  if (track >= 0) {
+    finish(w, track);
+    if (a.stamps) {
+      a.stamps[(int64_t)lane * PE_NSTAMP + PE_ST_WALK + track] = walked;
+      a.stamps[(int64_t)lane * PE_NSTAMP + PE_ST_STEPS + track] = w.steps;
+    }
+  }
+  __syncthreads();
+}
+#endif

@@ -43,30 +43,10 @@
 
 #include "pe_core.h"
 
-#define PE_THREADS 512
-#define PE_WALK_WARPS 12         // at most this many warps hold walkers
-#define PE_CHUNK 256             // phase A: samples per chunk, at most
-#define PE_SMEM_MAX 232448       // shared memory a block may use
-
-// thread 0 stamps column k of the lane's phase clocks (breakdown only)
-__device__ __forceinline__ void pe_stamp(const PeArgs& a, int lane, int k) {
-  if (a.stamps && threadIdx.x == 0)
-    a.stamps[(int64_t)lane * PE_NSTAMP + k] =
-        k == PE_ST_G0 || k == PE_ST_G1 ? nrzi_gtimer() : clock64();
-}
-
-// phase A's shared memory at chunk C for T tracks, window widths <= Wmax:
-// the staging and feature slots, each track's AGC and clock rings
-static size_t pe_smem(int T, int C, int Wmax) {
-  return nrzi_stage_smem(T, C, Wmax) +
-         (size_t)T * (NRZI_MAX_AGC_RING + NRZI_MAX_CLK_RING) * 4;
-}
-
 __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C) {
   extern __shared__ __align__(16) unsigned char pe_sm[];
   const int lane = blockIdx.x, tid = threadIdx.x;
-  const int b = lane / a.P, p = lane % a.P, T = a.T, S = a.S, W = a.p_w[p];
-  const int nw = pe_nwords(a);
+  const int T = a.T, S = a.S;
   pe_stamp(a, lane, PE_ST_G0);
   pe_stamp(a, lane, PE_ST_C0);
   __shared__ int tau_sh, after_sh, race_sh;
@@ -76,59 +56,18 @@ __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C
     race_sh = S;
   }
   pe_zero_lane(a, lane, tid, blockDim.x);
-  // a warp per candidate word: lane l tests sample 32 w + l (coalesced)
-  uint32_t* cw = a.cand + (int64_t)lane * T * nw;
-  for (int q = tid >> 5; q < T * nw; q += blockDim.x >> 5) {
-    const bool c = pe_cand_bit(a, lane, q / nw, ((q % nw) << 5) + (tid & 31));
-    const unsigned word = __ballot_sync(0xffffffffu, c);
-    if ((tid & 31) == 0) cw[q] = word;
-  }
+  uint32_t* cw = a.cand + (int64_t)lane * T * pe_nwords(a);
+  pe_cand_words(a, lane, cw);
   __syncthreads();
   pe_stamp(a, lane, PE_ST_CZ);
 
   // ---- phase A ----
-  const int nch = (S + C - 1) / C;
-  // the walker of track t: lane t / nww of warp t % nww
-  const int nww = T < PE_WALK_WARPS ? T : PE_WALK_WARPS;
-  const int wt = (tid & 31) * nww + (tid >> 5);
-  const int track = (tid >> 5) < nww && wt < T ? wt : -1;
-  const int np = blockDim.x - 32 * nww, ptid = tid - 32 * nww;
-  const bool stager = ptid >= 0;
-  NrziStager sg;
-  float* heights = (float*)sg.init(pe_sm, a.volts + (int64_t)b * T * S, cw, T, S, W, C,
-                                   a.wmax, nw, ptid, np);   // [T][NRZI_MAX_AGC_RING]
-  float* rings = heights + T * NRZI_MAX_AGC_RING;           // [T][NRZI_MAX_CLK_RING]
-
-  PeWalk w;
-  bool alive = track >= 0;
-  long long walked = 0;                    // cycles spent walking
-  if (stager)
-    sg.prime(nch);
-  else if (alive)
-    pe_walk_init(w, a, lane, track, heights + track * NRZI_MAX_AGC_RING,
-                 rings + track * NRZI_MAX_CLK_RING);
-  __syncthreads();
-  for (int i = 0; i < nch; ++i) {
-    if (stager) {
-      sg.advance(i, nch);
-    } else if (alive) {
-      const int c0 = i * C;
-      const long long c = clock64();
-      alive = pe_walk_chunk(w, a, sg.words(i, track), sg.feat(i, track), c0,
-                            min(c0 + C, S));
-      walked += clock64() - c;
-    }
-    if (!__syncthreads_or(alive)) break;
-  }
-  if (stager) nrzi_cp_wait();
-  if (track >= 0) {
-    pe_walk_finish(w, a, lane, track);
-    if (a.stamps) {
-      a.stamps[(int64_t)lane * PE_NSTAMP + PE_ST_WALK + track] = walked;
-      a.stamps[(int64_t)lane * PE_NSTAMP + PE_ST_STEPS + track] = w.steps;
-    }
-  }
-  __syncthreads();
+  pe_phase_a<PeWalk>(
+      a, lane, cw, pe_sm, C,
+      [&](PeWalk& w, int t, float* heights, float* ring) {
+        pe_walk_init(w, a, lane, t, heights, ring);
+      },
+      [&](const PeWalk& w, int t) { pe_walk_finish(w, a, lane, t); });
   pe_stamp(a, lane, PE_ST_CA);
 
   // ---- phase B ----
@@ -150,13 +89,6 @@ __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C
   pe_stamp(a, lane, PE_ST_CC);
   if (tid == 0) pe_write_lane(a, lane, tau, overflow, deep, after_sh, race_sh);
   pe_stamp(a, lane, PE_ST_G1);
-}
-
-// phase A's chunk: PE_CHUNK, halved until the shared memory fits
-static int pe_chunk(int T, int Wmax) {
-  int C = PE_CHUNK;
-  while (C > 32 && pe_smem(T, C, Wmax) > PE_SMEM_MAX) C >>= 1;
-  return pe_smem(T, C, Wmax) > PE_SMEM_MAX ? 0 : C;
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).

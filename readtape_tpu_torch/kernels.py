@@ -51,7 +51,7 @@ class NrziScanArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "feat", "nxt", "grp", "p_w", "p_agc_window", "p_rise", "p_minp",
         "p_agc_alpha", "tr_s", "tr_t", "tr_agc", "tr_top", "n_admitted",
-        "max_agc_gain", "min_agc_gain", "incomplete")] + [
+        "max_agc_gain", "min_agc_gain", "incomplete", "stamps")] + [
         (n, ctypes.c_int32) for n in ("B", "P", "T", "S", "G", "K",
                                       "max_steps")]
 
@@ -89,9 +89,9 @@ class GcrArgs(ctypes.Structure):
         "p_rise", "p_minp", "p_agc_alpha", "p_clk_alpha", "p_z1pt",
         "p_z2pt", "p_pulse_adj", "wset", "rise_floor", "min_floor", "cand",
         "rec_i", "rec_f", "ie", "scan", "bits", "hist", "trk_i", "trk_f",
-        "lane_i")] + [
+        "lane_i", "stamps")] + [
         (n, ctypes.c_int32) for n in (
-            "B", "P", "T", "S", "G", "K", "maxb", "max_steps")] + [
+            "B", "P", "T", "S", "G", "K", "maxb", "max_steps", "wmax")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
 
@@ -112,10 +112,10 @@ class WwArgs(ctypes.Structure):
 
 # the record and scan-buffer widths of pe_core.h and gcr_core.h
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
-# pe_core.h's phase stamps: global timer (ns) at the start, clock64() at
-# the start and after phases 0, A, B and C, global timer at the end, then
-# each of up to 16 tracks' cycles spent walking in phase A, then their
-# admission steps
+# pe_core.h's phase stamps (the PE and GCR kernels): global timer (ns) at
+# the start, clock64() at the start and after phases 0, A, B and C, global
+# timer at the end, then each of up to 16 tracks' cycles spent walking in
+# phase A, then their admission steps
 PE_ST_WALK, PE_ST_STEPS, PE_NSTAMP = 7, 7 + 16, 7 + 32
 # nrzi_core.h's phase stamps. B1: global timer at the start, clock64() at
 # the start and after phases 0, A and B, global timer at the end, then
@@ -128,6 +128,10 @@ NRZI_ST_WALK, NRZI_ST_MACH = 6, 6 + 16
 NRZI_NSTAMP = NRZI_ST_MACH + len(NRZI_MACH)
 SLOT_ST_MACH = 4
 SLOT_NSTAMP = SLOT_ST_MACH + len(NRZI_MACH)
+# B5b's per-lane walk stamps: global timer and clock64() at the walk's
+# start and end, the walker's cycles spent walking, its steps
+SCAN_ST_G0, SCAN_ST_C0, SCAN_ST_C1, SCAN_ST_G1 = 0, 1, 2, 3
+SCAN_ST_WALK, SCAN_ST_STEPS, SCAN_NSTAMP = 4, 5, 6
 GCR_N_GR = 5
 # the launch functions of the library and their argument blocks
 LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
@@ -414,15 +418,18 @@ def pe_fused(volts, seg_lens, leads, pa, **kw):
     return _launch("pe_fused", pe_prepare, volts, seg_lens, leads, pa, **kw)
 
 
-def _phase_stamps(name, prepare, nstamp, first, *args, **kw):
+def _phase_stamps(name, prepare, nstamp, first, *args, per_track=False,
+                  **kw):
     """One <name>_launch with per-lane phase stamps (nstamp int64 each),
     synchronized (for timing only); `first` is the tensor whose device the
-    launch runs on. Returns (outputs, stamps [lanes, nstamp] on the
-    host)."""
+    launch runs on. Lanes are (segment, parmset) pairs, or with per_track
+    (segment, parmset, track) triples. Returns (outputs, stamps [lanes,
+    nstamp] on the host)."""
     lib = load()
     with torch.cuda.device(first.device):
         block, out, keep = prepare(first, *args, **kw)
-        st = torch.zeros((block.B * block.P, nstamp), dtype=torch.int64,
+        lanes = block.B * block.P * (block.T if per_track else 1)
+        st = torch.zeros((lanes, nstamp), dtype=torch.int64,
                          device=first.device)
         block.stamps = st.data_ptr()
         stream = torch.cuda.current_stream(first.device).cuda_stream
@@ -446,6 +453,13 @@ def nrzi_phase_stamps(volts, seg_lens, leads, pa, **kw):
                          seg_lens, leads, pa, **kw)
 
 
+def scan_tracks_stamps(feat, nxt, pa, **kw):
+    """nrzi_scan_tracks (B5b) with nrzi_core.h's walk stamps [B*P*T,
+    SCAN_NSTAMP]."""
+    return _phase_stamps("nrzi_scan_tracks", nrzi_scan_prepare, SCAN_NSTAMP,
+                         feat, nxt, pa, per_track=True, **kw)
+
+
 def slot_phase_stamps(fin, pa, **kw):
     """nrzi_slot with nrzi_core.h's loop stamps [B*P, SLOT_NSTAMP]."""
     return _phase_stamps("nrzi_slot", nrzi_slot_prepare, SLOT_NSTAMP,
@@ -456,10 +470,18 @@ def gcr_prepare(volts, seg_lens, leads, pa, **kw):
     """The GcrArgs block, outputs and scratch of one gcr_fused launch
     (_prepare's return)."""
     T = volts.shape[1]
-    return _idle_prepare(
+    args, out, keep = _idle_prepare(
         GcrArgs, dict(p_z1pt="z1pt", p_z2pt="z2pt"), GCR_N_GR,
         dict(trk_i=((T, 5), I32), trk_f=((T, 4), F32), lane_i=((2,), I32)),
         volts, seg_lens, leads, pa, **kw)
+    args.wmax = max(kw["Ws"])
+    return args, out, keep
+
+
+def gcr_phase_stamps(volts, seg_lens, leads, pa, **kw):
+    """gcr_fused with pe_core.h's phase stamps [B*P, PE_NSTAMP]."""
+    return _phase_stamps("gcr_fused", gcr_prepare, PE_NSTAMP, volts,
+                         seg_lens, leads, pa, **kw)
 
 
 def gcr_fused(volts, seg_lens, leads, pa, **kw):

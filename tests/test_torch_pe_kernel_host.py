@@ -61,7 +61,8 @@ extern "C" void pe_host_run(const PeArgs* a, int C) {
         const int c1 = c0 + C < S ? c0 + C : S;
         for (int i = 0; i < C; ++i) rows[i] = poison;
         nrzi_feature_rows(v, 0, S, W, tw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
-        if (!pe_walk_chunk(w, *a, tw + (c0 >> 5), rows.data(), c0, c1)) break;
+        if (!nrzi_walk_chunk(w, tw + (c0 >> 5), rows.data(), c0, c1, S, a->max_steps))
+          break;
       }
       pe_walk_finish(w, *a, lane, t);
     }

@@ -8,10 +8,14 @@ parmset 0's knobs, the XLA scan's step budget, no candidate mask) on a
 noisy segment where the budget binds. The port computes its own window
 features and jump tables from the same volts.
 
-Then csrc/nrzi_core.h's B5 lane (nrzi_scan_lane, what csrc/nrzi_scan.cu
-runs per thread), compiled for the host with g++, against the plain
-version on the same inputs: the CUDA source's logic checked without a
-GPU.
+Then csrc/nrzi_core.h's B5 lanes, compiled for the host with g++, against
+the plain version on the same inputs: the CUDA source's logic checked
+without a GPU. B5a's lane walks its table whole (nrzi_scan_lane, what
+csrc/nrzi_scan.cu runs per thread); B5b's and density detection's walk it
+chunk by chunk as B5b's blocks do (nrzi_walk_chunk over each chunk's
+candidate words, bit s set where nxt[s] == s, and the feature rows of its
+candidates only; the other rows hold NaN), at the kernel's chunk of 256
+entries and at one of 64.
 
 Tolerance: none. Every buffer entry (fill included), count, flag and
 f32 value is exact.
@@ -159,9 +163,39 @@ def test_scan_matches_jax_xla(name):
 
 
 _DRIVER = r"""
+#include <math.h>
+#include <vector>
 #include "nrzi_core.h"
 extern "C" void scan_host_run(const NrziScanArgs* a) {
   for (int lane = 0; lane < a->B * a->P * a->T; ++lane) nrzi_scan_lane(*a, lane);
+}
+// B5b's walk: each lane's table in chunks of C entries
+extern "C" void scan_chunk_host_run(const NrziScanArgs* a, int C) {
+  const int S = a->S;
+  std::vector<uint32_t> words(C / 32);
+  std::vector<NrziTableRow> rows(C);
+  NrziTableRow poison;
+  for (int k = 0; k < NRZI_NFEAT; ++k) poison.r[k] = NAN;
+  float heights[NRZI_MAX_AGC_RING];
+  for (int lane = 0; lane < a->B * a->P * a->T; ++lane) {
+    const NrziTableSrc src = nrzi_scan_src(*a, lane);
+    NrziWalk w;
+    nrzi_scan_walk_init(w, *a, lane, heights);
+    for (int c0 = 0; c0 < S; c0 += C) {
+      const int c1 = c0 + C < S ? c0 + C : S;
+      for (int i = 0; i < C; ++i) {
+        rows[i] = poison;
+        if (i % 32 == 0) words[i / 32] = 0;
+        if (c0 + i < c1 && src.cand(c0 + i)) {
+          words[i / 32] |= 1u << (i % 32);
+          rows[i] = src.ft[c0 + i];
+        }
+      }
+      if (!nrzi_walk_chunk(w, words.data(), rows.data(), c0, c1, S, a->max_steps))
+        break;
+    }
+    nrzi_scan_walk_finish(w, *a, lane);
+  }
 }
 extern "C" void slot_host_run(const NrziSlotArgs* a) {
   for (int lane = 0; lane < a->B * a->P; ++lane) nrzi_slot_lane(*a, lane);
@@ -187,17 +221,25 @@ def tiered_host_lib(tmp_path_factory):
                        (lib.slot_host_run, kernels.NrziSlotArgs)):
         fn.argtypes = [ctypes.POINTER(struct)]
         fn.restype = None
+    lib.scan_chunk_host_run.argtypes = [ctypes.POINTER(kernels.NrziScanArgs),
+                                        ctypes.c_int]
+    lib.scan_chunk_host_run.restype = None
     return lib
 
 
-@pytest.mark.parametrize("name", ["B5a", "density"])
+@pytest.mark.parametrize("name", ["B5a", "B5b", "density"])
 def test_host_scan_lane_matches_plain(tiered_host_lib, name):
     feat, nxt, pa, kw, _ = setup_case(name)
     want = run_port(name, feat, nxt, pa, kw)
     steps = feat.shape[3] + 1 if kw["max_steps"] is None else kw["max_steps"]
-    args, got, keep = kernels.nrzi_scan_prepare(
-        feat, nxt, pa, Ws=kw["Ws"], K=kw["K"], max_steps=steps)
-    tiered_host_lib.scan_host_run(ctypes.byref(args))
-    del keep
-    for k in FIELDS:
-        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    for chunk in ((None,) if name == "B5a" else (256, 64)):
+        args, got, keep = kernels.nrzi_scan_prepare(
+            feat, nxt, pa, Ws=kw["Ws"], K=kw["K"], max_steps=steps)
+        if chunk is None:
+            tiered_host_lib.scan_host_run(ctypes.byref(args))
+        else:
+            tiered_host_lib.scan_chunk_host_run(ctypes.byref(args), chunk)
+        del keep
+        for k in FIELDS:
+            np.testing.assert_array_equal(got[k].numpy(), want[k],
+                                          err_msg=f"{k}, chunk {chunk}")
