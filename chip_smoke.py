@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths, -zeros and
+float (CSV) tapes included, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,15 @@ non-zero:
               of 2^14 samples so that the base moves, and on the Whirlwind
               bench tape as decode_tape hands it, there against the plain
               version run on a host copy of the same inputs (on the card
-              its ~300,000 events would take many minutes); all timed
+              its ~300,000 events would take many minutes); the -zeros
+              kernels: zerocross_transitions (Z1) plain and
+              differentiated and gcr_zeros_scan (Z2) on synthesized
+              9-track GCR segments (B=4, S=16384), Z1 at the first launch
+              of phase 4's GCR -zeros decode (B=40) and of its
+              -differentiate -zeros decode, Z2 at the GCR -zeros decode's
+              retry (B=16, P=5), and nrzi_slot_scan (B6) on Z1's NRZI
+              transitions at the first launch of the NRZI -zeros chain;
+              all timed
   4. main     decode_tape on the card at bench scale, each path with the
               launch counts set to 0 just before it and read just after:
               NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026, 8
@@ -56,12 +64,25 @@ non-zero:
               all-parmset retry), a GCR tape whose segment holds two blocks
               (a multi-block round) and a skewed Whirlwind tape under
               -deskew (two passes) decoded on the card and on the CPU,
-              block for block equal. Last, density detection on the card:
+              block for block equal. Float tapes and -zeros: the GCR bench
+              tape as float32 volts (maxvolts 32767, the activity scan on
+              the card; blocks equal to the int16 decode's), with -zeros
+              (Z1 and Z2; its blocks are not recovered, in the JAX package
+              neither, so the card's decode is held to the CPU's, block for
+              block), example3's recipe at bench length (40 blocks of 1200
+              bytes, pulses 0.45 bits wide, no noise) as float volts with
+              -differentiate -zeros (every block against the ground truth),
+              and the NRZI bench tape with -zeros (the sequential chain: Z1
+              and B6; not recovered either, so its first two blocks are
+              decoded on the card and on the CPU, block for block equal).
+              Last, density detection on the card:
               the NRZI and PE bench tapes decoded with bpi=0 detect 800 and
               1600 bpi (B5b) and decode to their ground truth
-  5. golden   the four NRZI, two PE, one GCR and one Whirlwind example
-              tapes decoded on the card and written as .tap, and the four
-              NRZI ones again through the tiered kernels; SHA-256 against
+  5. golden   the four NRZI, two PE, three GCR (-zeros -correct, and a CSV
+              capture written and read back by the port with
+              -differentiate -zeros) and one Whirlwind example tapes
+              decoded on the card and written as .tap, and the four NRZI
+              ones again through the tiered kernels; SHA-256 against
               examples/golden.json
 
 Then one JSON line describing the kernels, the card's name and power
@@ -78,7 +99,8 @@ gcr_fused_scan at the GCR bench's launch, the time of each of
 ww_fused_scan's launches at the Whirlwind bench tape and of each phase
 of pe_fused_scan at the PE bench decode's first launch and at its
 second (a walk hop, B=1), then times where a warm decode_tape of each
-bench tape spends its wall (each step with a synchronize around it),
+bench tape spends its wall (each step with a synchronize around it; the
+GCR bench also as float volts and with -zeros),
 and profiles one more decode with torch.profiler for the card's busy
 time.
 Imports nothing of JAX and nothing of the JAX package: the example tapes
@@ -119,6 +141,15 @@ KERNELS = {
     "ww_fused_scan": dict(
         module="fused", source="readtape_tpu_torch/csrc/ww_fused.cu",
         replaces="readtape_tpu/decode/pallas_fused.py:3104"),
+    # -zeros: the JAX package computes these with XLA, no TPU kernel
+    "zerocross_transitions": dict(
+        module="zeros", source="readtape_tpu_torch/csrc/zeros.cu",
+        replaces="readtape_tpu/decode/gcr.py:338 zerocross_transitions "
+                 "(XLA; no TPU kernel)"),
+    "gcr_zeros_scan": dict(
+        module="zeros", source="readtape_tpu_torch/csrc/zeros.cu",
+        replaces="readtape_tpu/decode/gcr.py:551 gcr_zeros_track_scan "
+                 "(XLA; no TPU kernel)"),
 }
 # kernel vs plain: integers and bits equal; floats equal as well, since
 # both round every f32 operation in the same order (the kernels are built
@@ -159,6 +190,15 @@ EXAMPLES = {
     "9trk_GCR/example": dict(
         spec=("GCR", {}), seed=104, mode="blocks", sizes=[154, 100, 210],
         args=["-v", "-m", "-gcr", "-ips=25", "-tap"]),
+    "9trk_GCR/example2": dict(
+        spec=("GCR", {}), seed=109, mode="blocks", sizes=[140, 210, 77],
+        args=["-v", "-m", "-gcr", "-ips=25", "-zeros", "-correct",
+              "-tap"]),
+    "9trk_GCR/example3": dict(
+        spec=("GCR", dict(pulse_width_bits=0.45, noise_rms=0.0)), seed=110,
+        mode="blocks", fmt="csv", sizes=[154, 64],
+        args=["-v", "-m", "-gcr", "-bpi=9042", "-ips=25", "-differentiate",
+              "-zeros", "-tap"]),
     "6trk_Whirlwind/example": dict(
         spec=("WW", {}), seed=105, mode="words", sizes=[24, 8],
         args=["-v", "-whirlwind", "-fluxdir=auto", "-tap"]),
@@ -260,7 +300,7 @@ def synth_segments(T, B, S, noisy, seed):
 
 
 def _segment_args(mode, raw, h_est, deltat, maxvolts, bpi, ips, nparms,
-                  device):
+                  device, differentiate=False):
     """volts, parmsets and the batch knobs that the pipeline derives for
     a batch of segments raw [B, S, T] (TapeDecoder.dispatch_segment_batch)."""
     import numpy as np
@@ -275,8 +315,9 @@ def _segment_args(mode, raw, h_est, deltat, maxvolts, bpi, ips, nparms,
     pa = cm.ParmArrays.from_parmsets(builtin_parmsets(mode), dev).select(
         range(nparms))
     v = torch.from_numpy(raw).to(dev).permute(0, 2, 1)       # [B, T, S]
-    volts = tpl._prep_volts(v, maxvolts, 1.0, None, differentiate=False,
-                            spb_int=int(spb), apply_skew=False).contiguous()
+    volts = tpl._prep_volts(v, maxvolts, 1.0, None,
+                            differentiate=differentiate, spb_int=int(spb),
+                            apply_skew=False).contiguous()
     scale = min(1.0, h_est / cm.PKWW_PEAKHEIGHT)
     rf = min(p.pkww_rise for p in sets) * scale / cm.AGC_MAX_VALUE * 0.8
     mf = min(p.min_peak for p in sets) * scale / cm.AGC_MAX_VALUE * 0.8
@@ -407,6 +448,37 @@ def gcr_kernel_inputs(S, seed, nparms=5, device=DEVICE):
     return volts, seg_lens, leads, pa, kw
 
 
+def zeros_inputs(S, seed, differentiated, device=DEVICE):
+    """Z1's and Z2's arguments for gcr_segments under -zeros (plain, or
+    -differentiate): volts [4, 9, S], eligible windows [lead, seg_len)
+    of several lengths, the 5 GCR parmsets, and (Z1's keywords, Z2's
+    keywords)."""
+    import torch
+    from readtape_tpu_torch.formats import tbin as tb
+    raw, h_est, deltat, maxvolts = gcr_segments(S, seed)
+    volts, _, _, pa, kw = _segment_args(
+        tb.MODE_GCR, raw, h_est, deltat, maxvolts, 9042.0, 25.0, 5, device,
+        differentiate=differentiated)
+    dev = volts.device
+    seg_lens = torch.tensor([S, S - 2000, S, S - 5000], dtype=torch.int32,
+                            device=dev)
+    leads = torch.tensor([64, 300, 0, 64], dtype=torch.int32, device=dev)
+    spb = kw["spb"]
+    return (volts, seg_lens, leads, pa,
+            dict(cap=int(S / spb * 3.2) + 64, differentiated=differentiated),
+            dict(spb=spb, maxb=kw["maxb"]))
+
+
+def as_volts(hdr, samples):
+    """An int16 tape as the float32 volts of a CSV capture of it
+    (examples/make_examples.py's conversion, without the CSV's 7
+    decimals), and the maxvolts a CSV tape decodes with (32767: the
+    samples are volts already)."""
+    import numpy as np
+    return (samples.astype(np.float64) * (hdr.maxvolts / 32767.0)).astype(
+        np.float32), 32767.0
+
+
 def bench_tape(seed=2026, nblocks=160, blocksize=1200):
     """bench.py's NRZI tape: 160 random blocks, a tapemark in the middle
     and one at the end."""
@@ -493,6 +565,26 @@ def gcr_bench_tape(seed=5100, nblocks=40, blocksize=1200):
     return blocks, hdr, samples
 
 
+def gcr_diff_bench_tape(seed=5100, nblocks=40, blocksize=1200):
+    """9trk_GCR/example3's recipe (pulses 0.45 bits wide, no noise) at the
+    GCR bench tape's length: 40 random blocks of 1200 bytes, 5 ms gaps,
+    seed 5100, as float32 volts (as_volts). Returns (blocks, header,
+    volts); it decodes with -differentiate -zeros."""
+    from dataclasses import replace
+
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    spec = default_spec(tb.MODE_GCR, pulse_width_bits=0.45, noise_rms=0.0,
+                        ibg_secs=0.005, start_gap_secs=0.005)
+    rng = np.random.default_rng(seed)
+    blocks = [bytes(rng.integers(0, 256, blocksize, dtype=np.uint8))
+              for _ in range(nblocks)]
+    hdr, samples = synthesize_tape(replace(spec, seed=seed),
+                                   [("block", b) for b in blocks])
+    return blocks, hdr, as_volts(hdr, samples)[0]
+
+
 def gcr_short_gap_tape(seed=7, noise_v=0.07):
     """Three 80-byte GCR blocks behind 0.5 ms gaps and a 3 ms start gap
     (tests/test_multiblock.py's GCR short-gap recipe) plus numpy noise of
@@ -533,11 +625,13 @@ def gcr_merged_tape():
     return hdr, samples
 
 
-def tape_options(hdr, mode, bpi, ips=50.0):
+def tape_options(hdr, mode, bpi, ips=50.0, **kw):
+    """decode_tape's options for a synthesized tape; kw overrides (for
+    example maxvolts=32767 for its float volts, find_zeros=True)."""
     from readtape_tpu_torch.decode import pipeline as tpl
-    return tpl.DecodeOptions(mode=mode, ntrks=hdr.ntrks, bpi=bpi, ips=ips,
-                             deltat=hdr.tdelta_ns * 1e-9,
-                             maxvolts=hdr.maxvolts)
+    return tpl.DecodeOptions(**dict(dict(
+        mode=mode, ntrks=hdr.ntrks, bpi=bpi, ips=ips,
+        deltat=hdr.tdelta_ns * 1e-9, maxvolts=hdr.maxvolts), **kw))
 
 
 def _words_bytes(words):
@@ -1015,6 +1109,115 @@ def phase_tiered_kernel():
     return res
 
 
+def compare_zc(name, volts, seg_lens, leads, kw):
+    """One launch of Z1 against its plain version on the same card
+    inputs; compare_kernel's dict, with the kernel's lists as "out". The
+    bound reads the volts once and writes the lists once; ~5 f32
+    operations (abs, compares, max) per sample. The chain is one lane's
+    walk over its S samples."""
+    from readtape_tpu_torch.decode import zeros
+    got = zeros.zerocross_transitions(volts, seg_lens, leads, **kw)
+    sync()
+    t0 = time.perf_counter()
+    want = zeros.zerocross_transitions_plain(volts, seg_lens, leads, **kw)
+    sync()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    err = check_equal(name, got, want)
+    if int(want["ok"].sum(dim=-1).max()) < 150:
+        raise AssertionError(f"{name}: too few transitions")
+    t_kern = time_launches(
+        lambda: zeros.zerocross_transitions(volts, seg_lens, leads, **kw), 10)
+    b_ms, b_by = bound_of(nbytes([volts]) + nbytes(want.values()),
+                          5 * volts.numel())
+    B, T, S = volts.shape
+    print(f"  {name} (B={B} T={T} S={S} cap={kw['cap']}): kernel "
+          f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {int(want['valid'].sum())} transitions, "
+          f"{int(want['overflow'].sum())} segments over cap, "
+          f"{chain_note(S, 'samples', t_kern)}, equal (max f32 err {err})",
+          flush=True)
+    return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by, out=got)
+
+
+def compare_zs(name, trans, pa, kw):
+    """One launch of Z2 against its plain version on the same card
+    inputs; compare_kernel's dict. The bound reads each track's valid
+    list entries (t, dt, ok, valid) once and writes the bits and
+    per-track fields once; ~30 f32 operations per emitted transition.
+    The chain is the longest lane's emitted transitions."""
+    from readtape_tpu_torch.decode import zeros
+    got = zeros.gcr_zeros_scan(trans, pa, **kw)
+    sync()
+    t0 = time.perf_counter()
+    want = zeros.gcr_zeros_scan_plain(trans, pa, **kw)
+    sync()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    err = check_equal(name, got, want)
+    if int(want["datacount"].max()) < 150:
+        raise AssertionError(f"{name}: segments decoded too little")
+    t_kern = time_launches(lambda: zeros.gcr_zeros_scan(trans, pa, **kw), 10)
+    n_emit = int(want["peakcount"].sum())
+    b_ms, b_by = bound_of(
+        int(trans["valid"].sum()) * 10
+        + nbytes([got[k] for k in ("bits", "datacount", "peakcount",
+                                   "t_firstbit", "t_lastbit")]),
+        30 * n_emit)
+    B, P, T = want["datacount"].shape
+    chain = int(want["peakcount"].max())
+    print(f"  {name} (B={B} P={P} T={T} cap={trans['t'].shape[-1]}): "
+          f"kernel {t_kern:.3f} ms, plain {t_plain:.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {n_emit} emitted transitions, "
+          f"{chain_note(chain, 'transitions', t_kern)}, equal (max f32 err "
+          f"{err})", flush=True)
+    return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_zeros_kernel():
+    """Z1 (plain and differentiated) and Z2 against their plain versions
+    on zeros_inputs' segments (S=16384, Z2 over Z1's plain lists with the
+    5 GCR parmsets), then each at the launches of phase 4's -zeros
+    decodes: Z1 at the GCR bench tape's first (B=40) and at the
+    example3-recipe bench's (differentiated), Z2 at the GCR bench's
+    retry (B=40, P=5); and B6 on Z1's NRZI transitions, at the first
+    launch of the NRZI bench tape's -zeros chain (its first two blocks)."""
+    import dataclasses
+
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    res = {}
+    for diff in (False, True):
+        volts, seg_lens, leads, pa, zkw, skw = zeros_inputs(16384, 5, diff)
+        tag = "z1 diff" if diff else "z1 9trk"
+        r = res[tag] = compare_zc(tag, volts, seg_lens, leads, zkw)
+        if not diff:
+            res["z2 9trk"] = compare_zs("z2 9trk", r["out"], pa, skw)
+    _, hdr, samples = gcr_bench_tape()
+    opts = tape_options(hdr, tb.MODE_GCR, 9042, 25, find_zeros=True)
+    (volts, seg_lens, leads), kw = first_call(kernels, "zerocross", samples,
+                                              opts)
+    res["z1 main"] = compare_zc("z1 main", volts, seg_lens, leads, kw)
+    del volts
+    (trans, pa), kw = first_call(kernels, "gcr_zeros", samples, opts,
+                                    index=1)
+    res["z2 main"] = compare_zs("z2 main", trans, pa, kw)
+    del trans
+    _, hdr, volts = gcr_diff_bench_tape()
+    (v, seg_lens, leads), kw = first_call(
+        kernels, "zerocross", volts, tape_options(
+            hdr, tb.MODE_GCR, 9042, 25, maxvolts=32767.0,
+            differentiate=True, find_zeros=True))
+    res["z1 diff main"] = compare_zc("z1 diff main", v, seg_lens, leads, kw)
+    del v
+    _, hdr, samples = bench_tape(nblocks=2)
+    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, dataclasses.
+                               replace(tape_options(hdr, tb.MODE_NRZI, 800),
+                                       find_zeros=True))
+    res["b6 zeros"] = compare_slot("b6 zeros", fin, pa, kw)
+    return res
+
+
 def phase_kernel():
     """Kernel vs plain on the card. Returns {case: compare_kernel dict}."""
     import torch
@@ -1057,6 +1260,7 @@ def phase_kernel():
         "gcr main", "gcr_fused_scan", *main_path_inputs(
             "gcr_fused", samples, tape_options(hdr, tb.MODE_GCR, 9042, 25)))
     res.update(phase_ww_kernel())
+    res.update(phase_zeros_kernel())
     for r in res.values():
         r.pop("out", None)
     torch.cuda.empty_cache()
@@ -1084,12 +1288,11 @@ def check_launches(name, launched, absent=()):
     return {k: got[k][0] for k in launched}
 
 
-def decode_bench(name, kernels, blocks, hdr, samples, opts, card, marks,
-                 kernel_path="fused", absent=()):
+def decode_timed(name, kernels, samples, opts, kernel_path="fused",
+                 absent=()):
     """decode_tape on the card, warm-up then timed with the launch counts
-    set to 0 just before and read just after; every block against the
-    ground truth. Returns ({kernel: launches} for `kernels`, wall seconds,
-    Msamples/s, the blocks)."""
+    set to 0 just before and read just after. Returns ({kernel: launches}
+    for `kernels`, wall seconds, Msamples/s, the blocks, the stats)."""
     from readtape_tpu_torch.decode import pipeline as tpl
     tpl.decode_tape(samples, opts, device=DEVICE,
                     kernel_path=kernel_path)                # warm-up run
@@ -1101,6 +1304,16 @@ def decode_bench(name, kernels, blocks, hdr, samples, opts, card, marks,
     sync()
     wall = time.perf_counter() - t0
     launches = check_launches(name, kernels, absent)
+    return launches, wall, samples.shape[0] / wall / 1e6, out, stats
+
+
+def decode_bench(name, kernels, blocks, hdr, samples, opts, card, marks,
+                 kernel_path="fused", absent=()):
+    """decode_timed, then every block against the ground truth. Returns
+    ({kernel: launches} for `kernels`, wall seconds, Msamples/s, the
+    blocks)."""
+    launches, wall, msps, out, stats = decode_timed(
+        name, kernels, samples, opts, kernel_path, absent)
     data = [b.data for b in out if b.kind == "data"]
     if data != blocks:
         bad = [i for i, (x, y) in enumerate(zip(data, blocks)) if x != y]
@@ -1110,11 +1323,38 @@ def decode_bench(name, kernels, blocks, hdr, samples, opts, card, marks,
     if stats["ntapemarks"] != marks or stats["nerrblocks"] != 0:
         raise AssertionError(f"{name}: ntapemarks {stats['ntapemarks']}, "
                              f"nerrblocks {stats['nerrblocks']}")
-    msps = samples.shape[0] / wall / 1e6
     print(f"  {name}: {samples.shape[0]:,} samples, {len(out)} blocks, "
           f"launches {launches}: {wall:.3f} s wall, {msps:.3f} Msamples/s "
           f"({card})", flush=True)
     return launches, wall, msps, out
+
+
+def decode_vs_cpu(name, kernels, blocks, samples, opts, card, absent=()):
+    """A bench tape whose -zeros decode does not recover the ground truth
+    (nor does the JAX package's, on the CPU): decode_timed on the card,
+    then the same decode on the CPU (plain versions), block for block
+    equal with the run statistics. Returns decode_timed's first three."""
+    import numpy as np
+    from readtape_tpu_torch.decode import pipeline as tpl
+    launches, wall, msps, out, stats = decode_timed(name, kernels, samples,
+                                                    opts, absent=absent)
+    t0 = time.perf_counter()
+    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    if out != out_cpu:
+        raise AssertionError(f"{name}: card {[b.kind for b in out]} != "
+                             f"cpu {[b.kind for b in out_cpu]}")
+    for k in ("peak_hist", "tried", "chosen"):
+        if not np.array_equal(stats[k], st_cpu[k]):
+            raise AssertionError(f"{name}: {k} differs")
+    kinds = "".join(b.kind[0] for b in out)
+    good = sum(b.data in blocks for b in out if b.kind == "data")
+    print(f"  {name}: {samples.shape[0]:,} samples, {len(out)} blocks "
+          f"({kinds}), {good} of {len(blocks)} equal to the ground truth "
+          f"(the JAX package recovers none: PERF.md), launches {launches}: "
+          f"{wall:.3f} s wall, {msps:.3f} Msamples/s; card == cpu (the cpu "
+          f"took {t_cpu:.1f} s) ({card})", flush=True)
+    return launches, wall, msps
 
 
 def phase_short_gap(name, kernels, hdr, samples, opts, card,
@@ -1180,6 +1420,8 @@ def phase_density(card):
 def phase_main(card):
     """Returns {kernel: (launches on its main path, wall s, Msamples/s)}
     (wall and rate None where the main path is not a timed bench)."""
+    import dataclasses
+
     import torch
     from readtape_tpu_torch import native
     from readtape_tpu_torch.formats import tbin as tb
@@ -1221,9 +1463,53 @@ def phase_main(card):
                        tape_options(hdr, tb.MODE_PE, 1600), card,
                        marks=0)[:3])
     blocks, hdr, samples = gcr_bench_tape()
-    keep(*decode_bench("GCR bench", ["gcr_fused_scan"], blocks, hdr,
-                       samples, tape_options(hdr, tb.MODE_GCR, 9042, 25),
-                       card, marks=0)[:3])
+    gcr_opts = tape_options(hdr, tb.MODE_GCR, 9042, 25)
+    n, w, m, gcr_out = decode_bench("GCR bench", ["gcr_fused_scan"], blocks,
+                                    hdr, samples, gcr_opts, card, marks=0)
+    keep(n, w, m)
+    volts, maxvolts = as_volts(hdr, samples)
+    out = decode_bench("GCR bench, float volts", ["gcr_fused_scan"], blocks,
+                       hdr, volts, dataclasses.replace(gcr_opts,
+                                                       maxvolts=maxvolts),
+                       card, marks=0)[3]
+
+    def summary(blocks_):
+        return [(b.kind, b.data, b.parmset, b.errcount, b.warncount)
+                for b in blocks_]
+    if summary(out) != summary(gcr_out):
+        raise AssertionError("GCR bench, float volts: the blocks differ from "
+                             "the int16 decode's")
+    print("  GCR bench, float volts: blocks equal to the int16 decode's",
+          flush=True)
+    keep(*decode_vs_cpu("GCR bench, -zeros", ["zerocross_transitions",
+                                              "gcr_zeros_scan"], blocks,
+                        samples, dataclasses.replace(gcr_opts,
+                                                     find_zeros=True),
+                        card, absent=["gcr_fused_scan"]))
+    blocks, hdr, volts = gcr_diff_bench_tape()
+    decode_bench("GCR bench, example3's recipe, -differentiate -zeros",
+                 ["zerocross_transitions", "gcr_zeros_scan"], blocks, hdr,
+                 volts, tape_options(hdr, tb.MODE_GCR, 9042, 25,
+                                     maxvolts=32767.0, differentiate=True,
+                                     find_zeros=True), card, marks=0,
+                 absent=["gcr_fused_scan"])
+    blocks, hdr, samples = bench_tape()
+    zopts = tape_options(hdr, tb.MODE_NRZI, 800, find_zeros=True)
+    launches, wall, msps, out, _ = decode_timed(
+        "NRZI bench, -zeros", ["zerocross_transitions", "nrzi_slot_scan"],
+        samples, zopts, absent=["nrzi_fused_scan", "nrzi_track_scan_tracks"])
+    good = sum(b.data in blocks for b in out if b.kind == "data")
+    print(f"  NRZI bench, -zeros (the chain): {samples.shape[0]:,} samples, "
+          f"{len(out)} blocks, {good} of {len(blocks)} equal to the ground "
+          f"truth (the JAX package recovers none: PERF.md), launches "
+          f"{launches}: {wall:.3f} s wall, {msps:.3f} Msamples/s ({card})",
+          flush=True)
+    runs["nrzi_slot_scan -zeros"] = (launches["nrzi_slot_scan"], wall, msps)
+    _, hdr, samples = bench_tape(nblocks=2)
+    phase_short_gap("NRZI bench's first two blocks, -zeros",
+                    ["zerocross_transitions", "nrzi_slot_scan"], hdr,
+                    samples, tape_options(hdr, tb.MODE_NRZI, 800,
+                                          find_zeros=True), card)
     hdr, samples = pe_short_gap_tape()
     phase_short_gap("PE short gap, 0.06 V noise", ["pe_fused_scan"], hdr,
                     samples, tape_options(hdr, tb.MODE_PE, 1600), card)
@@ -1273,13 +1559,16 @@ def write_tap(path, blocks):
     w.close()
 
 
-def golden_options(args, hdr):
+def golden_options(args, hdr, csv=None):
     """DecodeOptions fields for an example's command line, resolved the
     way readtape_tpu.cli.process_file does: the mode, -ntrks, -bpi and
     -ips from the command line, else the .tbin header's (-whirlwind sets
     100 bpi); deltat, maxvolts and the Whirlwind track order from the
-    header ("CMLcml" without one); -fluxdir= and -reverse. Every example
-    carries its density, so no density detection (bpi <= 0) is needed."""
+    header ("CMLcml" without one); -fluxdir=, -reverse, -correct,
+    -differentiate and -zeros. A CSV capture, csv = (first time, deltat,
+    tracks), has no header: its time base is the CSV's and its maxvolts
+    32767 (the samples are volts). Every example carries its density, so
+    no density detection (bpi <= 0) is needed."""
     from readtape_tpu_torch.formats import tbin as tb
     kv = dict(a[1:].split("=", 1) for a in args if "=" in a)
     ww = "-whirlwind" in args
@@ -1287,24 +1576,54 @@ def golden_options(args, hdr):
             tb.MODE_NRZI if "-nrzi" in args else
             tb.MODE_GCR if "-gcr" in args else
             tb.MODE_WW if ww else hdr.mode)
-    bpi = float(kv.get("bpi", 100 if ww else hdr.bpi or 0))
+    if csv is not None:
+        t0, deltat, ntrks = csv
+        hdr_bpi = hdr_ips = 0
+        maxvolts, order = 32767.0, None
+    else:
+        t0, deltat, ntrks = hdr.tstart_ns * 1e-9, hdr.tdelta_ns * 1e-9, \
+            hdr.ntrks
+        hdr_bpi, hdr_ips = hdr.bpi, hdr.ips
+        maxvolts, order = hdr.maxvolts, hdr.trkorder
+    bpi = float(kv.get("bpi", 100 if ww else hdr_bpi or 0))
     if bpi <= 0:
         raise AssertionError("example header carries no density")
-    return dict(mode=mode, ntrks=int(kv.get("ntrks", hdr.ntrks)),
-                bpi=bpi, ips=float(kv.get("ips", hdr.ips or 50.0)),
-                deltat=hdr.tdelta_ns * 1e-9, maxvolts=hdr.maxvolts,
+    return dict(mode=mode, ntrks=int(kv.get("ntrks", ntrks)),
+                bpi=bpi, ips=float(kv.get("ips", hdr_ips or 50.0)),
+                deltat=deltat, maxvolts=maxvolts,
                 multiple_tries="-m" in args, deskew="-deskew" in args,
-                t0_seconds=hdr.tstart_ns * 1e-9,
+                do_correct="-correct" in args,
+                differentiate="-differentiate" in args,
+                find_zeros="-zeros" in args, t0_seconds=t0,
                 fluxdir=kv.get("fluxdir", "neg"), reverse="-reverse" in args,
-                ww_order=hdr.trkorder or "CMLcml")
+                ww_order=order or "CMLcml")
+
+
+def example_input(name, directory):
+    """(samples, DecodeOptions) of one EXAMPLES tape as the command line
+    reads it: the .tbin tape's int16 samples, or for a CSV example its
+    volts written to <directory> with the port's write_csv (as
+    examples/make_examples.py generate writes them) and read back with
+    its read_csv."""
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import csvfmt
+    hdr, samples = build_example(name)
+    args = EXAMPLES[name]["args"]
+    if EXAMPLES[name].get("fmt") != "csv":
+        return samples, tpl.DecodeOptions(**golden_options(args, hdr))
+    path = os.path.join(directory, name.replace("/", "_") + ".csv")
+    csvfmt.write_csv(path, 0.0, hdr.tdelta_ns * 1e-9,
+                     samples.astype("float64") * (hdr.maxvolts / 32767.0))
+    t0, deltat, volts = csvfmt.read_csv(path)
+    return volts, tpl.DecodeOptions(**golden_options(
+        args, hdr, csv=(t0, deltat, volts.shape[1])))
 
 
 def decode_example(name, device, directory, kernel_path="fused"):
     """Decode one example tape on `device` into <directory>/<name>.tap;
     returns (blocks, SHA-256 of the .tap)."""
     from readtape_tpu_torch.decode import pipeline as tpl
-    hdr, samples = build_example(name)
-    opts = tpl.DecodeOptions(**golden_options(EXAMPLES[name]["args"], hdr))
+    samples, opts = example_input(name, directory)
     blocks, _ = tpl.decode_tape(samples, opts, device=device,
                                 kernel_path=kernel_path)
     path = os.path.join(directory, f"{name.replace('/', '_')}.{kernel_path}"
@@ -1356,6 +1675,7 @@ def time_steps(samples, opts, kernel_path):
     from readtape_tpu_torch.formats import tbin as tb
     steps = {}
     spots = [(seg, "host_activity", "host activity scan"),
+             (seg, "device_activity", "device activity scan"),
              (tpl, "_prep_volts", "window gather + volts")]
     spots += [(importlib.import_module("readtape_tpu_torch.decode."
                                        + KERNELS[name]["module"]), name,
@@ -1688,6 +2008,13 @@ def breakdown(card):
     _, hdr, samples = gcr_bench_tape()
     tapes.append(("GCR bench", samples,
                   tape_options(hdr, tb.MODE_GCR, 9042, 25), "fused"))
+    volts, maxvolts = as_volts(hdr, samples)
+    tapes.append(("GCR bench, float volts", volts,
+                  tape_options(hdr, tb.MODE_GCR, 9042, 25,
+                               maxvolts=maxvolts), "fused"))
+    tapes.append(("GCR bench, -zeros", samples,
+                  tape_options(hdr, tb.MODE_GCR, 9042, 25, find_zeros=True),
+                  "fused"))
     _, hdr, samples = ww_bench_tape()
     tapes.append(("WW bench", samples, ww_options(hdr), "fused"))
     from readtape_tpu_torch.decode import pipeline as tpl
@@ -1768,7 +2095,9 @@ def main():
                             ("nrzi_slot_scan", "b6 main"),
                             ("pe_fused_scan", "pe main"),
                             ("gcr_fused_scan", "gcr main"),
-                            ("ww_fused_scan", "ww main")):
+                            ("ww_fused_scan", "ww main"),
+                            ("zerocross_transitions", "z1 main"),
+                            ("gcr_zeros_scan", "z2 main")):
         r = times[main_case]
         line.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],

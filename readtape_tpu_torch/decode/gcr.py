@@ -1,5 +1,5 @@
 """GCR decoder (9-track 6250 BPI = 9042 frpi group-coded recording) --
-counterpart of readtape_tpu/decode/gcr.py without -zeros.
+counterpart of readtape_tpu/decode/gcr.py.
 
 Per track, GCR is NRZI with at most two consecutive zeros, so each track
 clocks itself: zero bits are inferred from the spacing of flux
@@ -14,8 +14,12 @@ This is the PLAIN version that the gcr_fused_scan kernel is held against
 (``gcr_track_scan``, the JAX package's ``pre=True, idle_out=True`` form),
 the records replayed up to the lane's all-idle point (``gcr_apply_tau``),
 and block assembly (``gcr_postprocess``, ``gcr_finish``), all vectorized
-over lanes. Operation order follows the JAX functions exactly; ``cm.fma``
-stands where the JAX package's XLA CPU build contracts a multiply-add.
+over lanes. Under -zeros the transitions come from the zero-crossing
+state machines instead (``zerocross_transitions``, NRZI's too) and the bit
+machine runs over them (``gcr_zeros_track_scan``): the plain versions of
+kernels Z1 and Z2 (decode/zeros.py). Operation order follows the JAX
+functions exactly; ``cm.fma`` stands where the JAX package's XLA CPU
+build contracts a multiply-add.
 
 The group-level postprocess is a ``lax.scan`` over 5-bit storage groups in
 the JAX package. Here it has no loop: every per-group quantity (codes,
@@ -40,6 +44,9 @@ from .nrzi import (BS_BADBLOCK, BS_BLOCK, BS_NOISE, BS_TAPEMARK, f32_to_i32,
 from .pe import BIG_TAU, IDLE_CAP, peak_hist
 
 IDLE_THR = float(np.float32(cm.GCR_IDLE_THRESH))
+ZEROCROSS_PEAK = 0.2
+ZEROCROSS_SLOPE = 1.5
+_PEAK = float(np.float32(ZEROCROSS_PEAK))
 
 # per-step records gcr_track_scan streams out (step axis last; "wr" has a
 # trailing axis of the step's 3 write indices)
@@ -278,6 +285,203 @@ def gcr_apply_tau(fin, maxb: int, tau):
         incomplete=fin["incomplete"], n_total=adm.sum(dim=-1).to(I32))
     out["n_consumed"] = out["peakcount"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# -zeros: zero-crossing transitions (decoder.c:617-683) and the bit machine
+# over them
+# ---------------------------------------------------------------------------
+
+def _shift(x, fill):
+    """x one sample later along the last axis, `fill` first."""
+    return torch.cat([torch.full_like(x[..., :1], fill), x[..., :-1]], dim=-1)
+
+
+def _last_at(mask, idx):
+    """Index of the last True at or before each sample (-1: none)."""
+    return torch.where(mask, idx, -1).cummax(dim=-1).values
+
+
+def _first_from(mask, idx, S: int):
+    """Index of the first True at or after each sample (S: none)."""
+    return torch.where(mask, idx, S).flip(-1).cummin(dim=-1).values.flip(-1)
+
+
+def _buckets(n: int, slot, src, reduce: str, init):
+    """src [..., S] reduced into n buckets by slot [..., S]."""
+    out = torch.full(slot.shape[:-1] + (n,), init, dtype=src.dtype,
+                     device=src.device)
+    return out.scatter_reduce(-1, slot, src, reduce)
+
+
+def zerocross_transitions(v, cap: int, differentiated: bool, seg_len=None,
+                          lead_len=None):
+    """gcr.zerocross_transitions of the JAX package over leading axes: v
+    [..., T, S] f32 volts, seg_len/lead_len [...] (or None) the eligible
+    window [lead_len, seg_len) of each segment (samples outside read as
+    0). Returns the per-track transition lists [..., T, cap]: t (crossing
+    time), ok, dt (confirmation lag), det (confirmation sample), is_top,
+    valid, and overflow [...] (some track had more than cap).
+
+    Plain variant: a phase is a maximal run of same-sign samples (exact
+    zeros transparent); a significant phase (one sample above
+    ZEROCROSS_PEAK) opens a bucket that sweeps to the next significant
+    phase. The carried extrema (v_top, -v_bot) run over the buckets in a
+    Python loop; the first sample above each bucket's threshold is its
+    confirmation point. Differentiated variant: a crossing fires iff the
+    span since the previous crossing attained the threshold; its time is
+    the midpoint of the zeros after that span's last attaining sample,
+    else the crossing less half a sample. The list keeps the first cap
+    crossings and, past them, the last in slot cap - 1 (the JAX scatter's
+    last write)."""
+    S = v.shape[-1]
+    lead = v.shape[:-1]
+    dev = v.device
+    idx = torch.arange(S, device=dev)
+    elig = torch.ones(S, dtype=torch.bool, device=dev)
+    if seg_len is not None:
+        elig = elig & (idx < seg_len.to(dev).view(seg_len.shape + (1, 1)))
+    if lead_len is not None:
+        elig = elig & (idx >= lead_len.to(dev).view(lead_len.shape + (1, 1)))
+    vv = torch.where(elig, v, 0.0)
+    sgn = torch.sign(vv).to(torch.int8)
+    nz = sgn != 0
+    amp = vv.abs()
+    att = amp > _PEAK
+    last_nz = _last_at(nz, idx)
+    ff_excl = _shift(torch.where(last_nz >= 0,
+                                 sgn.gather(-1, last_nz.clamp_min(0)), 0), 0)
+    last_att = _last_at(att, idx)
+
+    if differentiated:
+        crossing = nz & (ff_excl != 0) & (sgn != ff_excl)
+        # the or-scan of att restarting at each crossing
+        pre_any = last_att >= torch.where(crossing, idx, 0).cummax(-1).values
+        keep = crossing & _shift(pre_any, False)
+        cnt = keep.cumsum(dim=-1)
+        slot = torch.where(keep, torch.clamp_max(cnt - 1, cap - 1), cap)
+        cpos = _buckets(cap + 1, slot, torch.where(keep, idx, -1), "amax",
+                        -1)[..., :cap]
+        valid = cpos >= 0
+        pos = torch.where(valid, cpos, S - 1)
+        la = _shift(last_att, -1).gather(-1, pos)
+        zf = _first_from(~nz, idx, S).gather(-1, (la + 1).clamp_max(S - 1))
+        zl = _shift(_last_at(~nz, idx), -1).gather(-1, pos)
+        has_zero = (zf < pos) & (zl >= zf)
+        t = torch.where(has_zero, (zf.to(F32) + zl.to(F32)) / 2,
+                        pos.to(F32) - 0.5)
+        return dict(t=t, ok=valid, dt=torch.zeros_like(t), det=pos.to(I32),
+                    is_top=sgn.gather(-1, pos) > 0, valid=valid,
+                    overflow=(cnt[..., -1] > cap).any(dim=-1))
+
+    # plain variant: phases, significant phases, buckets
+    phase_start = nz & (ff_excl != sgn)
+    strict = nz & (_shift(sgn, 0) == -sgn)
+    nxt_start = torch.cat([_first_from(phase_start, idx, S)[..., 1:],
+                           torch.full_like(idx[..., :1], S).expand(
+                               lead + (1,))], dim=-1)
+    sig_start = phase_start & (last_att.gather(-1, nxt_start - 1) >= idx)
+    sid = sig_start.cumsum(dim=-1)
+    nph = cap + 2
+    sc = sid.clamp_max(nph - 1)
+    at_sig = torch.where(sig_start, sc, nph - 1)
+    ph_a = _buckets(nph, at_sig, torch.where(sig_start, idx, S), "amin", S)
+    ph_flip = _buckets(nph, at_sig, (strict & sig_start).to(torch.uint8),
+                       "amax", 0) > 0
+    ph_sig = _buckets(nph, at_sig, torch.where(sig_start, sgn, 0).to(I32),
+                      "sum", 0)
+    ph_max = _buckets(nph, sc, amp, "amax", 0.0)
+    ph_va = _buckets(nph, at_sig, torch.where(sig_start, amp, 0.0), "amax",
+                     0.0)
+    nphase = sid[..., -1]
+    # the carried extrema over the buckets: bucket 0 (no significant
+    # phase) and buckets past a track's last one change nothing
+    ct = torch.zeros(lead, dtype=F32, device=dev)
+    cbm = torch.zeros_like(ct)
+    conf = torch.zeros(lead + (nph,), dtype=torch.bool, device=dev)
+    thr = torch.full(lead + (nph,), _PEAK, dtype=F32, device=dev)
+    for k in range(1, min(int(nphase.max()) if nphase.numel() else 0,
+                          cap) + 1):
+        sig, M, va = ph_sig[..., k], ph_max[..., k], ph_va[..., k]
+        is_pos = sig > 0
+        own = torch.where(is_pos, ct, cbm)
+        opp = torch.where(is_pos, cbm, ct)
+        pend = ph_flip[..., k] & (opp > _PEAK)
+        th = torch.clamp_min(torch.maximum(own, va), _PEAK)
+        cf = pend & (M > th)
+        own2 = torch.maximum(own, M)
+        opp2 = torch.where(cf, 0.0, opp)
+        nzp = sig != 0
+        ct = torch.where(nzp, torch.where(is_pos, own2, opp2), ct)
+        cbm = torch.where(nzp, torch.where(is_pos, opp2, own2), cbm)
+        conf[..., k] = cf
+        thr[..., k] = th
+    exceed = conf.gather(-1, sc) & (amp > thr.gather(-1, sc)) & nz
+    ph_j = _buckets(nph, torch.where(exceed, sc, nph - 1),
+                    torch.where(exceed, idx, S), "amin", S)
+    a_l, j_l = ph_a[..., 1:cap + 1], ph_j[..., 1:cap + 1]
+    valid = torch.arange(1, cap + 1, device=dev) <= nphase.unsqueeze(-1)
+    ok = conf[..., 1:cap + 1] & valid
+    return dict(t=a_l.to(F32), ok=ok,
+                dt=torch.where(ok, (j_l - a_l).to(F32), 0.0),
+                det=j_l.clamp_max(S - 1).to(I32),
+                is_top=ph_sig[..., 1:cap + 1] > 0, valid=valid,
+                overflow=(nphase > cap).any(dim=-1))
+
+
+def gcr_zeros_track_scan(trans, pa, spb: float, maxb: int):
+    """gcr.gcr_zeros_track_scan of the JAX package for every (segment,
+    parmset, track) lane: the bit machine (gcr_bit_step) over each
+    track's transition list, trans [B, T, cap] (zerocross_transitions'
+    outputs), one step per list entry in a Python loop. An entry is
+    emitted if it is ok and valid and its confirmation lag dt is within
+    ZEROCROSS_SLOPE bit times of the lane's live clock. Returns the
+    [B, P, T] state gcr_finish reads (no AGC: gains 0 and FLT_MAX; no
+    peak statistics)."""
+    okv = trans["ok"] & trans["valid"]
+    B, T, cap = okv.shape
+    P = len(pa.z1pt)
+    dev = okv.device
+    shape = (B, P, T)
+
+    def knob(x):
+        return x.to(dev).view(1, P, 1).expand(shape)
+    z1, z2, padj = knob(pa.z1pt), knob(pa.z2pt), knob(pa.pulse_adj)
+    cwin, calpha = knob(pa.clk_window), knob(pa.clk_alpha)
+    clk_win = bool((pa.clk_window > 0).any())
+    clk_exp = bool(((pa.clk_window <= 0) & (pa.clk_alpha > 0)).any())
+    st = gcr_bit_state_init(spb, shape, dev)
+    wrs = [torch.full(shape + (3,), maxb, dtype=I32, device=dev)]
+    peaks = torch.zeros(shape, dtype=I32, device=dev)
+    # entries past a track's valid prefix are never emitted
+    for k in range(int(trans["valid"].sum(dim=-1).max()) if okv.numel()
+                   else 0):
+        emit = okv[..., k].unsqueeze(1) & (
+            trans["dt"][..., k].unsqueeze(1)
+            <= st["clkavg"]["t_bitspaceavg"] * ZEROCROSS_SLOPE)
+        st, wr = gcr_bit_step(st, emit, trans["t"][..., k].unsqueeze(1)
+                              .expand(shape), z1, z2, padj, cwin, calpha,
+                              spb, maxb, clk_win=clk_win, clk_exp=clk_exp)
+        wrs.append(wr)
+        peaks += emit.to(I32)
+    return dict(bits=gcr_replay_bits(torch.stack(wrs, dim=-2), maxb),
+                datacount=st["datacount"], peakcount=peaks,
+                t_firstbit=st["t_firstbit"], t_lastbit=st["t_lastbit"],
+                **zeros_fixed_fields(shape, dev))
+
+
+def zeros_fixed_fields(shape, device):
+    """The fields gcr_finish reads that -zeros leaves at their initial
+    values: no AGC (max 0, min FLT_MAX), no peak statistics, never
+    incomplete."""
+    return dict(max_agc_gain=torch.zeros(shape, dtype=F32, device=device),
+                min_agc_gain=torch.full(shape, cm.FLT_MAX, dtype=F32,
+                                        device=device),
+                incomplete=torch.zeros(shape, dtype=torch.bool,
+                                       device=device),
+                hist=torch.zeros(tuple(shape) + (50,), dtype=I32,
+                                 device=device),
+                trksum=torch.zeros(shape, dtype=I32, device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ of readtape_tpu/decode/pipeline.py.
 Host-side driver that turns a sample tensor into decoded blocks:
 
   1. permute heads -> tracks, estimate signal height, find segments (gaps),
-  2. upload the int16 tape to the device once,
+  2. upload the tape to the device once (int16 samples, or float32 volts
+     of a CSV capture),
   3. per batch of segments: cut each segment's window from the resident
      tape, prepare volts, run the fused decode (decode/fused.py) for all
      active parmsets at once, finish the blocks (nrzi_finish, pe_finish,
@@ -23,15 +24,20 @@ host; ``-deskew`` adds a calibration pass before it.
 
 NRZI runs one of two kernel paths (``kernel_path``): "fused" (B1, one
 kernel per batch) or "tiered" (admission alone, B5a or B5b, then the slot
-machine alone, B6), the JAX package's READTAPE_FUSED=0 tier.
+machine alone, B6), the JAX package's READTAPE_FUSED=0 tier. Under -zeros
+NRZI and GCR take their transitions from the zero crossings instead
+(decode/zeros.py: Z1, then B6 for NRZI, Z2 for GCR), and NRZI decodes as
+a sequential chain of one window per block.
 
 A tape of unknown density (bpi <= 0; NRZI and PE, as the JAX command line
 detects it) first goes through ``TapeDecoder.detect_density``.
 
-9/7-track NRZI, 9-track PE, 9-track GCR and 6-track Whirlwind, without
--zeros, -adjskew, -correctdbg and -parmscan, are ported; anything else
-raises NotImplementedError naming the option. The entry points run on
-the card ("cuda") unless the caller asks for the CPU.
+9/7-track NRZI, 9-track PE, 9-track GCR and 6-track Whirlwind, from
+int16 samples or float32 volts, and -zeros for NRZI and GCR, are ported;
+-adjskew, -correctdbg, -parmscan and -zeros for PE or Whirlwind (which
+the JAX command line refuses) raise NotImplementedError naming the
+option. The entry points run on the card ("cuda") unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from . import segment as seg
 from . import slot as slot_mod
 from . import trackscan
 from . import ww as ww_mod
+from . import zeros as zeros_mod
 from .common import F32, I32, ParmArrays
 
 # Window warmup: each segment's device slice starts this many samples early
@@ -141,7 +148,9 @@ def check_supported(opts: DecodeOptions, kernel_path: str = "fused"):
         raise ValueError("kernel_path 'tiered' is NRZI's")
     # the JAX command line detects the density of NRZI and PE tapes only
     # (GCR is always 9042 bpi, Whirlwind 100)
-    for flag, name in ((opts.find_zeros, "-zeros"),
+    for flag, name in ((opts.find_zeros and opts.mode not in (tb.MODE_NRZI,
+                                                             tb.MODE_GCR),
+                        "-zeros of a PE or Whirlwind tape"),
                        (opts.adjskew, "-adjskew"),
                        (opts.do_correct_debug, "-correctdbg"),
                        (opts.parmscan, "-parmscan"),
@@ -315,6 +324,84 @@ def _gcr_group_fused(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     return r
 
 
+def _gcr_group_zeros(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
+                     skew_delay, pa: ParmArrays, spb, expected_parity,
+                     revparity, *, S, T, maxb, cap, do_correct, do_correct2,
+                     differentiate, spb_int, skew_on):
+    """One batch of GCR segments under -zeros (the JAX package's
+    _gcr_segment_device with find_zeros): volts prep, the zero-crossing
+    lists once per segment (Z1), the bit machine over them for every
+    parmset (Z2), gcr_finish. No all-idle point: the multi-block rounds do
+    not run under -zeros. Returns device tensors with leading [B, P]
+    axes."""
+    volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
+                           skew_delay, differentiate, spb_int, skew_on)
+    trans = zeros_mod.zerocross_transitions(volts, seg_lens, leads, cap=cap,
+                                            differentiated=differentiate)
+    del volts
+    fin = zeros_mod.gcr_zeros_scan(trans, pa, spb=spb, maxb=maxb)
+    r = gcr_mod.gcr_finish(fin, T, expected_parity, revparity, do_correct,
+                           maxb, do_correct2=do_correct2)
+    B, P = r["blktype"].shape
+    r["event_overflow"] = trans["overflow"].view(B, 1).expand(B, P)
+    return r
+
+
+def _nrzi_group_zeros(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
+                      skew_delay, pa: ParmArrays, spb, expected_parity,
+                      revparity, stat_leftbin, stat_binwidth, *, S, T, maxb,
+                      max_slots, K, cap, do_correct, differentiate, spb_int,
+                      skew_on):
+    """One batch of NRZI segments under -zeros (the JAX package's
+    _nrzi_segment_device with find_zeros): volts prep, the zero-crossing
+    lists (Z1); the plain variant's slope gate against the track's static
+    clock (NRZI never adjusts it: dt <= f32(spb) * ZEROCROSS_SLOPE); each
+    track's emitted transitions compacted to K entries at their
+    confirmation samples (past K the last one in entry K - 1, as the JAX
+    scatter leaves it), the same for every parmset, with AGC off (gain
+    1); then the slot machine alone (B6) and nrzi_finish. Returns device
+    tensors with leading [B, P] axes."""
+    volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
+                           skew_delay, differentiate, spb_int, skew_on)
+    trans = zeros_mod.zerocross_transitions(volts, seg_lens, leads, cap=cap,
+                                            differentiated=differentiate)
+    del volts
+    emit = trans["ok"] & trans["valid"]
+    if not differentiate:
+        emit = emit & (trans["dt"] <= float(
+            np.float32(spb) * np.float32(gcr_mod.ZEROCROSS_SLOPE)))
+    cnt = emit.cumsum(dim=-1)
+    n_adm = cnt[..., -1]
+    slot = torch.where(emit, torch.clamp_max(cnt - 1, K - 1), K)
+    src = torch.full(slot.shape[:-1] + (K + 1,), -1, dtype=slot.dtype,
+                     device=slot.device).scatter_reduce(
+        -1, slot, torch.where(emit, torch.arange(cap, device=slot.device),
+                              -1), "amax")[..., :K]
+    has = src >= 0
+    src = src.clamp_min(0)
+    B, P = len(offsets), len(pa.clk_window)
+
+    def lanes(x):
+        return x.unsqueeze(1).expand((B, P) + x.shape[1:])
+    fin = dict(
+        tr_s=lanes(torch.where(has, trans["det"].gather(-1, src),
+                               nrzi_mod.BIG_S)),
+        tr_t=lanes(torch.where(has, trans["t"].gather(-1, src), 0.0)),
+        tr_agc=torch.ones((B, P, T, K), dtype=F32, device=src.device),
+        n_admitted=lanes(torch.clamp_max(n_adm, K).to(I32)),
+        # AGC is off under -zeros, but each track's first bit records a
+        # gain of 1 as its maximum (decode_nrzi.c:149)
+        max_agc_gain=torch.ones((B, P, T), dtype=F32, device=src.device),
+        min_agc_gain=torch.full((B, P, T), cm.FLT_MAX, dtype=F32,
+                                device=src.device),
+        incomplete=lanes(trans["overflow"].view(B, 1) | (n_adm > K)))
+    out = slot_mod.nrzi_slot_scan(
+        fin, pa, S=S, spb=spb, expected_parity=expected_parity,
+        do_correct=do_correct, maxb=maxb, max_slots=max_slots,
+        stat_lb=stat_leftbin, stat_bw=stat_binwidth)
+    return _nrzi_results(out, T, expected_parity, revparity, maxb)
+
+
 def _fetch(res: dict) -> dict:
     """Device results -> host numpy, in one round trip: every field packs
     into one int32 and one float32 tensor before the copy."""
@@ -438,12 +525,29 @@ def permute_heads(samples: np.ndarray, head_to_trk) -> np.ndarray:
     return samples[:, out_cols]
 
 
+def _resident_tape(samples: np.ndarray, maxvolts: float, device, step: int):
+    """The tape [T, N] on `device` (int16 samples as they are, or float32
+    volts), its height estimate and activity mask: from the host for
+    int16 (segment.host_activity), from the device for float volts
+    (segment.device_activity over every step-th sample), as the JAX
+    package computes them."""
+    tape = torch.from_numpy(np.ascontiguousarray(samples)).to(
+        device).T.contiguous()
+    if samples.dtype == np.int16:
+        h_est, act = seg.host_activity(samples, maxvolts)
+    else:
+        h_est, act = seg.device_activity(tape, maxvolts, step)
+    return tape, h_est, act
+
+
 class TapeDecoder:
     """Holds the device-resident tape and runs decode passes over it.
 
-    The int16 tape uploads once, [T, N] on `device`; activity and the
-    height estimate come from the host (segment.host_activity).
-    kernel_path: "fused" (B1) or, for NRZI, "tiered" (B5 then B6)."""
+    The tape uploads once, [T, N] on `device`, int16 samples or float32
+    volts; activity and the height estimate come from the host for int16
+    (segment.host_activity), from the device for volts
+    (segment.device_activity). kernel_path: "fused" (B1) or, for NRZI,
+    "tiered" (B5 then B6)."""
 
     def __init__(self, samples: np.ndarray, opts: DecodeOptions, *,
                  device="cuda", kernel_path: str = "fused"):
@@ -456,9 +560,9 @@ class TapeDecoder:
         self.kernel_path = kernel_path
         samples = permute_heads(samples, opts.head_to_trk)
         self.n_samples = samples.shape[0]
-        self.h_est, self._act = seg.host_activity(samples, opts.maxvolts)
-        self.tape = torch.from_numpy(np.ascontiguousarray(samples)).to(
-            self.device).T.contiguous()                       # [T, N] int16
+        self.tape, self.h_est, self._act = _resident_tape(
+            samples, opts.maxvolts, self.device,
+            max(1, (self.n_samples * opts.ntrks) // 2_000_000))
         self.pa = ParmArrays.from_parmsets(opts.parmsets, self.device)
         self.P = len(opts.parmsets)
         self.skew = np.zeros(opts.ntrks, np.int32)
@@ -557,15 +661,24 @@ class TapeDecoder:
             (T,), minp_min * scale / cm.AGC_MAX_VALUE * 0.8, dtype=F32,
             device=dev)
         lb, bw = _peakstat_bins(opts.mode, 1.0 / (opts.bpi * opts.ips))
-        args = (tape, offsets, seg_lens, leads, opts.maxvolts,
+        head = (tape, offsets, seg_lens, leads, opts.maxvolts,
                 -1.0 if opts.invert else 1.0,
                 torch.as_tensor(self.skew, dtype=I32, device=dev), pa, spb,
-                opts.expected_parity, opts.revparity, rise_floor, min_floor,
-                float(np.float32(lb / opts.deltat)),
+                opts.expected_parity, opts.revparity)
+        stat = (float(np.float32(lb / opts.deltat)),
                 float(np.float32(bw / opts.deltat)))
-        kw = dict(S=S, T=T, maxb=maxb, max_steps=max_steps, Ws=Ws,
-                  differentiate=opts.differentiate, spb_int=int(spb),
-                  skew_on=bool(np.any(self.skew)))
+        kw = dict(S=S, T=T, maxb=maxb, differentiate=opts.differentiate,
+                  spb_int=int(spb), skew_on=bool(np.any(self.skew)))
+        if opts.find_zeros:
+            # the transition lists hold up to the XLA scan's step count
+            kw["cap"] = int(S / spb * 3.2) + 64
+            if opts.mode == tb.MODE_GCR:
+                return _gcr_group_zeros(*head, do_correct=opts.do_correct,
+                                        do_correct2=opts.do_correct2, **kw)
+            return _nrzi_group_zeros(*head, *stat, max_slots=max_slots, K=K,
+                                     do_correct=opts.do_correct, **kw)
+        args = head + (rise_floor, min_floor) + stat
+        kw.update(max_steps=max_steps, Ws=Ws)
         if opts.mode == tb.MODE_PE:
             return _pe_group_fused(*args, **kw)
         if opts.mode == tb.MODE_GCR:
@@ -688,8 +801,9 @@ def _device(device, samples: np.ndarray) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but "
                            "torch.cuda.is_available() is false")
-    if samples.dtype != np.int16:
-        raise NotImplementedError("float (CSV volts) tapes")
+    if samples.dtype not in (np.int16, np.float32):
+        raise ValueError(f"{samples.dtype} samples: int16 samples or "
+                         "float32 volts")
     return device
 
 
@@ -984,11 +1098,55 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
                 cur = add_segment(nxt_start, b_hop, cur)
             consumed_until = max(consumed_until, segs[cur][1])
 
+    def zeros_chain():
+        """NRZI -zeros, the JAX package's sequential chain (readtape.c:
+        1720-1882): the zero-crossing extremum carries run across the gap
+        from one block to the next, so each window starts where the
+        reference resets them, at the previous block's end plus the NRZI
+        interblock blanking (decoder.c:901-904), and runs to the end of
+        the activity segment it lies in. A window with nothing in it
+        (BS_NONE) is dropped and the next one keeps its start, widened to
+        the next segment's end. The windows share one bucket."""
+        ibg_blank = int(cm.NRZI_IBG_SECS / opts.deltat)
+        act = segs[:]
+        chainbkt = max(seg.bucket_length(b - max(a - SEG_WARMUP, 0))
+                       for a, b in zip([0] + [a for a, _ in act],
+                                       [b for _, b in act]))
+        del segs[:], buckets[:], results[:], order[:]
+        cur, si = 0, 0
+        while si < len(act):
+            b_i = act[si][1]
+            if cur >= b_i - 4:
+                si += 1
+                continue
+            a0w = max(cur - SEG_WARMUP, 0)
+            i = len(segs)
+            segs.append((cur, b_i))
+            buckets.append(max(chainbkt, seg.bucket_length(b_i - a0w)))
+            results.append(None)
+            order.append(i)
+            decode_indices([i])
+            res = results[i]
+            p, _ = pick_best(res, len(res["blktype"]), opts.multiple_tries,
+                             opts.mode)
+            if int(res["blktype"][p]) == nrzi_mod.BS_NONE:
+                order.remove(i)
+                si += 1
+                continue
+            nxt = a0w + int(res["end_s"][p]) + ibg_blank
+            if nxt <= cur:
+                si += 1
+                continue
+            cur = nxt
+
     order = list(range(len(segs)))
-    decode_indices(order[:])
+    if opts.mode == tb.MODE_NRZI and opts.find_zeros:
+        zeros_chain()
+    else:
+        decode_indices(order[:])
     if opts.mode == tb.MODE_PE:
         pe_walk()
-    else:
+    elif not opts.find_zeros:
         remainder_rounds(gcr_next if opts.mode == tb.MODE_GCR else nrzi_next)
 
     blocks = []
@@ -1013,9 +1171,11 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
             stats["tried"][t_i] += 1
         bt = int(res["blktype"][p])
         t_start = opts.t0_seconds + a * opts.deltat
-        # block end: where the scan ended the block (postamble fire)
-        a0 = max(a - SEG_WARMUP, 0)
-        end_b = min(a0 + int(res["end_s"][p]), b)
+        # block end: where the scan ended the block (postamble fire, the
+        # all-idle point); GCR under -zeros has none: the segment's end
+        end_b = b
+        if "end_s" in res:
+            end_b = min(max(a - SEG_WARMUP, 0) + int(res["end_s"][p]), b)
         t_end = opts.t0_seconds + end_b * opts.deltat
         if bt == nrzi_mod.BS_NONE:
             continue
@@ -1098,9 +1258,8 @@ def _decode_tape_ww(samples, opts: DecodeOptions, device: torch.device):
     p2 = seg.bucket_length(N)
     gran = max(p2 // 8, 2048)
     S = -(-N // gran) * gran
-    h_est, _ = seg.host_activity(samples, opts.maxvolts)
-    tape = torch.from_numpy(np.ascontiguousarray(samples)).to(
-        device).T.contiguous()                               # [T, N] int16
+    tape, h_est, _ = _resident_tape(samples, opts.maxvolts, device,
+                                    max(1, (N * T) // 2_000_000))
     tape = torch.nn.functional.pad(tape, (0, S - N))
     skew = np.zeros(T, np.int32)
     if opts.skew is not None:

@@ -1,5 +1,6 @@
 """Block segmentation: find interblock gaps over the whole sample tensor
-(host parts of readtape_tpu/decode/segment.py).
+(readtape_tpu/decode/segment.py: the host scan of int16 tapes, the device
+scan of float tapes, and the gap search).
 
 A sample is "active" if any track exceeds a noise-floor threshold; quiet
 runs longer than a mode-dependent gap threshold split the tape, and each
@@ -11,6 +12,9 @@ its relay-attached TPU link; this port uploads the int16 tape once.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .common import fma
 
 CHUNK = 16          # gap-resolution granularity in samples: fine enough
                     # to resolve PE's 2.5-bit idle horizon (~50 samples at
@@ -45,6 +49,33 @@ def host_activity(samples_i16: np.ndarray, maxvolts: float):
     thresh = np.float32(max(0.04, 0.15 * h_est / 2))
     act = (chunk_max.astype(np.float32) * scale) > thresh
     return h_est, act
+
+
+def device_activity(tape, maxvolts: float, step: int):
+    """host_activity for a float tape resident on the device as [T, N]
+    float32 (the JAX package's segment._activity_from_tape, as its
+    TapeDecoder runs it on CSV volts): the height estimate and the
+    per-CHUNK activity mask, in f32 as XLA computes them. The scale is
+    f32 maxvolts times the f32 reciprocal of 32767 (XLA's form of
+    maxvolts / 32767); the 0.999-quantile is jnp.quantile's: the sorted
+    subsample read at floor and ceil of f32(0.999) * (n - 1), blended
+    as fma(low, 1 - w, high * w) (XLA's CPU contraction). Returns (h_est,
+    host bool mask)."""
+    scale = float(np.float32(maxvolts) * (np.float32(1) / np.float32(32767)))
+    sub = (tape[:, ::step].abs() * scale).reshape(-1)
+    srt = torch.sort(sub).values
+    q = np.float32(0.999) * np.float32(srt.numel() - 1)
+    lo, hi = srt[int(np.floor(q))], srt[int(np.ceil(q))]
+    w_hi = np.float32(q - np.floor(q))
+    amp = np.float32(fma(lo, float(np.float32(1) - w_hi),
+                         hi * float(w_hi)).cpu())
+    h_est = np.maximum(np.float32(2) * amp, np.float32(0.05))
+    thresh = max(np.float32(0.04), np.float32(np.float32(0.15) * h_est)
+                 / np.float32(2))
+    n = tape.shape[1] // CHUNK
+    vmax = tape[:, :n * CHUNK].abs().amax(dim=0) * scale
+    act = (vmax.view(n, CHUNK) > float(thresh)).any(dim=1)
+    return float(h_est), act.cpu().numpy()
 
 
 def find_segments(active: np.ndarray, min_gap_chunks: int, total_samples: int,

@@ -110,6 +110,24 @@ class WwArgs(ctypes.Structure):
                                       "stat_bw")]
 
 
+class ZcArgs(ctypes.Structure):
+    """csrc/zeros_core.h::ZcArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "volts", "seg_len", "lead", "t", "dt", "det", "ok", "is_top",
+        "valid", "n_found")] + [
+        (n, ctypes.c_int32) for n in ("B", "T", "S", "cap", "diff")]
+
+
+class ZsArgs(ctypes.Structure):
+    """csrc/zeros_core.h::ZsArgs, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "t", "dt", "ok", "valid", "p_clk_window", "p_clk_alpha", "p_z1pt",
+        "p_z2pt", "p_pulse_adj", "bits", "datacount", "peakcount",
+        "t_firstbit", "t_lastbit")] + [
+        (n, ctypes.c_int32) for n in ("B", "P", "T", "cap", "maxb")] + [
+        ("spb", ctypes.c_float)]
+
+
 # the record and scan-buffer widths of pe_core.h and gcr_core.h
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
 # pe_core.h's phase stamps (the PE and GCR kernels): global timer (ns) at
@@ -137,7 +155,8 @@ GCR_N_GR = 5
 LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
             "nrzi_scan_tracks_launch": NrziScanArgs,
             "nrzi_slot_launch": NrziSlotArgs, "pe_fused_launch": PeArgs,
-            "gcr_fused_launch": GcrArgs, "ww_fused_launch": WwArgs}
+            "gcr_fused_launch": GcrArgs, "ww_fused_launch": WwArgs,
+            "zerocross_launch": ZcArgs, "gcr_zeros_launch": ZsArgs}
 # the parmset knobs every kernel reads: argument field -> ParmArrays field
 _KNOBS = dict(p_agc_window="agc_window", p_clk_window="clk_window",
               p_rise="pkww_rise", p_minp="min_peak",
@@ -555,3 +574,62 @@ def ww_phase_ms(volts, **kw):
     if rc != 0:
         raise RuntimeError(f"ww_fused kernel launch failed: CUDA error {rc}")
     return out, list(ms), st.cpu()
+
+
+def zerocross_prepare(volts, seg_lens, leads, *, cap, differentiated):
+    """The ZcArgs block and outputs of one zerocross launch (_prepare's
+    return). Arguments and outputs as decode.zeros.zerocross_transitions,
+    with n_found [B, T] in place of overflow."""
+    dev = volts.device
+    B, T, S = volts.shape
+    ins = dict(volts=volts.contiguous(),
+               seg_len=seg_lens.to(device=dev, dtype=I32).contiguous(),
+               lead=leads.to(device=dev, dtype=I32).contiguous())
+    shape = (B, T, cap)
+    out = dict(t=torch.empty(shape, dtype=F32, device=dev),
+               ok=torch.empty(shape, dtype=torch.bool, device=dev),
+               dt=torch.empty(shape, dtype=F32, device=dev),
+               det=torch.empty(shape, dtype=I32, device=dev),
+               is_top=torch.empty(shape, dtype=torch.bool, device=dev),
+               valid=torch.empty(shape, dtype=torch.bool, device=dev),
+               n_found=torch.empty((B, T), dtype=I32, device=dev))
+    ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
+    args = ZcArgs(**ptrs, B=B, T=T, S=S, cap=cap,
+                  diff=int(bool(differentiated)))
+    return args, out, ins
+
+
+def zerocross(volts, seg_lens, leads, **kw):
+    """Launch csrc/zeros.cu's Z1."""
+    return _launch("zerocross", zerocross_prepare, volts, seg_lens, leads,
+                   **kw)
+
+
+def gcr_zeros_prepare(t, trans, pa, *, spb, maxb):
+    """The ZsArgs block and zeroed outputs of one gcr_zeros launch
+    (_prepare's return). trans: Z1's lists (t is trans["t"], first so
+    that _launch finds the device). Outputs: bits [B, P, T, maxb],
+    datacount, peakcount, t_firstbit, t_lastbit [B, P, T]."""
+    dev = t.device
+    B, T, cap = t.shape
+    P = len(pa.z1pt)
+    ins = {k: trans[k].contiguous() for k in ("t", "dt", "ok", "valid")}
+    ins.update(_knob_tensors(pa, dev, p_clk_window="clk_window",
+                             p_clk_alpha="clk_alpha", p_z1pt="z1pt",
+                             p_z2pt="z2pt", p_pulse_adj="pulse_adj"))
+    shape = (B, P, T)
+    out = dict(bits=torch.zeros(shape + (maxb,), dtype=I8, device=dev),
+               datacount=torch.empty(shape, dtype=I32, device=dev),
+               peakcount=torch.empty(shape, dtype=I32, device=dev),
+               t_firstbit=torch.empty(shape, dtype=F32, device=dev),
+               t_lastbit=torch.empty(shape, dtype=F32, device=dev))
+    ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
+    args = ZsArgs(**ptrs, B=B, P=P, T=T, cap=cap, maxb=maxb,
+                  spb=float(spb))
+    return args, out, ins
+
+
+def gcr_zeros(trans, pa, **kw):
+    """Launch csrc/zeros.cu's Z2."""
+    return _launch("gcr_zeros", gcr_zeros_prepare, trans["t"], trans, pa,
+                   **kw)

@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA card (marker `cuda`; they skip elsewhere).
-Each CUDA kernel must equal its plain version on the card, an NRZI (fused
-and tiered), PE, GCR or Whirlwind decode on the card must equal the plain
-decode on the CPU block for block, and the Whirlwind bench tape must
-decode on the card to its ground truth. Imports no JAX and nothing of
+Each CUDA kernel must equal its plain version on the card (the -zeros
+kernels Z1 and Z2 too), an NRZI (fused and tiered), PE, GCR or Whirlwind
+decode on the card must equal the plain decode on the CPU block for
+block, and the Whirlwind bench tape must decode on the card to its ground
+truth. Imports no JAX and nothing of
 the JAX package (the port carries its own synthesizer and formats), so
 the card's machine runs it without the JAX package's test
 configuration:
@@ -20,6 +21,7 @@ from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
 from readtape_tpu_torch.decode import scan as tsc
 from readtape_tpu_torch.decode import slot as tsl
+from readtape_tpu_torch.decode import zeros as tz
 from readtape_tpu_torch.formats import tbin as tb
 from readtape_tpu_torch.synth import default_spec, synthesize_tape
 
@@ -182,3 +184,34 @@ def test_ww_bench_tape_on_card(card):
     assert tfu.ww_fused_scan.launches == launches + 1
     assert [b.data for b in out if b.kind == "data"] == blocks
     assert stats["nerrblocks"] == 0 and stats["ntapemarks"] == 0
+
+
+@pytest.mark.parametrize("differentiated,cap", [(False, None), (True, None),
+                                                (False, 150)])
+def test_zerocross_kernel_equals_plain(card, differentiated, cap):
+    """Z1, plain and differentiated, and with a list short enough that
+    every segment overflows it."""
+    volts, seg_lens, leads, _, kw, _ = chip_smoke.zeros_inputs(
+        8192, 11, differentiated)
+    if cap is not None:
+        kw = dict(kw, cap=cap)
+    launches = tz.zerocross_transitions.launches
+    got = tz.zerocross_transitions(volts, seg_lens, leads, **kw)
+    assert tz.zerocross_transitions.launches == launches + 1
+    want = tz.zerocross_transitions_plain(volts, seg_lens, leads, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert bool(want["overflow"].all()) == (cap is not None)
+
+
+def test_gcr_zeros_kernel_equals_plain(card):
+    """Z2 over Z1's lists, the 5 GCR parmsets."""
+    volts, seg_lens, leads, pa, zkw, kw = chip_smoke.zeros_inputs(
+        8192, 11, False)
+    trans = tz.zerocross_transitions_plain(volts, seg_lens, leads, **zkw)
+    launches = tz.gcr_zeros_scan.launches
+    got = tz.gcr_zeros_scan(trans, pa, **kw)
+    assert tz.gcr_zeros_scan.launches == launches + 1
+    want = tz.gcr_zeros_scan_plain(trans, pa, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -1,11 +1,13 @@
-"""The port end to end on the CPU: the four NRZI, two PE, one GCR and one
-Whirlwind example tapes (built by chip_smoke.py's recipe table with the
-port's own synthesizer) decode to the .tap files whose SHA-256
-examples/golden.json records; importing the port imports no JAX; a
-decode on a host without a card, by default or asked for "cuda", raises
-instead of running on the CPU; options the port does not run yet raise
-NotImplementedError (density detection only for GCR: the JAX command line
-detects it for NRZI and PE tapes alone)."""
+"""The port end to end on the CPU: the four NRZI, two PE, three GCR (one
+with -zeros -correct, one a CSV capture decoded with -differentiate
+-zeros) and one Whirlwind example tapes (built by chip_smoke.py's recipe
+table with the port's own synthesizer and CSV writer) decode to the .tap
+files whose SHA-256 examples/golden.json records; importing the port
+imports no JAX; a decode on a host without a card, by default or asked
+for "cuda", raises instead of running on the CPU; options the port does
+not run raise NotImplementedError (density detection only for GCR: the
+JAX command line detects it for NRZI and PE tapes alone; -zeros only for
+PE: the JAX command line refuses it there)."""
 
 import json
 import os
@@ -77,9 +79,8 @@ def test_kernel_build_raises_without_nvcc():
 
 
 @pytest.mark.parametrize("over,name", [
-    (dict(mode=tb.MODE_GCR, bpi=9042, ips=25, find_zeros=True), "-zeros"),
     (dict(mode=tb.MODE_GCR, bpi=9042, ips=25, parmscan=True), "-parmscan"),
-    (dict(find_zeros=True), "-zeros"),
+    (dict(mode=tb.MODE_PE, bpi=1600, find_zeros=True), "-zeros"),
     (dict(adjskew=True), "-adjskew"),
     (dict(do_correct_debug=True), "-correctdbg"),
     (dict(parmscan=True), "-parmscan"),

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of readtape_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package (readtape_tpu).
+"""The port stands alone: no module of readtape_tpu_torch (decode/zeros.py
+and formats/csvfmt.py included), and not chip_smoke.py, imports jax or
+anything of the JAX package (readtape_tpu).
 The port's own copies of the JAX-free modules (formats, synth) agree with
 the JAX package's: the built-in parmsets, the .tbin format, and the
 example tapes chip_smoke.py builds from its recipe table, sample for
@@ -64,6 +65,8 @@ def test_importing_the_port_loads_no_jax():
         for p in _port_sources()[:-1])
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"readtape_tpu_torch.decode.zeros",
+            "readtape_tpu_torch.formats.csvfmt"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
@@ -129,8 +132,8 @@ def _make_examples():
 def test_example_recipe_matches(name):
     mk = _make_examples()
     mine, theirs = chip_smoke.EXAMPLES[name], mk.CASES[name]
-    for k in ("seed", "mode", "sizes", "args"):
-        assert mine[k] == theirs[k], k
+    for k in ("seed", "mode", "sizes", "args", "fmt"):
+        assert mine.get(k) == theirs.get(k), k
     assert set(theirs) - {"spec"} == set(mine) - {"spec"}
     mode, kw = mine["spec"]
     assert (dataclasses.asdict(default_spec(getattr(ttb, "MODE_" + mode),
