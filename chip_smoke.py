@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths, -zeros and
-float (CSV) tapes included, on one NVIDIA GPU and check them.
+float (CSV) tapes included, and its command line (-parmscan included),
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -81,9 +82,24 @@ non-zero:
   5. golden   the four NRZI, two PE, three GCR (-zeros -correct, and a CSV
               capture written and read back by the port with
               -differentiate -zeros) and one Whirlwind example tapes
-              decoded on the card and written as .tap, and the four NRZI
-              ones again through the tiered kernels; SHA-256 against
+              written as .tbin (or .csv) and run through the port's
+              command line with each example's own arguments on the
+              card, and the four NRZI ones again through the tiered
+              kernels; the SHA-256 of each .tap against
               examples/golden.json
+  6. cli      the NRZI bench tape written as .tbin and run through the
+              command line with -v -m -nrzi -tap -textfile -hex -ebcdic
+              (warm, launch counts set to 0 just before): its .tap blocks
+              against the ground truth, the CLI's wall and the decode's
+              inside it; then the 9trk_NRZI/example tape through the same
+              command line on the card and on the CPU: .tap, .txt,
+              .peakstats.csv and .log equal (the time masked)
+  7. parmscan GCR -parmscan on tests/test_parmscan.py's one-block tape:
+              gcr_fused_scan at the grid's shape (B=1, P=64: the first 64
+              combos) against its plain version, and its 64 clk_alpha
+              lines equal to the plain version's; then the whole
+              5,280-combo grid through the command line (its launches of
+              B3 and its time), the .tap against the ground truth
 
 Then one JSON line describing the kernels, the card's name and power
 limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
@@ -107,7 +123,9 @@ Imports nothing of JAX and nothing of the JAX package: the example tapes
 come from the port's own synthesizer and the recipe table below.
 """
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -1544,98 +1562,49 @@ def phase_main(card):
 # phase 5: golden .tap hashes
 # ---------------------------------------------------------------------------
 
-def write_tap(path, blocks):
-    """.tap output as readtape_tpu.cli.write_outputs writes it: tapemarks,
-    data blocks flagged when errcount > 0, unusable and empty blocks
-    skipped, then end of medium."""
-    from readtape_tpu_torch.formats.simh import TapWriter
-    w = TapWriter(path)
-    for blk in blocks:
-        if blk.kind == "tapemark":
-            w.write_tapemark()
-        elif blk.kind == "data" and len(blk.data):
-            w.write_block(blk.data, error=blk.errcount > 0)
-    w.write_eom()
-    w.close()
-
-
-def golden_options(args, hdr, csv=None):
-    """DecodeOptions fields for an example's command line, resolved the
-    way readtape_tpu.cli.process_file does: the mode, -ntrks, -bpi and
-    -ips from the command line, else the .tbin header's (-whirlwind sets
-    100 bpi); deltat, maxvolts and the Whirlwind track order from the
-    header ("CMLcml" without one); -fluxdir=, -reverse, -correct,
-    -differentiate and -zeros. A CSV capture, csv = (first time, deltat,
-    tracks), has no header: its time base is the CSV's and its maxvolts
-    32767 (the samples are volts). Every example carries its density, so
-    no density detection (bpi <= 0) is needed."""
-    from readtape_tpu_torch.formats import tbin as tb
-    kv = dict(a[1:].split("=", 1) for a in args if "=" in a)
-    ww = "-whirlwind" in args
-    mode = (tb.MODE_PE if "-pe" in args else
-            tb.MODE_NRZI if "-nrzi" in args else
-            tb.MODE_GCR if "-gcr" in args else
-            tb.MODE_WW if ww else hdr.mode)
-    if csv is not None:
-        t0, deltat, ntrks = csv
-        hdr_bpi = hdr_ips = 0
-        maxvolts, order = 32767.0, None
-    else:
-        t0, deltat, ntrks = hdr.tstart_ns * 1e-9, hdr.tdelta_ns * 1e-9, \
-            hdr.ntrks
-        hdr_bpi, hdr_ips = hdr.bpi, hdr.ips
-        maxvolts, order = hdr.maxvolts, hdr.trkorder
-    bpi = float(kv.get("bpi", 100 if ww else hdr_bpi or 0))
-    if bpi <= 0:
-        raise AssertionError("example header carries no density")
-    return dict(mode=mode, ntrks=int(kv.get("ntrks", ntrks)),
-                bpi=bpi, ips=float(kv.get("ips", hdr_ips or 50.0)),
-                deltat=deltat, maxvolts=maxvolts,
-                multiple_tries="-m" in args, deskew="-deskew" in args,
-                do_correct="-correct" in args,
-                differentiate="-differentiate" in args,
-                find_zeros="-zeros" in args, t0_seconds=t0,
-                fluxdir=kv.get("fluxdir", "neg"), reverse="-reverse" in args,
-                ww_order=order or "CMLcml")
-
-
-def example_input(name, directory):
-    """(samples, DecodeOptions) of one EXAMPLES tape as the command line
-    reads it: the .tbin tape's int16 samples, or for a CSV example its
-    volts written to <directory> with the port's write_csv (as
-    examples/make_examples.py generate writes them) and read back with
-    its read_csv."""
-    from readtape_tpu_torch.decode import pipeline as tpl
+def write_example(name, directory):
+    """Write one EXAMPLES tape into `directory` as the command line reads
+    it: a .tbin file with the port's write_tbin, or for a CSV example its
+    volts with the port's write_csv (as examples/make_examples.py generate
+    writes them). Returns the base name to give the command line."""
     from readtape_tpu_torch.formats import csvfmt
+    from readtape_tpu_torch.formats import tbin as tb
     hdr, samples = build_example(name)
-    args = EXAMPLES[name]["args"]
-    if EXAMPLES[name].get("fmt") != "csv":
-        return samples, tpl.DecodeOptions(**golden_options(args, hdr))
-    path = os.path.join(directory, name.replace("/", "_") + ".csv")
-    csvfmt.write_csv(path, 0.0, hdr.tdelta_ns * 1e-9,
-                     samples.astype("float64") * (hdr.maxvolts / 32767.0))
-    t0, deltat, volts = csvfmt.read_csv(path)
-    return volts, tpl.DecodeOptions(**golden_options(
-        args, hdr, csv=(t0, deltat, volts.shape[1])))
+    base = os.path.join(directory, name.replace("/", "_"))
+    if EXAMPLES[name].get("fmt") == "csv":
+        csvfmt.write_csv(base + ".csv", 0.0, hdr.tdelta_ns * 1e-9,
+                         samples.astype("float64") * (hdr.maxvolts / 32767.0))
+    else:
+        tb.write_tbin(base + ".tbin", hdr, samples)
+    return base
 
 
-def decode_example(name, device, directory, kernel_path="fused"):
-    """Decode one example tape on `device` into <directory>/<name>.tap;
-    returns (blocks, SHA-256 of the .tap)."""
-    from readtape_tpu_torch.decode import pipeline as tpl
-    samples, opts = example_input(name, directory)
-    blocks, _ = tpl.decode_tape(samples, opts, device=device,
-                                kernel_path=kernel_path)
-    path = os.path.join(directory, f"{name.replace('/', '_')}.{kernel_path}"
-                        ".tap")
-    write_tap(path, blocks)
-    with open(path, "rb") as f:
-        return blocks, hashlib.sha256(f.read()).hexdigest()
+def run_cli(argv, device, kernel_path="fused"):
+    """The port's command line, main(argv), on `device`, its log lines
+    kept off this script's output; raises unless it exits 0."""
+    from readtape_tpu_torch import cli
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv, device=device, kernel_path=kernel_path)
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv)}: exit code {rc}")
+
+
+def run_example(name, device, directory, kernel_path="fused"):
+    """One EXAMPLES tape through the port's command line with the
+    example's own arguments, in <directory>/<kernel_path>; returns the
+    SHA-256 of the .tap it writes."""
+    d = os.path.join(directory, kernel_path)
+    os.makedirs(d, exist_ok=True)
+    base = write_example(name, d)
+    run_cli(EXAMPLES[name]["args"] + [base], device, kernel_path)
+    with open(base + ".tap", "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def phase_golden():
-    """Every example through its default path, and the NRZI ones again
-    through the tiered kernels (checking that they launched)."""
+    """Every example through the port's command line on the card, and the
+    NRZI ones again through the tiered kernels (checking that they
+    launched)."""
     with open(os.path.join(REPO, "examples", "golden.json")) as f:
         golden = json.load(f)
     runs = [(name, "fused") for name in GOLDEN_CASES]
@@ -1643,15 +1612,217 @@ def phase_golden():
     with tempfile.TemporaryDirectory() as tmp:
         for name, path in runs:
             reset_counts()
-            blocks, h = decode_example(name, DEVICE, tmp, kernel_path=path)
+            h = run_example(name, DEVICE, tmp, kernel_path=path)
             if path == "tiered":
                 check_launches(name, ["nrzi_track_scan_tracks",
                                       "nrzi_slot_scan"], ["nrzi_fused_scan"])
+            else:
+                check_launches(name, [])
             if h != golden[name]:
                 raise AssertionError(f"{name} ({path}): sha256 {h[:16]} != "
                                      f"golden {golden[name][:16]}")
-            print(f"  {name} ({path}): {len(blocks)} blocks, sha256 "
-                  f"{h[:16]} ok", flush=True)
+            print(f"  {name} ({path}): {' '.join(EXAMPLES[name]['args'])}, "
+                  f"sha256 {h[:16]} ok", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the command line at full width, and -parmscan
+# ---------------------------------------------------------------------------
+
+CLI_ARGS = ["-v", "-m", "-nrzi", "-tap", "-textfile", "-hex", "-ebcdic"]
+
+
+def masked_lines(path):
+    """An output file's lines, with those that carry the time masked: a
+    .txt's line 2, a .log's "version ... running on" and "... processed
+    in N seconds" lines."""
+    with open(path, encoding="latin-1") as f:
+        lines = f.read().split("\n")
+    if path.endswith(".txt"):
+        return lines[:1] + lines[2:]
+    return ["<time>" if (ln.startswith("version ") and " running on " in ln)
+            or " samples were processed in " in ln else ln for ln in lines]
+
+
+def tap_contents(path):
+    """(data records, tapemarks) of a .tap file."""
+    from readtape_tpu_torch.formats import simh
+    recs = simh.read_tap(path)
+    return ([r.data for r in recs if r.kind == "data"],
+            sum(r.kind == "tapemark" for r in recs))
+
+
+class DecodeClock:
+    """Times every call of decode.pipeline.<name> (synchronized) while it
+    is active, and counts the launches of each KERNELS entry inside it;
+    the command line looks the function up at each call."""
+
+    def __init__(self, name):
+        self.name, self.spans, self.launches = name, [], {}
+
+    def __enter__(self):
+        from readtape_tpu_torch.decode import pipeline as tpl
+        self.fn = fn = getattr(tpl, self.name)
+
+        def timed(*args, **kw):
+            sync()
+            before = counts()
+            t0 = time.perf_counter()
+            r = fn(*args, **kw)
+            sync()
+            self.spans.append(time.perf_counter() - t0)
+            for k, (n, _) in counts().items():
+                self.launches[k] = self.launches.get(k, 0) + n - before[k][0]
+            return r
+        setattr(tpl, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from readtape_tpu_torch.decode import pipeline as tpl
+        setattr(tpl, self.name, self.fn)
+
+
+def phase_cli(card):
+    """The NRZI bench tape (160 blocks, 9 tracks, 8 parmsets) written as
+    .tbin and run through the port's command line on the card with
+    CLI_ARGS, warm: every .tap block against the ground truth, the CLI's
+    wall and the decode inside it. Then the 9trk_NRZI/example tape through
+    the same command line on the card and on the CPU, in directories of
+    their own: .tap, .txt, .peakstats.csv and .log equal under the mask.
+    Returns {kernel: launches} of the bench run."""
+    from readtape_tpu_torch.formats import tbin as tb
+    blocks, hdr, samples = bench_tape()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "bench")
+        tb.write_tbin(base + ".tbin", hdr, samples)
+        run_cli(CLI_ARGS + [base], DEVICE)                  # warm-up run
+        with DecodeClock("decode_tape") as clock:
+            reset_counts()
+            t0 = time.perf_counter()
+            run_cli(CLI_ARGS + [base], DEVICE)
+            wall = time.perf_counter() - t0
+        launches = check_launches("NRZI bench CLI", ["nrzi_fused_scan"])
+        data, marks = tap_contents(base + ".tap")
+        if data != blocks or marks != 2:
+            raise AssertionError(f"NRZI bench CLI: {len(data)} .tap blocks, "
+                                 f"{marks} tapemarks; not the ground truth")
+        txt = os.path.getsize(base + ".hex.ebcdic.txt")
+        print(f"  NRZI bench through the CLI ({' '.join(CLI_ARGS)}): "
+              f"{samples.shape[0]:,} samples, {len(data)} .tap blocks equal "
+              f"to the ground truth, launches {launches}: CLI wall "
+              f"{wall:.3f} s, decode_tape inside it {clock.spans[0]:.3f} s, "
+              f".txt {txt:,} bytes ({card})", flush=True)
+        name = "9trk_NRZI/example"
+        here = os.getcwd()
+        outs = {}
+        try:
+            for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+                os.makedirs(os.path.join(tmp, where))
+                os.chdir(os.path.join(tmp, where))
+                base = os.path.basename(write_example(name, "."))
+                reset_counts()
+                run_cli(CLI_ARGS + [base], dev)
+                if where == "card":
+                    check_launches(name, ["nrzi_fused_scan"])
+                outs[where] = {ext: (masked_lines(base + ext) if ext != ".tap"
+                                   else tap_contents(base + ext))
+                             for ext in (".tap", ".hex.ebcdic.txt",
+                                         ".peakstats.csv", ".log")}
+        finally:
+            os.chdir(here)
+        for ext, got in outs["card"].items():
+            if got != outs["cpu"][ext]:
+                raise AssertionError(f"{name} through the CLI: the card's "
+                                     f"{ext} differs from the CPU's")
+        print(f"  {name} through the CLI on the card and on the CPU: .tap, "
+              f".txt, .peakstats.csv and .log equal (the time masked)",
+              flush=True)
+    return launches
+
+
+def parmscan_tape():
+    """The -parmscan tape (tests/test_parmscan.py's recipe): one GCR block
+    of 154 random bytes (seed 77) with 0.025-bit time jitter, then a
+    tapemark."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(77)
+    block = bytes(rng.integers(0, 256, 154, dtype=np.uint8))
+    spec = default_spec(tb.MODE_GCR, time_jitter_bits=0.025, seed=77)
+    hdr, samples = synthesize_tape(spec, [("block", block), ("tapemark",)])
+    return block, hdr, samples
+
+
+def phase_parmscan(card):
+    """GCR -parmscan on the card: B3 at the grid's shape (B=1, P=64, the
+    first 64 combos) against its plain version on the same inputs, and
+    the 64 clk_alpha lines from B3 equal to those from its plain version;
+    then the whole 5,280-combo grid through the port's command line.
+    Returns (compare_kernel's dict, the grid's launches of B3)."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.decode import fused as tfu
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import tbin as tb
+    block, hdr, samples = parmscan_tape()
+    grid = tpl.parmscan_grid()
+    dec = tpl.TapeDecoder(samples, tape_options(hdr, tb.MODE_GCR, 9042, 25),
+                          device=DEVICE)
+    span = dec.segments()[0]
+    seen, launch = [], kernels.gcr_fused
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+    lines = {}
+    kernels.gcr_fused = record
+    try:
+        reset_counts()
+        lines["kernel"] = []
+        tpl.gcr_parmscan(dec, span, lines["kernel"].append, combos=grid[:64])
+        sync()
+        check_launches("-parmscan, 64 combos", ["gcr_fused_scan"])
+    finally:
+        kernels.gcr_fused = launch
+    (volts, seg_lens, leads, pa), kw = seen[0]
+    res = compare_kernel("gcr parmscan", "gcr_fused_scan", volts, seg_lens,
+                         leads, pa, kw)
+    kern, tfu.gcr_fused_scan = tfu.gcr_fused_scan, tfu.gcr_fused_scan_plain
+    try:
+        lines["plain"] = []
+        tpl.gcr_parmscan(dec, span, lines["plain"].append, combos=grid[:64])
+    finally:
+        tfu.gcr_fused_scan = kern
+    if lines["kernel"] != lines["plain"]:
+        bad = [i for i, (x, y) in enumerate(zip(lines["kernel"],
+                                                lines["plain"])) if x != y]
+        raise AssertionError(f"-parmscan: the kernel's lines differ from the "
+                             f"plain version's at combos {bad[:5]}")
+    print(f"  -parmscan, the first 64 combos: B3's 64 clk_alpha lines equal "
+          f"to its plain version's on the card", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "parmscan")
+        tb.write_tbin(base + ".tbin", hdr, samples)
+        with DecodeClock("gcr_parmscan") as clock:
+            reset_counts()
+            t0 = time.perf_counter()
+            run_cli(["-v", "-m", "-gcr", "-ips=25", "-tap", "-parmscan",
+                     base], DEVICE)
+            wall = time.perf_counter() - t0
+        total = check_launches("-parmscan CLI", ["gcr_fused_scan"])
+        with open(base + ".log") as f:
+            n = sum(ln.startswith("clk_alpha ") for ln in f)
+        if n != len(grid) or tap_contents(base + ".tap") != ([block], 1):
+            raise AssertionError(f"-parmscan CLI: {n} clk_alpha lines, "
+                                 f"{len(grid)} expected, or the .tap is not "
+                                 "the ground truth")
+    n_grid = clock.launches["gcr_fused_scan"]
+    print(f"  -parmscan through the CLI: {n} clk_alpha lines, the .tap equal "
+          f"to the ground truth; grid {sum(clock.spans):.3f} s over "
+          f"{len(clock.spans)} segment(s), {n_grid} launches of B3 at B=1 "
+          f"P=64; CLI wall {wall:.3f} s, launches {total} ({card})",
+          flush=True)
+    return res, n_grid
 
 
 # ---------------------------------------------------------------------------
@@ -2082,11 +2253,25 @@ def main():
     except AssertionError as e:
         fail("golden", str(e))
     print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI, PE, GCR and "
-          f"Whirlwind .tap hashes match, the NRZI ones also through the "
-          f"tiered kernels", flush=True)
+          f"Whirlwind .tap hashes match through the port's command line, "
+          f"the NRZI ones also through the tiered kernels", flush=True)
+
+    try:
+        n = phase_cli(card)
+    except AssertionError as e:
+        fail("cli", str(e))
+    print(f"phase 6 cli: ok, the NRZI bench through the command line, "
+          f"launches {n} ({card})", flush=True)
+
+    try:
+        times["gcr parmscan"], n = phase_parmscan(card)
+    except AssertionError as e:
+        fail("parmscan", str(e))
+    print(f"phase 7 parmscan: ok, B3 at B=1 P=64 equal to plain, the "
+          f"5,280-combo grid in {n} launches ({card})", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
-        fail("golden", "jax or the JAX package was imported")
+        fail("parmscan", "jax or the JAX package was imported")
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),

@@ -764,6 +764,7 @@ struct NrziSlotLane {
   float* trk_f;            // [T, N_TF]: writes TFIRST, TLAST
   int32_t* lane_i;         // [N_LI]
   int T, K, S, maxb, max_slots, do_correct, exp_par, cw;
+  int clk_avg_fma;         // the exponential clock's other contraction
   float ca, padj, midbit, spb, lb, bw;
 };
 
@@ -1010,7 +1011,10 @@ NRZI_UNROLL
       L.bitndx = L.bitndx + 1 >= a.cw ? 0 : L.bitndx + 1;
       L.avg = b + (delta - old) / (float)a.cw;
     } else if (a.ca > 0.0f) {
-      L.avg = fmaf(a.ca, delta, (1.0f - a.ca) * b);
+      // XLA's CPU build fuses either product of the JAX package's
+      // a * delta + (1 - a) * avg, by program (decode/slot.py)
+      L.avg = a.clk_avg_fma ? fmaf(1.0f - a.ca, b, a.ca * delta)
+                            : fmaf(a.ca, delta, (1.0f - a.ca) * b);
     } else {
       L.avg = a.spb;
     }
@@ -1335,6 +1339,7 @@ NRZI_HD NrziSlotLane nrzi_slot_lane_of(const A& a, int lane) {
   L.do_correct = a.do_correct;
   L.exp_par = a.exp_par;
   L.cw = a.p_clk_window[p];
+  L.clk_avg_fma = 0;
   L.ca = a.p_clk_alpha[p];
   L.padj = a.p_pulse_adj[p];
   L.midbit = a.p_midbit[p];
@@ -1454,6 +1459,7 @@ struct NrziSlotArgs {
   int32_t* lane_i;           // [B*P, N_LI]
   int64_t* stamps;           // [B*P, SLOT_NSTAMP] loop clocks, or null
   int32_t B, P, T, S, K, maxb, max_slots, do_correct, exp_par;
+  int32_t clk_avg_fma;       // 1: the clock's other contraction (B6 only)
   float spb, stat_lb, stat_bw;
 };
 
@@ -1467,8 +1473,15 @@ NRZI_HD void nrzi_slot_copy_track(const NrziSlotArgs& a, int lane, int t) {
   a.trk_f[lt * N_TF + TF_MINAGC] = a.min_agc_gain[lt];
 }
 
+// B6's lane: nrzi_slot_lane_of with the clock contraction it was given
+NRZI_HD NrziSlotLane nrzi_slot_lane_b6(const NrziSlotArgs& a, int lane) {
+  NrziSlotLane L = nrzi_slot_lane_of(a, lane);
+  L.clk_avg_fma = a.clk_avg_fma;
+  return L;
+}
+
 // B6 for a lane, serially (the host build)
 NRZI_HD void nrzi_slot_lane(const NrziSlotArgs& a, int lane) {
   for (int t = 0; t < a.T; ++t) nrzi_slot_copy_track(a, lane, t);
-  nrzi_slot_run(nrzi_slot_lane_of(a, lane));
+  nrzi_slot_run(nrzi_slot_lane_b6(a, lane));
 }

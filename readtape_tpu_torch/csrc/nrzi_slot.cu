@@ -31,7 +31,7 @@ __global__ void __launch_bounds__(32) nrzi_slot_kernel(NrziSlotArgs a) {
   // each track's thread copies its admission fields, then reads them back
   if (t < a.T) nrzi_slot_copy_track(a, lane, t);
   if (st) st[SLOT_ST_C0] = clock64();
-  nrzi_slot_warp(nrzi_slot_lane_of(a, lane), slot_sm, st ? st + SLOT_ST_MACH : 0);
+  nrzi_slot_warp(nrzi_slot_lane_b6(a, lane), slot_sm, st ? st + SLOT_ST_MACH : 0);
   if (st) {
     st[SLOT_ST_C1] = clock64();
     st[SLOT_ST_G1] = nrzi_gtimer();

@@ -266,16 +266,22 @@ def clkavg_init(spb: float, shape, device, clk_ring: int = CLKRATE_WINDOW):
 
 
 def adjust_clock(c, delta, clk_window, clk_alpha, const_spb,
-                 win: bool = True, exp: bool = True):
+                 win: bool = True, exp: bool = True, avg_fma: bool = False):
     """Mirrors adjust_clock's three strategies: moving window (with the same
     incremental-average update the C uses), exponential, constant.
     win=False / exp=False: the caller knows no lane uses that strategy,
-    so it is not computed (it would be selected nowhere)."""
+    so it is not computed (it would be selected nowhere). The exponential
+    average a * delta + (1 - a) * avg is one fused multiply-add, as XLA's
+    CPU build contracts the JAX package's: fma(a, delta, (1 - a) * avg),
+    or with avg_fma fma(1 - a, avg, a * delta) (which product XLA fuses
+    depends on the program: decode/slot.py)."""
     use_w = torch.as_tensor(clk_window > 0)
     use_e = (~use_w) & (clk_alpha > 0)
     avg = _f32(const_spb, c["t_bitspaceavg"])
     if exp:
-        avg_e = fma(clk_alpha, delta, (1 - clk_alpha) * c["t_bitspaceavg"])
+        avg_e = (fma(1 - clk_alpha, c["t_bitspaceavg"], clk_alpha * delta)
+                 if avg_fma else
+                 fma(clk_alpha, delta, (1 - clk_alpha) * c["t_bitspaceavg"]))
         avg = torch.where(use_e, avg_e, avg)
     out = dict(c)
     if win:

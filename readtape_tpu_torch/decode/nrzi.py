@@ -142,12 +142,15 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
                    expected_parity: int, do_correct: bool,
                    maxb: int, max_slots: int,
                    stat_leftbin: float, stat_binwidth: float,
-                   clk_ring: int = cm.CLKRATE_WINDOW):
+                   clk_ring: int = cm.CLKRATE_WINDOW,
+                   clk_avg_fma: bool = False):
     """N lanes at once. trans_*: [N, T, K] admitted transitions per track
     (s_det ascending; entries past each lane's count hold BIG_S / 0.0 /
     1.0); counts [N, T]; the clock knobs are [N]. Runs at most max_slots
-    slots per lane, as the fused kernel does. Returns the per-track bit
-    buffers [N, T, maxb] int8 and the block-result fields."""
+    slots per lane, as the fused kernel does. clk_avg_fma: the exponential
+    clock's contraction (common.adjust_clock's avg_fma). Returns the
+    per-track bit buffers [N, T, maxb] int8 and the block-result
+    fields."""
     N, T, K = trans_s.shape
     dev = trans_s.device
     ar = torch.arange(N, device=dev)
@@ -298,7 +301,8 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
         adjusted = torch.where(post_h > 0, avg,
                                cm.fma(pulse_adj, avg - expected, expected))
         delta = adjusted - t_lc
-        clk_h = cm.adjust_clock(clk, delta, clk_window, clk_alpha, spb32)
+        clk_h = cm.adjust_clock(clk, delta, clk_window, clk_alpha, spb32,
+                                avg_fma=clk_avg_fma)
         do_clk = live & have & (post_h == 0)
         clk = {k_: torch.where(do_clk.view((N,) + (1,) * (v.dim() - 1)),
                                v, clk[k_]) for k_, v in clk_h.items()}

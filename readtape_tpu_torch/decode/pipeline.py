@@ -30,11 +30,13 @@ NRZI and GCR take their transitions from the zero crossings instead
 a sequential chain of one window per block.
 
 A tape of unknown density (bpi <= 0; NRZI and PE, as the JAX command line
-detects it) first goes through ``TapeDecoder.detect_density``.
+detects it) first goes through ``TapeDecoder.detect_density``. With a
+``log``, GCR's -parmscan grid (``gcr_parmscan``) runs over the leading
+segments before the decode and logs one line per combo.
 
 9/7-track NRZI, 9-track PE, 9-track GCR and 6-track Whirlwind, from
-int16 samples or float32 volts, and -zeros for NRZI and GCR, are ported;
--adjskew, -correctdbg, -parmscan and -zeros for PE or Whirlwind (which
+int16 samples or float32 volts, -zeros for NRZI and GCR, and -parmscan
+are ported; -adjskew, -correctdbg and -zeros for PE or Whirlwind (which
 the JAX command line refuses) raise NotImplementedError naming the
 option. The entry points run on the card ("cuda") unless the caller asks
 for the CPU.
@@ -42,7 +44,10 @@ for the CPU.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -153,7 +158,6 @@ def check_supported(opts: DecodeOptions, kernel_path: str = "fused"):
                         "-zeros of a PE or Whirlwind tape"),
                        (opts.adjskew, "-adjskew"),
                        (opts.do_correct_debug, "-correctdbg"),
-                       (opts.parmscan, "-parmscan"),
                        (opts.bpi <= 0 and opts.mode not in (tb.MODE_NRZI,
                                                             tb.MODE_PE),
                         "density detection (bpi <= 0) of a "
@@ -395,10 +399,12 @@ def _nrzi_group_zeros(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
         min_agc_gain=torch.full((B, P, T), cm.FLT_MAX, dtype=F32,
                                 device=src.device),
         incomplete=lanes(trans["overflow"].view(B, 1) | (n_adm > K)))
+    # the JAX package's -zeros program contracts the clock differently in
+    # a batch of one parmset (decode/slot.py)
     out = slot_mod.nrzi_slot_scan(
         fin, pa, S=S, spb=spb, expected_parity=expected_parity,
         do_correct=do_correct, maxb=maxb, max_slots=max_slots,
-        stat_lb=stat_leftbin, stat_bw=stat_binwidth)
+        stat_lb=stat_leftbin, stat_bw=stat_binwidth, clk_avg_fma=P == 1)
     return _nrzi_results(out, T, expected_parity, revparity, maxb)
 
 
@@ -531,8 +537,13 @@ def _resident_tape(samples: np.ndarray, maxvolts: float, device, step: int):
     int16 (segment.host_activity), from the device for float volts
     (segment.device_activity over every step-th sample), as the JAX
     package computes them."""
-    tape = torch.from_numpy(np.ascontiguousarray(samples)).to(
-        device).T.contiguous()
+    with warnings.catch_warnings():
+        # a read-only memmap of a .tbin file: the tensor is only read
+        # (the transpose copies it)
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        tape = torch.from_numpy(np.ascontiguousarray(samples))
+    tape = tape.to(device).T.contiguous()
     if samples.dtype == np.int16:
         h_est, act = seg.host_activity(samples, maxvolts)
     else:
@@ -795,24 +806,34 @@ class TapeDecoder:
                            "detected; please specify -bpi")
 
 
-def _device(device, samples: np.ndarray) -> torch.device:
-    """The decode's device, after the checks every entry point makes."""
+def check_device(device) -> torch.device:
+    """torch.device(device); raises RuntimeError for "cuda" on a host
+    without a card (no entry point falls back to the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but "
                            "torch.cuda.is_available() is false")
+    return device
+
+
+def _device(device, samples: np.ndarray) -> torch.device:
+    """The decode's device, after the checks every entry point makes."""
+    device = check_device(device)
     if samples.dtype not in (np.int16, np.float32):
         raise ValueError(f"{samples.dtype} samples: int16 samples or "
                          "float32 volts")
     return device
 
 
-def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device="cuda",
-                decoder: TapeDecoder = None, kernel_path: str = "fused"):
+def decode_tape(samples: np.ndarray, opts: DecodeOptions, log=None, *,
+                device="cuda", decoder: TapeDecoder = None,
+                kernel_path: str = "fused"):
     """Decode a whole NRZI, PE, GCR or Whirlwind tape on `device` ("cuda"
     runs the kernels, "cpu" the plain versions). Returns (blocks, stats
-    dict). decoder: reuse a TapeDecoder whose tape is already resident (its
-    device and kernel path win; NRZI, PE and GCR only). kernel_path: NRZI's
+    dict). log: a callable taking one line, for -parmscan's lines (as the
+    JAX decode_tape's; without it -parmscan does nothing). decoder: reuse
+    a TapeDecoder whose tape is already resident (its device and kernel
+    path win; NRZI, PE and GCR only). kernel_path: NRZI's
     "fused" (B1) or "tiered" (B5 + B6) kernels. With opts.bpi <= 0 (NRZI
     and PE) the density is detected first, as the JAX command line does,
     and the tape decodes at the standard density found; stats["density"]
@@ -824,19 +845,84 @@ def decode_tape(samples: np.ndarray, opts: DecodeOptions, *, device="cuda",
            else TapeDecoder(samples, opts, device=device,
                             kernel_path=kernel_path))
     if opts.bpi > 0:
-        return _decode_tape_blocks(dec, opts)
+        return _decode_tape_blocks(dec, opts, log)
     density = dec.detect_density(dec.segments())
     dec.opts = opts = dataclasses.replace(opts, bpi=density[0])
-    blocks, stats = _decode_tape_blocks(dec, opts)
+    blocks, stats = _decode_tape_blocks(dec, opts, log)
     stats["density"] = density
     return blocks, stats
 
 
-def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
+def parmscan_grid():
+    """The reference's GCR parameter grid (readtape.c:1730-1754), with its
+    float32 loop stepping reproduced exactly so the combo list (and its
+    nesting order) matches the C binary's log line for line."""
+    f32 = np.float32
+    combos = []
+    clk_alpha = f32(0.010)
+    while clk_alpha <= f32(0.030):
+        pulse_adj = f32(0.2)
+        while pulse_adj <= f32(0.401):
+            z1pt = f32(1.4)
+            while z1pt <= f32(1.501):
+                z2pt = f32(2.20)
+                while z2pt <= f32(2.501):
+                    combos.append((float(clk_alpha), float(pulse_adj),
+                                   float(z1pt), float(z2pt)))
+                    z2pt = f32(z2pt + f32(0.02))
+                z1pt = f32(z1pt + f32(0.01))
+            pulse_adj = f32(pulse_adj + f32(0.1))
+        clk_alpha = f32(clk_alpha + f32(0.002))
+    return combos
+
+
+def gcr_parmscan(dec: TapeDecoder, span, log, combos=None):
+    """GCR parmset grid scan over one segment (readtape.c:1730-1754, the
+    GCR_PARMSCAN debug build): decode `span` under every (clk_alpha,
+    pulse_adj, z1pt, z2pt) combo and log the reference's result line per
+    combo. The combos ride the parmset axis of decode_segment, a chunk of
+    them (READTAPE_PARMSCAN_CHUNK, 64) per launch of B3; the last chunk is
+    padded with its last combo. READTAPE_PARMSCAN_LIMIT > 0 cuts the
+    5,280-combo grid (a test hook, as in the JAX package)."""
+    opts = dec.opts
+    if combos is None:
+        combos = parmscan_grid()
+        limit = int(os.environ.get("READTAPE_PARMSCAN_LIMIT", "0"))
+        if limit > 0:
+            combos = combos[:limit]
+    base = dataclasses.replace(opts.parmsets.sets[0], clk_window=0)
+    chunk = int(os.environ.get("READTAPE_PARMSCAN_CHUNK", "64"))
+    saved = (opts.parmsets, dec.pa, dec.P)
+    a, b = span
+    try:
+        for lo in range(0, len(combos), chunk):
+            cs = combos[lo:lo + chunk]
+            pad = cs + [cs[-1]] * (min(chunk, len(combos)) - len(cs))
+            ps = copy.copy(opts.parmsets)
+            ps.sets = [dataclasses.replace(
+                base, clk_alpha=ca, pulse_adj=pa_, z1pt=z1, z2pt=z2)
+                for ca, pa_, z1, z2 in pad]
+            opts.parmsets = ps
+            dec.pa = ParmArrays.from_parmsets(ps, dec.device)
+            dec.P = len(ps.sets)
+            res = dec.decode_segment(a, b)
+            for j, (ca, pa_, z1, z2) in enumerate(cs):
+                log(f"clk_alpha {ca:.3f} pulseadj {pa_:.3f} "
+                    f"z1pt {z1:.3f} z2pt {z2:.3f} "
+                    f"firsterr {int(res['first_error'][j]):4d} "
+                    f"errors {int(res['errcount'][j])} "
+                    f"warnings {int(res['warncount'][j])} "
+                    f"minbits {int(res['minbits'][j])} "
+                    f"maxbits {int(res['maxbits'][j])}\n")
+    finally:
+        opts.parmsets, dec.pa, dec.P = saved
+
+
+def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
     """The block decode of NRZI, PE and GCR tapes (the JAX package's
-    _decode_tape_nrzi_like): batched segment decodes with the staged
-    retry, then NRZI's or GCR's remainder rounds or PE's block walk, then
-    block emission in tape order."""
+    _decode_tape_nrzi_like): -parmscan's grid where asked, batched segment
+    decodes with the staged retry, then NRZI's or GCR's remainder rounds
+    or PE's block walk, then block emission in tape order."""
     segs = dec.segments()
     stats = dict(nblocks=0, ntapemarks=0, nerrblocks=0, nwarnblocks=0,
                  nunusable=0, nmismatched=0, nmidbiterr=0, ncorrected=0,
@@ -851,6 +937,19 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions):
         dec.calibrate_deskew(segs)
         stats["deskew_percent"] = dec.deskew_percent
     stats["skew"] = dec.skew.tolist()
+    if opts.parmscan and log and opts.mode != tb.MODE_GCR:
+        log("-parmscan is only implemented for GCR (as in the reference's "
+            "GCR_PARMSCAN build); ignored\n")
+    if opts.parmscan and log and opts.mode == tb.MODE_GCR:
+        # the reference re-scans at every block position while numblks ==
+        # 0: here the segments up to and including the first that does
+        # not decode as noise (or nothing) with parmset 0
+        for sp in segs:
+            gcr_parmscan(dec, sp, log)
+            r0 = dec.decode_segment(*sp, nparms=1)
+            if int(r0["blktype"][0]) not in (nrzi_mod.BS_NONE,
+                                             nrzi_mod.BS_NOISE):
+                break
     if not segs:
         return [], stats
 

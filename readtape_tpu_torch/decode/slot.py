@@ -12,6 +12,14 @@ CUDA tensor it launches csrc/nrzi_slot.cu; on a CPU tensor it runs
 the TPU kernel, both keep -correct, up to 16 tracks and any S below 2^30,
 as the XLA scan does.
 
+The exponential clock average, a * delta + (1 - a) * avg in the JAX
+package, is one fused multiply-add in XLA's CPU build, and which product
+it fuses depends on the program: fma(a, delta, (1 - a) * avg) in its NRZI
+peak path and in its -zeros batches of several parmsets, fma(1 - a, avg,
+a * delta) in its -zeros batches of one parmset (found on -zeros tapes
+whose peak histograms differ by the choice, tests/
+test_torch_zeros_pipeline.py). ``clk_avg_fma`` selects the second.
+
 FusedOut, for B segments x P parmsets:
   bits  int8  [B, P, T, maxb]
   hist  int32 [B, P, T, 50]
@@ -39,7 +47,8 @@ N_LI = 6
 
 def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                expected_parity: int, do_correct: bool, maxb: int,
-               max_slots: int, stat_lb: float, stat_bw: float):
+               max_slots: int, stat_lb: float, stat_bw: float,
+               clk_avg_fma: bool = False):
     """nrzi.nrzi_slot_scan over every (b, p) lane of the admission
     outputs fin ([B, P, T, K] buffers, [B, P, T] counts and per-track
     fields); returns FusedOut."""
@@ -57,7 +66,7 @@ def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
         lanes(fin["n_admitted"]), S, spb, pa.clk_window[pp],
         pa.clk_alpha[pp], pa.pulse_adj[pp], pa.midbit[pp], expected_parity,
         do_correct, maxb, max_slots, stat_lb, stat_bw,
-        clk_ring=max(int(pa.clk_window.max()), 1))
+        clk_ring=max(int(pa.clk_window.max()), 1), clk_avg_fma=clk_avg_fma)
     trk_i = torch.stack([st["dc"], st["kvis"], lanes(fin["n_admitted"]),
                          st["trksums"], lanes(fin["incomplete"]).to(I32)],
                         dim=-1)
@@ -103,15 +112,17 @@ nrzi_slot_scan_plain.calls = 0
 
 def nrzi_slot_scan(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                    expected_parity: int, do_correct: bool, maxb: int,
-                   max_slots: int, stat_lb: float, stat_bw: float):
+                   max_slots: int, stat_lb: float, stat_bw: float,
+                   clk_avg_fma: bool = False):
     """fin: decode/scan.py's outputs for B segments x P parmsets; pa: the
     P parmsets; S: the segments' bucket; spb: samples per bit; maxb: bit
     buffer length; max_slots: slot cap per lane; stat_lb/stat_bw:
-    peak-statistics bins in samples. Returns FusedOut."""
+    peak-statistics bins in samples; clk_avg_fma: the clock's other
+    contraction (module docstring). Returns FusedOut."""
     kw = dict(S=int(S), spb=float(spb), expected_parity=int(expected_parity),
               do_correct=bool(do_correct), maxb=int(maxb),
               max_slots=int(max_slots), stat_lb=float(stat_lb),
-              stat_bw=float(stat_bw))
+              stat_bw=float(stat_bw), clk_avg_fma=bool(clk_avg_fma))
     dev = fin["tr_s"].device
     if dev.type == "cpu":
         return nrzi_slot_scan_plain(fin, pa, **kw)

@@ -65,7 +65,7 @@ class NrziSlotArgs(ctypes.Structure):
         "lane_i", "stamps")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "K", "maxb", "max_slots", "do_correct",
-            "exp_par")] + [
+            "exp_par", "clk_avg_fma")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
 
 
@@ -363,7 +363,8 @@ def nrzi_scan_tracks(feat, nxt, pa, **kw):
 
 
 def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
-                      do_correct, maxb, max_slots, stat_lb, stat_bw):
+                      do_correct, maxb, max_slots, stat_lb, stat_bw,
+                      clk_avg_fma=False):
     """The NrziSlotArgs block and zeroed outputs of one nrzi_slot launch
     (_prepare's return). fin: nrzi_scan's outputs (tr_s is fin's, first so
     that _launch finds the device). Outputs as decode.fused.FusedOut."""
@@ -383,7 +384,8 @@ def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
     ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
     args = NrziSlotArgs(**ptrs, B=B, P=P, T=T, S=S, K=K, maxb=maxb,
                         max_slots=max_slots, do_correct=int(bool(do_correct)),
-                        exp_par=int(expected_parity), spb=float(spb),
+                        exp_par=int(expected_parity),
+                        clk_avg_fma=int(bool(clk_avg_fma)), spb=float(spb),
                         stat_lb=float(stat_lb), stat_bw=float(stat_bw))
     return args, out, ins
 

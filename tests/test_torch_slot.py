@@ -21,7 +21,10 @@ track to flip: the first of the highest. That case is not held to the
 JAX package: with all nine tracks in every window, its XLA scan's sum of
 the window positions (8 strided partial sums on the CPU, not the track
 order of the C program and the port) rounds differently
-(scripts/probe_slot_sum_order.py).
+(scripts/probe_slot_sum_order.py). Last, the one-block lane with
+clk_avg_fma (the exponential clock's other fused multiply-add, which the
+JAX package's -zeros batches of one parmset use) against the plain
+version given the same flag.
 
 Tolerance: none; bits, counts, histograms and f32 times are exact.
 """
@@ -192,3 +195,20 @@ def test_host_slot_lane_matches_plain(tiered_host_lib, name):  # noqa: F811
         lane = want["lane_i"][0]
         assert (lane[:, tfu.LI_CORR] == 1).all()
         assert (lane[:, tfu.LI_FAKED] == 1 << (8 - TIE[0])).all()
+
+
+def test_host_slot_lane_other_clock_contraction(tiered_host_lib):  # noqa: F811
+    """B6's lane with clk_avg_fma (the exponential clock as fma(1 - a,
+    avg, a * delta), the contraction of the JAX package's -zeros batches
+    of one parmset: decode/slot.py) against the plain version given the
+    same flag."""
+    fin, pa, kw, _, _ = slot_case("1blk")
+    kw = dict(kw, clk_avg_fma=True)
+    want = tsl.nrzi_slot_scan_plain(fin, pa, **kw)
+    args, got, keep = kernels.nrzi_slot_prepare(fin["tr_s"], fin, pa, **kw)
+    assert args.clk_avg_fma == 1
+    tiered_host_lib.slot_host_run(ctypes.byref(args))
+    del keep
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)

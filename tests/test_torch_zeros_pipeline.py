@@ -9,8 +9,11 @@ Tolerance: none.
 Tapes: short 9-track GCR tapes with -zeros -correct (as
 9trk_GCR/example2) and with -differentiate -zeros (pulses 0.45 bits wide
 and no noise, as 9trk_GCR/example3), and short 9- and 7-track NRZI tapes
-with -zeros (the chain of one window per block). On these synthesized
-pulse tapes plain -zeros recovers no block in either package (PERF.md).
+with -zeros (the chain of one window per block), the 9-track one also
+with -differentiate -zeros on pulses 0.45 bits wide and no noise. On
+these synthesized pulse tapes plain -zeros recovers no block in either
+package (PERF.md); -differentiate -zeros recovers every block in both,
+which the test checks against the payloads.
 """
 
 import numpy as np
@@ -39,26 +42,32 @@ CASES = {
     "nrzi 9trk": (tb.MODE_NRZI, {}, 5, (100, 80), dict(bpi=800, ips=50)),
     "nrzi 7trk": (tb.MODE_NRZI, dict(ntrks=7, bpi=556), 6, (60, 50),
                   dict(bpi=556, ips=50)),
+    "nrzi -differentiate": (tb.MODE_NRZI, dict(pulse_width_bits=0.45,
+                                               noise_rms=0.0), 7, (100, 80),
+                            dict(bpi=800, ips=50, differentiate=True)),
 }
 
 
 def _tape(name):
+    """(header, samples, payloads) of a CASES tape."""
     mode, spec_kw, seed, sizes, _ = CASES[name]
     rng = np.random.default_rng(seed)
     hi = 64 if spec_kw.get("ntrks") == 7 else 256
+    payloads = [bytes(rng.integers(0, hi, n, dtype=np.uint8))
+                for n in sizes]
     items = []
-    for n in sizes:
-        items += [("block", bytes(rng.integers(0, hi, n, dtype=np.uint8))),
-                  ("tapemark",)]
-    return synthesize_tape(default_spec(mode, ibg_secs=0.003,
-                                        start_gap_secs=0.003, **spec_kw),
-                           items)
+    for p in payloads:
+        items += [("block", p), ("tapemark",)]
+    hdr, samples = synthesize_tape(default_spec(mode, ibg_secs=0.003,
+                                                start_gap_secs=0.003,
+                                                **spec_kw), items)
+    return hdr, samples, payloads
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_zeros_decode_matches_jax(name):
     mode, _, _, _, extra = CASES[name]
-    hdr, samples = _tape(name)
+    hdr, samples, payloads = _tape(name)
     kw = dict(mode=mode, ntrks=hdr.ntrks, deltat=hdr.tdelta_ns * 1e-9,
               maxvolts=hdr.maxvolts, find_zeros=True, **extra)
     jout, jst = jpl.decode_tape(samples, jpl.DecodeOptions(**kw))
@@ -86,3 +95,5 @@ def test_zeros_decode_matches_jax(name):
     for k in COUNTERS + ("skew", "peak_bins"):
         assert tst[k] == jst[k], k
     assert len(tout) >= 2
+    if extra.get("differentiate"):
+        assert [b.data for b in tout if b.kind == "data"] == payloads
