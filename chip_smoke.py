@@ -42,11 +42,14 @@ non-zero:
               kernels: zerocross_transitions (Z1) plain and
               differentiated and gcr_zeros_scan (Z2) on synthesized
               9-track GCR segments (B=4, S=16384), Z1 at the first launch
-              of phase 4's GCR -zeros decode (B=40) and of its
-              -differentiate -zeros decode, Z2 at the GCR -zeros decode's
-              retry (B=16, P=5), and nrzi_slot_scan (B6) on Z1's NRZI
-              transitions at the first launch of the NRZI -zeros chain;
-              all timed
+              of phase 4's GCR -zeros decode (B=40), of the NRZI -zeros
+              chain (B=1, the launch the chain makes 1,096 times) and of
+              the -differentiate -zeros decode, Z2 at the GCR -zeros
+              decode's retry (B=16, P=5), and nrzi_slot_scan (B6) on
+              Z1's NRZI transitions at the first launch of the NRZI
+              -zeros chain; all timed, each with its bound and its
+              serial chain (Z1 plain: the significant phases of pass B;
+              Z2: the admitted transitions; Z1 differentiated: none)
   4. main     decode_tape on the card at bench scale, each path with the
               launch counts set to 0 just before it and read just after:
               NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026, 8
@@ -111,7 +114,9 @@ stack frame, spills of each kernel), the phases of nrzi_fused_scan and
 the slot machine of nrzi_slot_scan at their NRZI bench launches (with
 the machine's time per slot by kind of step), nrzi_track_scan_tracks'
 walk per lane at the tiered bench's first launch, the phases of
-gcr_fused_scan at the GCR bench's launch, the time of each of
+gcr_fused_scan at the GCR bench's launch, Z1's passes A, B and C per
+lane (plain at B=40 and at the NRZI chain's B=1, differentiated) and
+Z2's walk per admitted transition, the time of each of
 ww_fused_scan's launches at the Whirlwind bench tape and of each phase
 of pe_fused_scan at the PE bench decode's first launch and at its
 second (a walk hop, B=1), then times where a warm decode_tape of each
@@ -1131,8 +1136,9 @@ def compare_zc(name, volts, seg_lens, leads, kw):
     """One launch of Z1 against its plain version on the same card
     inputs; compare_kernel's dict, with the kernel's lists as "out". The
     bound reads the volts once and writes the lists once; ~5 f32
-    operations (abs, compares, max) per sample. The chain is one lane's
-    walk over its S samples."""
+    operations (abs, compares, max) per sample. The chain: the plain
+    variant's pass B, one step per significant phase (a lane's longest
+    list); the differentiated variant has no serial pass."""
     from readtape_tpu_torch.decode import zeros
     got = zeros.zerocross_transitions(volts, seg_lens, leads, **kw)
     sync()
@@ -1148,12 +1154,13 @@ def compare_zc(name, volts, seg_lens, leads, kw):
     b_ms, b_by = bound_of(nbytes([volts]) + nbytes(want.values()),
                           5 * volts.numel())
     B, T, S = volts.shape
+    chain = ("no serial pass" if kw["differentiated"] else chain_note(
+        int(want["valid"].sum(dim=-1).max()), "significant phases", t_kern))
     print(f"  {name} (B={B} T={T} S={S} cap={kw['cap']}): kernel "
           f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
           f"({b_by}), {int(want['valid'].sum())} transitions, "
-          f"{int(want['overflow'].sum())} segments over cap, "
-          f"{chain_note(S, 'samples', t_kern)}, equal (max f32 err {err})",
-          flush=True)
+          f"{int(want['overflow'].sum())} segments over cap, {chain}, "
+          f"equal (max f32 err {err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by, out=got)
 
@@ -1163,7 +1170,7 @@ def compare_zs(name, trans, pa, kw):
     inputs; compare_kernel's dict. The bound reads each track's valid
     list entries (t, dt, ok, valid) once and writes the bits and
     per-track fields once; ~30 f32 operations per emitted transition.
-    The chain is the longest lane's emitted transitions."""
+    The chain is the longest walker's admitted (emitted) transitions."""
     from readtape_tpu_torch.decode import zeros
     got = zeros.gcr_zeros_scan(trans, pa, **kw)
     sync()
@@ -1186,7 +1193,8 @@ def compare_zs(name, trans, pa, kw):
     print(f"  {name} (B={B} P={P} T={T} cap={trans['t'].shape[-1]}): "
           f"kernel {t_kern:.3f} ms, plain {t_plain:.1f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}), {n_emit} emitted transitions, "
-          f"{chain_note(chain, 'transitions', t_kern)}, equal (max f32 err "
+          f"{chain_note(chain, 'admitted transitions', t_kern)}, equal "
+          f"(max f32 err "
           f"{err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by)
@@ -1196,10 +1204,12 @@ def phase_zeros_kernel():
     """Z1 (plain and differentiated) and Z2 against their plain versions
     on zeros_inputs' segments (S=16384, Z2 over Z1's plain lists with the
     5 GCR parmsets), then each at the launches of phase 4's -zeros
-    decodes: Z1 at the GCR bench tape's first (B=40) and at the
-    example3-recipe bench's (differentiated), Z2 at the GCR bench's
-    retry (B=40, P=5); and B6 on Z1's NRZI transitions, at the first
-    launch of the NRZI bench tape's -zeros chain (its first two blocks)."""
+    decodes: Z1 at the GCR bench tape's first (B=40), at the NRZI bench
+    tape's -zeros chain's first window (B=1: the launch the chain makes
+    1,096 times) and at the example3-recipe bench's (differentiated), Z2
+    at the GCR bench's first retry (B=16, P=5); and B6 on Z1's NRZI
+    transitions, at the chain's first launch (the tape's first two
+    blocks)."""
     import dataclasses
 
     from readtape_tpu_torch import kernels
@@ -1229,9 +1239,13 @@ def phase_zeros_kernel():
     res["z1 diff main"] = compare_zc("z1 diff main", v, seg_lens, leads, kw)
     del v
     _, hdr, samples = bench_tape(nblocks=2)
-    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, dataclasses.
-                               replace(tape_options(hdr, tb.MODE_NRZI, 800),
-                                       find_zeros=True))
+    zopts = dataclasses.replace(tape_options(hdr, tb.MODE_NRZI, 800),
+                                find_zeros=True)
+    (v, seg_lens, leads), kw = first_call(kernels, "zerocross", samples,
+                                          zopts)
+    res["z1 chain"] = compare_zc("z1 chain", v, seg_lens, leads, kw)
+    del v
+    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, zopts)
     res["b6 zeros"] = compare_slot("b6 zeros", fin, pa, kw)
     return res
 
@@ -2041,6 +2055,80 @@ def gcr_phases():
           f"{float(1 / ns.mean()):.3f} GHz", flush=True)
 
 
+def zeros_phases():
+    """Where Z1's and Z2's time goes at their main-path shapes, from
+    clock64() stamps (cycles turned into ns by the global timer over the
+    same span). Z1 at the GCR -zeros bench's first launch (B=40), at the
+    NRZI -zeros chain's first window (B=1) and differentiated at the
+    example3 recipe's (B=40): per (segment, track) lane, thread 0's time
+    in pass A (the scans and bucket records), pass B (the serial pass over
+    the significant phases; none when differentiated) and pass C (the
+    confirmation samples and the entries), mean and max over lanes, and
+    the longest pass B per bucket. Z2 at the first retry (B=16, P=5): each
+    walker's time walking per admitted transition and per list entry."""
+    import dataclasses
+
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = gcr_bench_tape()
+    gopts = tape_options(hdr, tb.MODE_GCR, 9042, 25, find_zeros=True)
+    _, hdr, dvolts = gcr_diff_bench_tape()
+    dopts = tape_options(hdr, tb.MODE_GCR, 9042, 25, maxvolts=32767.0,
+                         differentiate=True, find_zeros=True)
+    _, hdr, nsamples = bench_tape(nblocks=2)
+    nopts = dataclasses.replace(tape_options(hdr, tb.MODE_NRZI, 800),
+                                find_zeros=True)
+    for case, smp, opts in (("z1 main", samples, gopts),
+                            ("z1 chain", nsamples, nopts),
+                            ("z1 diff main", dvolts, dopts)):
+        (volts, seg_lens, leads), kw = first_call(kernels, "zerocross", smp,
+                                                  opts)
+        kernels.zerocross_stamps(volts, seg_lens, leads, **kw)
+        _, st = kernels.zerocross_stamps(volts, seg_lens, leads, **kw)
+        st = st.double()
+        ns = (st[:, 3] - st[:, 0]) / (st[:, 2] - st[:, 1])
+        parts = []
+        for k, label in ((kernels.ZC_ST_A, "pass A"),
+                         (kernels.ZC_ST_B, "pass B"),
+                         (kernels.ZC_ST_C, "pass C")):
+            d = st[:, k] * ns / 1e6
+            parts.append(f"{label} mean {float(d.mean()):.3f} max "
+                         f"{float(d.max()):.3f} ms")
+        pb = st[:, kernels.ZC_ST_B] * ns
+        lb = int(pb.argmax())
+        nb = max(float(st[lb, kernels.ZC_ST_NB]), 1.0)
+        wall = (st[:, 3] - st[:, 0]) / 1e6
+        t = time_launches(lambda: kernels.zerocross(volts, seg_lens, leads,
+                                                    **kw), 10)
+        B, T, S = volts.shape
+        print(f"Z1 zerocross_transitions {case} (B={B} T={T} S={S}): kernel "
+              f"{t:.3f} ms; per lane (clock64): " + "; ".join(parts)
+              + f"; longest pass B {float(pb[lb]) / 1e6:.3f} ms ({int(nb)} "
+              f"buckets, {float(pb[lb]) / nb:.0f} ns per bucket); lane wall "
+              f"mean {float(wall.mean()):.3f} max {float(wall.max()):.3f} "
+              f"ms; SM clock {float(1 / ns.mean()):.3f} GHz", flush=True)
+        del volts
+    (trans, pa), kw = first_call(kernels, "gcr_zeros", samples, gopts,
+                                 index=1)
+    kernels.gcr_zeros_stamps(trans, pa, **kw)
+    _, st = kernels.gcr_zeros_stamps(trans, pa, **kw)
+    st = st.double()
+    ns = (st[:, 3] - st[:, 0]) / (st[:, 2] - st[:, 1])
+    walk = st[:, kernels.ZS_ST_WALK] * ns
+    lane = int(walk.argmax())
+    w = float(walk[lane])
+    steps = max(float(st[lane, kernels.ZS_ST_STEPS]), 1.0)
+    ent = max(float(st[lane, kernels.ZS_ST_ENT]), 1.0)
+    t = time_launches(lambda: kernels.gcr_zeros(trans, pa, **kw), 10)
+    B, T, cap = trans["t"].shape
+    print(f"Z2 gcr_zeros_scan z2 main (B={B} P={len(pa.z1pt)} T={T} "
+          f"cap={cap}): kernel {t:.3f} ms; per walker walk (clock64) mean "
+          f"{float(walk.mean()) / 1e6:.3f} max {w / 1e6:.3f} ms ("
+          f"{int(steps)} admitted transitions, {w / steps:.0f} ns per "
+          f"transition; {int(ent)} entries, {w / ent:.0f} ns per entry); "
+          f"SM clock {float(1 / ns.mean()):.3f} GHz", flush=True)
+
+
 def b5b_phases():
     """Where B5b's time goes at its main-path shape (the tiered NRZI bench
     decode's first launch, B=128): per (segment, parmset, track) lane, the
@@ -2165,6 +2253,7 @@ def breakdown(card):
     nrzi_phases()
     b5b_phases()
     gcr_phases()
+    zeros_phases()
     kernel_phases()
     print(f"host activity scan: "
           f"{'native tape_scan' if native.available() else 'numpy'}; {card}",

@@ -108,8 +108,6 @@ def gcr_zeros_scan(trans, pa: cm.ParmArrays, *, spb: float, maxb: int):
     if dev.type != "cuda":
         raise ValueError(f"gcr_zeros_scan: no kernel for {dev}")
     _check_trans(trans, pa, kw["maxb"])
-    if int(pa.clk_window.max()) > kernels.NRZI_MAX_CLK_RING:
-        raise ValueError("clk_window beyond the kernel's ring")
     out = kernels.gcr_zeros(trans, pa, **kw)
     gcr_zeros_scan.launches += 1
     out.update(gcr_mod.zeros_fixed_fields(out["datacount"].shape, dev))

@@ -114,7 +114,7 @@ class ZcArgs(ctypes.Structure):
     """csrc/zeros_core.h::ZcArgs, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "volts", "seg_len", "lead", "t", "dt", "det", "ok", "is_top",
-        "valid", "n_found")] + [
+        "valid", "n_found", "stamps")] + [
         (n, ctypes.c_int32) for n in ("B", "T", "S", "cap", "diff")]
 
 
@@ -123,8 +123,9 @@ class ZsArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "t", "dt", "ok", "valid", "p_clk_window", "p_clk_alpha", "p_z1pt",
         "p_z2pt", "p_pulse_adj", "bits", "datacount", "peakcount",
-        "t_firstbit", "t_lastbit")] + [
-        (n, ctypes.c_int32) for n in ("B", "P", "T", "cap", "maxb")] + [
+        "t_firstbit", "t_lastbit", "stamps")] + [
+        (n, ctypes.c_int32) for n in ("B", "P", "T", "cap", "maxb",
+                                      "ring")] + [
         ("spb", ctypes.c_float)]
 
 
@@ -150,6 +151,13 @@ SLOT_NSTAMP = SLOT_ST_MACH + len(NRZI_MACH)
 # start and end, the walker's cycles spent walking, its steps
 SCAN_ST_G0, SCAN_ST_C0, SCAN_ST_C1, SCAN_ST_G1 = 0, 1, 2, 3
 SCAN_ST_WALK, SCAN_ST_STEPS, SCAN_NSTAMP = 4, 5, 6
+# zeros_core.h's stamps. Z1 per (segment, track) lane: global timer and
+# clock64() at the start and end, thread 0's cycles in passes A, B and C,
+# the buckets pass B stepped over. Z2 per (segment, parmset, track)
+# walker: global timer and clock64() at the start and end, its cycles
+# walking, the entries it walked, the transitions it emitted
+ZC_ST_A, ZC_ST_B, ZC_ST_C, ZC_ST_NB, ZC_NSTAMP = 4, 5, 6, 7, 8
+ZS_ST_WALK, ZS_ST_ENT, ZS_ST_STEPS, ZS_NSTAMP = 4, 5, 6, 7
 GCR_N_GR = 5
 # the launch functions of the library and their argument blocks
 LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
@@ -444,12 +452,14 @@ def _phase_stamps(name, prepare, nstamp, first, *args, per_track=False,
     """One <name>_launch with per-lane phase stamps (nstamp int64 each),
     synchronized (for timing only); `first` is the tensor whose device the
     launch runs on. Lanes are (segment, parmset) pairs, or with per_track
-    (segment, parmset, track) triples. Returns (outputs, stamps [lanes,
-    nstamp] on the host)."""
+    (segment, parmset, track) triples (Z1, without parmsets: (segment,
+    track) pairs). Returns (outputs, stamps [lanes, nstamp] on the
+    host)."""
     lib = load()
     with torch.cuda.device(first.device):
         block, out, keep = prepare(first, *args, **kw)
-        lanes = block.B * block.P * (block.T if per_track else 1)
+        lanes = (block.B * getattr(block, "P", 1)
+                 * (block.T if per_track else 1))
         st = torch.zeros((lanes, nstamp), dtype=torch.int64,
                          device=first.device)
         block.stamps = st.data_ptr()
@@ -596,7 +606,7 @@ def zerocross_prepare(volts, seg_lens, leads, *, cap, differentiated):
                valid=torch.empty(shape, dtype=torch.bool, device=dev),
                n_found=torch.empty((B, T), dtype=I32, device=dev))
     ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
-    args = ZcArgs(**ptrs, B=B, T=T, S=S, cap=cap,
+    args = ZcArgs(**ptrs, stamps=None, B=B, T=T, S=S, cap=cap,
                   diff=int(bool(differentiated)))
     return args, out, ins
 
@@ -607,6 +617,12 @@ def zerocross(volts, seg_lens, leads, **kw):
                    **kw)
 
 
+def zerocross_stamps(volts, seg_lens, leads, **kw):
+    """Z1 with zeros_core.h's stamps [B*T, ZC_NSTAMP]."""
+    return _phase_stamps("zerocross", zerocross_prepare, ZC_NSTAMP, volts,
+                         seg_lens, leads, per_track=True, **kw)
+
+
 def gcr_zeros_prepare(t, trans, pa, *, spb, maxb):
     """The ZsArgs block and zeroed outputs of one gcr_zeros launch
     (_prepare's return). trans: Z1's lists (t is trans["t"], first so
@@ -615,6 +631,9 @@ def gcr_zeros_prepare(t, trans, pa, *, spb, maxb):
     dev = t.device
     B, T, cap = t.shape
     P = len(pa.z1pt)
+    ring = max(1, int(pa.clk_window.max()))    # each walker's clock ring
+    if ring > NRZI_MAX_CLK_RING:
+        raise ValueError("clk_window beyond the kernel's ring")
     ins = {k: trans[k].contiguous() for k in ("t", "dt", "ok", "valid")}
     ins.update(_knob_tensors(pa, dev, p_clk_window="clk_window",
                              p_clk_alpha="clk_alpha", p_z1pt="z1pt",
@@ -626,8 +645,8 @@ def gcr_zeros_prepare(t, trans, pa, *, spb, maxb):
                t_firstbit=torch.empty(shape, dtype=F32, device=dev),
                t_lastbit=torch.empty(shape, dtype=F32, device=dev))
     ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
-    args = ZsArgs(**ptrs, B=B, P=P, T=T, cap=cap, maxb=maxb,
-                  spb=float(spb))
+    args = ZsArgs(**ptrs, stamps=None, B=B, P=P, T=T, cap=cap, maxb=maxb,
+                  ring=ring, spb=float(spb))
     return args, out, ins
 
 
@@ -635,3 +654,9 @@ def gcr_zeros(trans, pa, **kw):
     """Launch csrc/zeros.cu's Z2."""
     return _launch("gcr_zeros", gcr_zeros_prepare, trans["t"], trans, pa,
                    **kw)
+
+
+def gcr_zeros_stamps(trans, pa, **kw):
+    """Z2 with zeros_core.h's walker stamps [B*P*T, ZS_NSTAMP]."""
+    return _phase_stamps("gcr_zeros", gcr_zeros_prepare, ZS_NSTAMP,
+                         trans["t"], trans, pa, per_track=True, **kw)
