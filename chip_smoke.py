@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths, -zeros and
-float (CSV) tapes included, and its command line (-parmscan included),
-on one NVIDIA GPU and check them.
+float (CSV) tapes included, its command line (-parmscan included) and
+NRZI -adjskew and -correctdbg, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,13 @@ non-zero:
               the -differentiate -zeros decode, Z2 at the GCR -zeros
               decode's retry (B=16, P=5), and nrzi_slot_scan (B6) on
               Z1's NRZI transitions at the first launch of the NRZI
-              -zeros chain; all timed, each with its bound and its
+              -zeros chain; B6 in the modes of -adjskew (B=1, P=1, the
+              bench's first segment, random non-zero accumulator seeds)
+              and -correctdbg (B=16, P=8; and with a mid-block bit
+              dropped per lane, so that every lane corrects), and the
+              admission before each (B5b, B5a), at the first launch
+              each option's bench decode makes; all timed, each with
+              its bound and its
               serial chain (Z1 plain: the significant phases of pass B;
               Z2: the admitted transitions; Z1 differentiated: none)
   4. main     decode_tape on the card at bench scale, each path with the
@@ -103,6 +109,15 @@ non-zero:
               lines equal to the plain version's; then the whole
               5,280-combo grid through the command line (its launches of
               B3 and its time), the .tap against the ground truth
+  8. options  -adjskew on tests/test_cli_oracle.py's recipe (skewed
+              tracks, five blocks and a tapemark, seed 42), -correctdbg on
+              its recipe (seed 67) and on a tape where it corrects a bit
+              that -correct does not: each decoded on the card and on
+              the CPU (blocks, per-track reports, final skew equal; B5b
+              or B5a and B6 launched, B1 not) and through the command
+              line on both (.tap and .log equal); then the NRZI bench
+              tape under each option, timed with the launch counts set
+              to 0 just before, every block against the ground truth
 
 Then one JSON line describing the kernels, the card's name and power
 limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
@@ -536,6 +551,76 @@ def nrzi_noisy_tape(seed=1):
                         time_jitter_bits=0.1, ibg_secs=0.004,
                         start_gap_secs=0.004, seed=seed)
     return synthesize_tape(spec, [("block", b) for b in blocks])
+
+
+def adjskew_tape(seed=42):
+    """tests/test_cli_oracle.py's -adjskew recipe: five blocks of 200, 80,
+    512, 120 and 300 bytes with a tapemark after the second, track skews
+    of 0,3,1,5,2,0,4,1,2 samples, seed 42. Returns (blocks, hdr,
+    samples)."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(seed)
+    spec = default_spec(tb.MODE_NRZI,
+                        skew_samples=(0, 3, 1, 5, 2, 0, 4, 1, 2))
+    blocks = [bytes(rng.integers(0, 256, n, dtype=np.uint8))
+              for n in (200, 80, 512, 120, 300)]
+    items = [("block", b) for b in blocks]
+    items.insert(2, ("tapemark",))
+    return (blocks,) + synthesize_tape(spec, items)
+
+
+def correctdbg_tape(seed=67):
+    """tests/test_cli_oracle.py's -correctdbg recipe: three blocks of 150
+    bytes, 0.04 V noise, 8% amplitude jitter, seed 67. Returns (blocks,
+    hdr, samples)."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    rng = np.random.default_rng(seed)
+    blocks = [bytes(rng.integers(0, 256, 150, dtype=np.uint8))
+              for _ in range(3)]
+    spec = default_spec(tb.MODE_NRZI, noise_rms=0.04, amp_jitter=0.08)
+    return (blocks,) + synthesize_tape(spec, [("block", b) for b in blocks])
+
+
+def flipped_bit_tape(flip=90, trk=4, weak=0.4, strong=1.3):
+    """tests/test_torch_correctdbg.py's tape where -correctdbg and
+    -correct differ: the -correctdbg recipe's blocks without amplitude
+    jitter, one data bit of track 4 flipped in frame 90 of every block
+    (the CRC and LRC written for the true data), and from a fifth of each
+    block on track 4 at 0.4 and the other tracks at 1.3 times their
+    amplitude, so that track 4's AGC gain reaches twice the others': the
+    DEBUG build's check corrects the bit. Returns (blocks, hdr,
+    samples)."""
+    import numpy as np
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.synth import default_spec, synthesize_tape
+    from readtape_tpu_torch.synth import synthesize as syn
+    rng = np.random.default_rng(67)
+    blocks = [bytes(rng.integers(0, 256, 150, dtype=np.uint8))
+              for _ in range(3)]
+    frames = syn.nrzi_block_frames
+
+    def flipped(data, spec):
+        fr = list(frames(data, spec))
+        fr[flip] ^= 1 << (spec.ntrks - 1 - trk)
+        return fr
+    syn.nrzi_block_frames = flipped
+    try:
+        hdr, samples = synthesize_tape(
+            default_spec(tb.MODE_NRZI, noise_rms=0.01, seed=67),
+            [("block", b) for b in blocks])
+    finally:
+        syn.nrzi_block_frames = frames
+    x = samples.astype(np.float64)
+    active = np.nonzero(np.abs(x).max(axis=1) > 0.3 * np.abs(x).max())[0]
+    for blk in np.split(active, np.nonzero(np.diff(active) > 1000)[0] + 1):
+        a, b = int(blk[0] + (blk[-1] - blk[0]) * 0.2), int(blk[-1]) + 40
+        x[a:b] *= strong
+        x[a:b, trk] *= weak / strong
+    return blocks, hdr, np.clip(np.rint(x), -32767, 32767).astype(np.int16)
 
 
 def pe_bench_tape(seed=4100, nblocks=60, blocksize=1200):
@@ -996,12 +1081,13 @@ def compare_scan(name, kernel, feat, nxt, pa, kw):
                 bound_by=b_by, out=got)
 
 
-def compare_slot(name, fin, pa, kw):
+def compare_slot(name, fin, pa, kw, must_correct=None):
     """One launch of B6 against its plain version on the same buffers;
     compare_kernel's dict. The bound counts each admitted transition's
-    (s, t, agc) read once and every output written once; ~40 f32
-    operations per track and slot. Under -correct the machine must flip
-    at least one bit."""
+    (s, t, agc) read once, -adjskew's seeds read once and every output
+    written once; ~40 f32 operations per track and slot. must_correct:
+    True, -correct must flip a bit somewhere; a [B, P] bool mask, in
+    every lane it holds (at least one)."""
     from readtape_tpu_torch.decode import fused as tfu
     from readtape_tpu_torch.decode import slot
     got = slot.nrzi_slot_scan(fin, pa, **kw)
@@ -1017,11 +1103,18 @@ def compare_slot(name, fin, pa, kw):
     n_tr = int(fin["n_admitted"].clamp(max=K).sum())
     n_slots = int(want["lane_i"][..., tfu.LI_NSLOT].sum())
     t_kern = time_launches(lambda: slot.nrzi_slot_scan(fin, pa, **kw), 10)
-    b_ms, b_by = bound_of(n_tr * 12 + nbytes(want.values()),
+    seeds = kw.get("adj_init") or ()
+    b_ms, b_by = bound_of(n_tr * 12 + nbytes(seeds) + nbytes(want.values()),
                           40 * T * n_slots)
     corr = int(want["lane_i"][..., tfu.LI_CORR].sum())
-    if kw["do_correct"] and not corr:
+    flipped = want["lane_i"][..., tfu.LI_CORR] > 0
+    if must_correct is True and not bool(flipped.any()):
         raise AssertionError(f"{name}: -correct flipped no bit")
+    if must_correct is not None and must_correct is not True and not (
+            bool(must_correct.any())
+            and bool(flipped[must_correct.to(flipped.device)].all())):
+        raise AssertionError(f"{name}: -correct flipped no bit in a lane "
+                             f"that needs it")
     chain = int(want["lane_i"][..., tfu.LI_NSLOT].max())
     print(f"  {name} (B={B} P={P} T={T} K={K}): kernel {t_kern:.3f} ms, "
           f"plain {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -1057,6 +1150,88 @@ def drop_first_bits(fin, spb):
             n[b, p, k] -= 1
             agc[b, p, k, :int(n[b, p, k])] = 5.0
     return {k: v.to(fin[k].device) for k, v in host.items()}
+
+
+def drop_mid_bits(fin, spb, frame=40):
+    """B5's outputs with, in every lane, one track's transition in the
+    block's frame `frame` removed and that track's AGC gain at 5.0, so
+    that the DEBUG build's -correct flips the bit back in that column
+    (tests/test_torch_correctdbg.py's mid-block case, per lane); lanes
+    with nothing there are left as they are. Returns (the buffers, [B, P]
+    bool: the lanes that lost a transition)."""
+    import torch
+    host = {k: v.cpu().clone() for k, v in fin.items()}
+    s, t, agc, n = (host[k] for k in ("tr_s", "tr_t", "tr_agc",
+                                      "n_admitted"))
+    B, P, T, K = s.shape
+    dropped = torch.zeros((B, P), dtype=torch.bool)
+    for b in range(B):
+        for p in range(P):
+            if int(n[b, p].max()) < frame + 10:
+                continue
+            t0 = t[b, p, int(torch.argmin(s[b, p, :, 0])), 0]
+            valid = torch.arange(K) < n[b, p].unsqueeze(-1)
+            d = torch.where(valid, (t[b, p] - (t0 + frame * spb)).abs(),
+                            float("inf"))
+            near, j_of = d.min(dim=-1)             # per track
+            hit = (near < spb / 2).nonzero()
+            if not len(hit):
+                continue
+            k = int(hit[0, 0])
+            j = int(j_of[k])
+            for buf, fill in ((s, 2 ** 30), (t, 0.0), (agc, 1.0)):
+                buf[b, p, k, j:-1] = buf[b, p, k, j + 1:].clone()
+                buf[b, p, k, -1] = fill
+            n[b, p, k] -= 1
+            agc[b, p, k, :int(n[b, p, k])] = 5.0
+            dropped[b, p] = True
+    return {k: v.to(fin[k].device) for k, v in host.items()}, dropped
+
+
+def phase_option_kernel():
+    """B6 in the two modes only -adjskew and -correctdbg run, and the
+    admission each takes, against their plain versions at the first
+    launch each makes on the NRZI bench tape: -adjskew's B=1, P=1 (the
+    first segment; B5b, then B6 seeded with random non-zero accumulators,
+    numpy seed 13), -correctdbg's B=16, P=8 (B5a: the 8 parmsets have
+    three window widths; then B6 with the DEBUG build's -correct, and
+    again with one mid-block transition per lane dropped and that track's
+    gain raised, so that the check flips a bit in every lane)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = bench_tape()
+    base = tape_options(hdr, tb.MODE_NRZI, 800)
+    adj = dataclasses.replace(base, adjskew=True)
+    dbg = dataclasses.replace(base, do_correct=True, do_correct_debug=True)
+    res = {}
+    (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan_tracks", samples,
+                                     adj)
+    res["b5b adjskew"] = compare_scan("b5b adjskew", "nrzi_track_scan_tracks",
+                                      feat, nxt, pa, kw)
+    del feat, nxt
+    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, adj)
+    B, P, T, _ = fin["tr_s"].shape
+    rng = np.random.default_rng(13)
+    kw["adj_init"] = (
+        torch.as_tensor(rng.integers(1, 60, (B, P, T)).astype(np.float32),
+                        device=DEVICE),
+        torch.as_tensor(rng.uniform(-3, 3, (B, P, T)).astype(np.float32),
+                        device=DEVICE))
+    res["b6 adjskew"] = compare_slot("b6 adjskew", fin, pa, kw)
+    (feat, nxt, pa), kw = first_call(kernels, "nrzi_scan", samples, dbg)
+    res["b5a correctdbg"] = compare_scan("b5a correctdbg", "nrzi_track_scan",
+                                         feat, nxt, pa, kw)
+    del feat, nxt
+    (fin, pa), kw = first_call(kernels, "nrzi_slot", samples, dbg)
+    res["b6 correctdbg"] = compare_slot("b6 correctdbg", fin, pa, kw)
+    fin, dropped = drop_mid_bits(fin, kw["spb"])
+    res["b6 correctdbg-drop"] = compare_slot("b6 correctdbg-drop", fin, pa,
+                                             kw, must_correct=dropped)
+    return res
 
 
 def slot_kwargs(kw, S, do_correct):
@@ -1099,7 +1274,7 @@ def phase_tiered_kernel():
         if T == 9:
             res["b6 9trk-correct"] = compare_slot(
                 "b6 9trk-correct", drop_first_bits(fin, kw["spb"]), pa8,
-                slot_kwargs(kw, S, True))
+                slot_kwargs(kw, S, True), must_correct=True)
         if T == 9:
             feat, nxt, pa1, skw = tiered_inputs(volts, seg_lens, leads, pa,
                                                 kw, 1)
@@ -1266,6 +1441,7 @@ def phase_kernel():
         "nrzi main", "nrzi_fused_scan", *main_path_inputs(
             "nrzi_fused", samples, tape_options(hdr, tb.MODE_NRZI, 800)))
     res.update(phase_tiered_kernel())
+    res.update(phase_option_kernel())
     r = res["pe 9trk"] = compare_kernel(
         "pe 9trk", "pe_fused_scan", *pe_kernel_inputs(16384, seed=5))
     lane = r["out"]["lane_i"]
@@ -1840,6 +2016,109 @@ def phase_parmscan(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: -adjskew and -correctdbg
+# ---------------------------------------------------------------------------
+
+DEBUG_CORRECT = dict(do_correct=True, do_correct_debug=True)
+# admission on each option's path: one parmset a try (B5b), all eight
+# with their three window widths (B5a)
+OPTION_PATHS = (("-adjskew", dict(adjskew=True), "nrzi_track_scan_tracks"),
+                ("-correctdbg", DEBUG_CORRECT, "nrzi_track_scan"))
+
+
+def same_decodes(name, a, b):
+    """Two decode_tape results, block for block (detail, -adjskew's
+    reports included) with the run statistics and the final skew."""
+    import numpy as np
+    (out_a, st_a), (out_b, st_b) = a, b
+    if out_a != out_b:
+        raise AssertionError(f"{name}: card {[b.kind for b in out_a]} != "
+                             f"cpu {[b.kind for b in out_b]}")
+    for k in ("peak_hist", "tried", "chosen"):
+        if not np.array_equal(st_a[k], st_b[k]):
+            raise AssertionError(f"{name}: {k} differs")
+    if st_a["skew"] != st_b["skew"]:
+        raise AssertionError(f"{name}: final skew {st_a['skew']} != "
+                             f"{st_b['skew']}")
+
+
+def phase_options(card):
+    """-adjskew and -correctdbg on the card. First tests/test_cli_oracle.py's
+    two recipes and the tape where -correctdbg and -correct differ
+    (flipped_bit_tape), each decoded on the card (launch counts set to 0
+    just before, read just after: B5b or B5a and B6, not B1) and on the
+    CPU: blocks, -adjskew's reports and the final skew equal, the blocks
+    the ground truth; then through the command line on the card and on
+    the CPU: .tap and .log equal (the time masked). Then the NRZI bench
+    tape under each option, timed (decode_timed): its blocks against the
+    ground truth, its wall and launches. Returns {kernels-line entry:
+    (B6's launches, wall s, Msamples/s)}."""
+    import dataclasses
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import tbin as tb
+    tapes = (("-adjskew recipe", adjskew_tape(), OPTION_PATHS[0]),
+             ("-correctdbg recipe", correctdbg_tape(), OPTION_PATHS[1]),
+             ("-correctdbg, flipped bit", flipped_bit_tape(),
+              OPTION_PATHS[1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, (blocks, hdr, samples), (opt, over, admit)) in \
+                enumerate(tapes):
+            opts = tape_options(hdr, tb.MODE_NRZI, 800, **over)
+            reset_counts()
+            card_res = tpl.decode_tape(samples, opts, device=DEVICE)
+            sync()
+            launches = check_launches(name, [admit, "nrzi_slot_scan"],
+                                      ["nrzi_fused_scan"])
+            same_decodes(name, card_res,
+                         tpl.decode_tape(samples, opts, device="cpu"))
+            out, stats = card_res
+            if [b.data for b in out if b.kind == "data"] != blocks:
+                raise AssertionError(f"{name}: not the ground truth")
+            corr = sum(b.detail.get("corrected_bits", 0) for b in out)
+            if "flipped" in name and corr != len(blocks):
+                raise AssertionError(f"{name}: {corr} bits corrected")
+            logs = {}
+            here = os.getcwd()
+            try:
+                for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+                    # the same relative base name: the .log names it
+                    os.makedirs(os.path.join(tmp, f"{i}{where}"))
+                    os.chdir(os.path.join(tmp, f"{i}{where}"))
+                    tb.write_tbin("t.tbin", hdr, samples)
+                    run_cli(["-v", "-m", "-nrzi", opt, "-tap", "t"], dev)
+                    logs[where] = (tap_contents("t.tap"),
+                                   masked_lines("t.log"))
+            finally:
+                os.chdir(here)
+            if logs["card"] != logs["cpu"]:
+                raise AssertionError(f"{name}: the card's .tap or .log "
+                                     f"differs from the CPU's")
+            ndev = sum("deviation is" in ln for ln in logs["card"][1])
+            print(f"  {name}: {len(out)} blocks equal to the ground truth, "
+                  f"{corr} bits corrected, final skew {stats['skew']}, "
+                  f"launches {launches}; card == cpu; through the CLI .tap "
+                  f"and .log equal ({ndev} deviation lines)", flush=True)
+    runs = {}
+    blocks, hdr, samples = bench_tape()
+    for opt, over, admit in OPTION_PATHS:
+        entry = f"nrzi_slot_scan {opt}"
+        opts = tape_options(hdr, tb.MODE_NRZI, 800, **over)
+        launches, wall, msps, out, stats = decode_timed(
+            f"NRZI bench, {opt}", [admit, "nrzi_slot_scan"], samples, opts,
+            absent=["nrzi_fused_scan"])
+        data = [b.data for b in out if b.kind == "data"]
+        if data != blocks or stats["ntapemarks"] != 2:
+            raise AssertionError(f"NRZI bench, {opt}: not the ground truth")
+        print(f"  NRZI bench, {opt}: {samples.shape[0]:,} samples, "
+              f"{len(data)} blocks equal to the ground truth, tries "
+              f"{stats['tried'].tolist()}, final skew {stats['skew']}, "
+              f"launches {launches}: {wall:.3f} s wall, {msps:.3f} "
+              f"Msamples/s ({card})", flush=True)
+        runs[entry] = (launches["nrzi_slot_scan"], wall, msps)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # breakdown: where a bench decode's wall goes
 # ---------------------------------------------------------------------------
 
@@ -2358,9 +2637,16 @@ def main():
         fail("parmscan", str(e))
     print(f"phase 7 parmscan: ok, B3 at B=1 P=64 equal to plain, the "
           f"5,280-combo grid in {n} launches ({card})", flush=True)
+    try:
+        runs.update(phase_options(card))
+    except AssertionError as e:
+        fail("options", str(e))
+    print(f"phase 8 options: ok, -adjskew and -correctdbg card == cpu on "
+          f"their recipes, the bench tape under each to its ground truth "
+          f"({card})", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
-        fail("parmscan", "jax or the JAX package was imported")
+        fail("options", "jax or the JAX package was imported")
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),
@@ -2371,11 +2657,14 @@ def main():
                             ("gcr_fused_scan", "gcr main"),
                             ("ww_fused_scan", "ww main"),
                             ("zerocross_transitions", "z1 main"),
-                            ("gcr_zeros_scan", "z2 main")):
+                            ("gcr_zeros_scan", "z2 main"),
+                            ("nrzi_slot_scan -adjskew", "b6 adjskew"),
+                            ("nrzi_slot_scan -correctdbg", "b6 correctdbg")):
         r = times[main_case]
+        kernel = name.split()[0]
         line.append(dict(
-            name=name, route="cuda", source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"], launches=runs[name][0],
+            name=name, route="cuda", source=KERNELS[kernel]["source"],
+            replaces=KERNELS[kernel]["replaces"], launches=runs[name][0],
             max_abs_err=max(v["err"] for k, v in times.items()
                             if k.split()[0] == main_case.split()[0]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -13,8 +13,8 @@ versions), as the tests do. No path falls back to the CPU when the card is
 asked for and missing: the run raises before it writes anything.
 
 Not ported yet, and raising NotImplementedError before any file is read:
--adjskew, -correctdbg and -trace, and -mesh with more than one card
-visible (with one, it is ignored, as the JAX command line does).
+-trace, and -mesh with more than one card visible (with one, it is
+ignored, as the JAX command line does).
 """
 
 from __future__ import annotations
@@ -51,8 +51,9 @@ options include:
   -ascii -ebcdic -bcd -b5500 -sixbit -sds -sdsm -flexo -adage -adagetape
   -cdc -univac -linesize=n -dataspace=n -linefeed -tapread -outf= -outp=
   -sumt= -sumc= -m -nm -v[n] -q -f
-  -mesh[=DxP] (ignored with one card; more than one is not ported yet)
-not ported yet: -adjskew -correctdbg -trace[=a,b]
+  -adjskew -correctdbg (-correct with the reference DEBUG build's parity
+  index) -mesh[=DxP] (ignored with one card; more than one is not ported yet)
+not ported yet: -trace[=a,b]
 """
 
 
@@ -381,8 +382,7 @@ def process_file(o: Options, basefile: str, ext: str, *, device="cuda",
         from .decode.pipeline import check_device
         dev = check_device(device)
         cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-        for flag, name in ((o.trace, "-trace"), (o.adjskew, "-adjskew"),
-                           (o.correct_debug, "-correctdbg"),
+        for flag, name in ((o.trace, "-trace"),
                            (o.mesh is not None and cards > 1, "-mesh")):
             if flag:
                 raise NotImplementedError(name)
@@ -652,8 +652,7 @@ def write_outputs(o, outbase, blocks, stats, dopts, log, start_time,
                     f"parmset {blk.parmset}, {agc_txt}, "
                     f"{format_block_errors(blk)}, avg speed {speed:.2f} IPS "
                     f"at time {blk.t_end:.8f}")
-            # -adjskew per-track report (adjust_deskew, decoder.c:306-320);
-            # the port does not run -adjskew yet, so no block carries one
+            # -adjskew per-track report (adjust_deskew, decoder.c:306-320)
             for trk, (dev, bsp, act, newskew) in enumerate(
                     blk.detail.get("adjskew", [])):
                 line = (f"trk {trk} deviation is {dev * 1e6:.2f} usec of "

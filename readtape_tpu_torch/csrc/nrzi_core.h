@@ -11,7 +11,9 @@
 //
 // Semantics: readtape_tpu/decode/trackscan.py (admission, AGC policy) and
 // readtape_tpu/decode/nrzi.py::nrzi_slot_scan (global slot machine,
-// zerocheck, -correct), which the plain PyTorch version
+// zerocheck, -correct, the -adjskew accumulators) with
+// nrzi.correct_debug_replay (the DEBUG build's -correct), which the plain
+// PyTorch version
 // (readtape_tpu_torch/decode/fused.py::nrzi_fused_scan_plain) mirrors.
 // Float expressions keep the reference's operation order. Where the JAX
 // package's XLA scans form a fused multiply-add (common.fma in the plain
@@ -58,6 +60,12 @@
 #define LI_ENDS 4
 #define LI_NSLOT 5
 #define N_LI 6
+// -correct's parity check (NrziSlotLane::correct): none, the release
+// binary's over column 0, or the DEBUG build's over the column of the
+// last complete byte, after the slot's writes
+#define NRZI_CORRECT_OFF 0
+#define NRZI_CORRECT_RELEASE 1
+#define NRZI_CORRECT_DEBUG 2
 // per-lane phase stamps (only when the argument block's stamps is set).
 // B1: the global timer (ns) at the start and end, clock64() at the start
 // and after phases 0, A and B, then each track's clock64() cycles spent
@@ -763,7 +771,11 @@ struct NrziSlotLane {
   int32_t* trk_i;          // [T, N_TI]: reads TI_NADM; writes DC, KVIS, TRKSUM
   float* trk_f;            // [T, N_TF]: writes TFIRST, TLAST
   int32_t* lane_i;         // [N_LI]
-  int T, K, S, maxb, max_slots, do_correct, exp_par, cw;
+  const float* adj0;       // [T, 2] -adjskew's seeds (count, mean), or null
+  float* adj;              // [T, 2] the accumulators at the end (with adj0)
+  float* bitspace;         // the clock's t_bitspaceavg at the end, or null
+  int T, K, S, maxb, max_slots, exp_par, cw;
+  int correct;             // NRZI_CORRECT_*
   int clk_avg_fma;         // the exponential clock's other contraction
   float ca, padj, midbit, spb, lb, bw;
 };
@@ -777,6 +789,7 @@ struct NrziSlotTrk {
   int n_new;               // what the last consume round found
   int col0;                // bits[0], the column -correct's parity reads
   float tfirst, tlast;
+  float adj_n, adj_mean;   // -adjskew's count and mean deviation
   NRZI_HDM void put(int i, int v) {
     bits[i] = (int8_t)v;
     if (i == 0) col0 = v;
@@ -788,7 +801,8 @@ struct alignas(16) NrziSlotPart {
   float x;     // open: its first transition's time; consume: its latest
                // consumed time (NRZI_NEG_T if none); zerocheck: its avg_pos term
   float g;     // zerocheck: the AGC gain -correct reads
-  int key;     // open: its first transition's sample; finish: missed mid-bits
+  int key;     // open: its first transition's sample; zerocheck: its
+               // last complete byte (with NRZI_PF_CAND); finish: missed mid-bits
   int flags;   // NRZI_PF_*
 };
 #define NRZI_PF_ANY 1      // open: it admitted transitions
@@ -796,12 +810,16 @@ struct alignas(16) NrziSlotPart {
 #define NRZI_PF_LATER 4    // zerocheck: a later peak (numlater)
 #define NRZI_PF_COL0 8     // zerocheck: its bit in column 0
 #define NRZI_PF_OVF 16     // finish: a consume round overflowed
+#define NRZI_PF_CAND 32    // zerocheck: a peak in the window (the DEBUG build's
+                           // last_complete_byte candidates)
 
 // the lane's state, owned by the combines
 struct alignas(16) NrziSlotState {
   float t_lc, t_lm, avg;
   int post, first_k, nslot, end_s, corrected, faked, bitndx;
   int flip;                // the track -correct flips before the next slot, or -1
+  int flipcol;             // the column it flips
+  int dcheck, lcb;         // DEBUG -correct: check column lcb's parity
   int done;
   float ring[NRZI_MAX_CLK_RING];   // the clock window
 };
@@ -837,6 +855,8 @@ NRZI_HD NrziSlotPart nrzi_slot_track_open(NrziSlotTrk& k, Tr& tr, const NrziSlot
   k.lim = cnt < a.K ? cnt : a.K;
   k.kvis = k.dc = k.trksum = k.missed = k.overflow = k.col0 = 0;
   k.tfirst = k.tlast = 0.0f;
+  k.adj_n = a.adj0 ? a.adj0[2 * t] : 0.0f;
+  k.adj_mean = a.adj0 ? a.adj0[2 * t + 1] : 0.0f;
   tr.start(k.lim);
   tr.ahead(0);
   NrziSlotPart p;
@@ -874,6 +894,9 @@ NRZI_UNROLL
   L.corrected = 0;
   L.faked = 0;
   L.flip = -1;
+  L.flipcol = 0;
+  L.dcheck = 0;
+  L.lcb = 0;
   L.done = !any;
 }
 
@@ -912,7 +935,17 @@ NRZI_UNROLL
       const float val = tj - L.t_lc;
       const int bkt = nrzi_f2i((val - a.lb) / a.bw);
       k.hist[bkt < 0 ? 0 : (bkt > 49 ? 49 : bkt)] += 1;
-      if (bkt >= 0 && bkt <= 49) k.trksum += 1;
+      if (bkt >= 0 && bkt <= 49) {
+        k.trksum += 1;
+        if (a.adj0) {
+          // -adjskew's incremental mean of (peak time - bit spacing), in
+          // the C's expression order (decoder.c:169-173); L.avg is the
+          // slot's bit spacing until the close
+          const float n2 = k.adj_n + 1.0f;
+          k.adj_mean = k.adj_mean + ((val - L.avg) - k.adj_mean) / nrzi_maxf(n2, 1.0f);
+          k.adj_n = n2;
+        }
+      }
     }
   }
   if (n_new == 4) k.overflow = 1;
@@ -938,8 +971,10 @@ NRZI_UNROLL
 }
 
 // the zerocheck of one track (decode_nrzi.c:232-314), and what -correct
-// reads of it: its bit in column 0 and the gain of its last consumed
-// transition
+// reads of it: its bit in column 0, the gain of its last consumed
+// transition and, for the DEBUG build's check, the index it leaves in
+// last_complete_byte (decode_nrzi.c:258,262): datacount-1 after a dup
+// deletion when its last peak is in the window, else datacount-2
 template <class Tr>
 NRZI_HD NrziSlotPart nrzi_zerocheck_track(NrziSlotTrk& k, const Tr& tr,
                                           const NrziSlotState& L,
@@ -973,11 +1008,34 @@ NRZI_HD NrziSlotPart nrzi_zerocheck_track(NrziSlotTrk& k, const Tr& tr,
   k.dc = d;
   NrziSlotPart p;
   p.x = last_in ? lastpeak : (b2 ? prevlast : 0.0f);
-  p.g = a.do_correct && kv >= 1 ? tr.agc(kv - 1) : 1.0f;
-  p.key = 0;
+  p.g = a.correct && kv >= 1 ? tr.agc(kv - 1) : 1.0f;
+  p.key = last_in ? dc0 - (dup ? 2 : 1) : dc0 - 2;
   p.flags = (last_in || b2 ? NRZI_PF_BIT : 0) | (later ? NRZI_PF_LATER : 0) |
-            ((k.col0 & 1) ? NRZI_PF_COL0 : 0);
+            ((k.col0 & 1) ? NRZI_PF_COL0 : 0) | (last_in || prev_in ? NRZI_PF_CAND : 0);
   return p;
+}
+
+// -correct's choice of the track to flip: the first of the highest AGC
+// gain, when it is at least twice the next highest
+NRZI_HD bool nrzi_slot_badtrk(const NrziSlotPart* part, const NrziSlotLane& a,
+                              int& badtrk) {
+  float hi = -1.0f;
+  badtrk = 0;
+NRZI_UNROLL
+  for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+    const float g = part[t].g;
+    if (t < a.T && (t == 0 || g > hi)) {
+      hi = g;
+      badtrk = t;
+    }
+  }
+  float next_hi = -1.0f;
+NRZI_UNROLL
+  for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
+    const float g = t == badtrk ? -1.0f : part[t].g;
+    if (t < a.T && (t == 0 || g > next_hi)) next_hi = g;
+  }
+  return hi >= 2.0f * next_hi;
 }
 
 // the slot's close over the tracks' zerocheck parts: the clock, the
@@ -1026,31 +1084,27 @@ NRZI_UNROLL
   L.t_lm = right;
 
   // -correct, release-binary semantics: the parity check reads column 0
-  // (readtape.c nrzi_zerocheck:245,302); the first track of the highest
-  // gain is flipped when it is at least twice the next highest
+  // (readtape.c nrzi_zerocheck:245,302)
   L.flip = -1;
-  if (a.do_correct && have && par != a.exp_par) {
-    float hi = -1.0f;
-    int badtrk = 0;
+  L.flipcol = 0;
+  L.dcheck = 0;
+  int badtrk;
+  if (a.correct == NRZI_CORRECT_RELEASE && have && par != a.exp_par &&
+      nrzi_slot_badtrk(part, a, badtrk)) {
+    L.flip = badtrk;
+    L.corrected += 1;
+    L.faked |= 1 << (a.T - 1 - badtrk);
+  }
+  // the DEBUG build's: last_complete_byte is what the highest track with a
+  // peak in the window leaves; the drive takes that column's parity next
+  if (a.correct == NRZI_CORRECT_DEBUG && have) {
+    int hi_t = -1;
 NRZI_UNROLL
-    for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
-      const float g = part[t].g;
-      if (t < a.T && (t == 0 || g > hi)) {
-        hi = g;
-        badtrk = t;
-      }
-    }
-    float next_hi = -1.0f;
-NRZI_UNROLL
-    for (int t = 0; t < NRZI_MAX_TRACKS; ++t) {
-      const float g = t == badtrk ? -1.0f : part[t].g;
-      if (t < a.T && (t == 0 || g > next_hi)) next_hi = g;
-    }
-    if (hi >= 2.0f * next_hi) {
-      L.flip = badtrk;
-      L.corrected += 1;
-      L.faked |= 1 << (a.T - 1 - badtrk);
-    }
+    for (int t = 0; t < NRZI_MAX_TRACKS; ++t)
+      if (t < a.T && (part[t].flags & NRZI_PF_CAND)) hi_t = t;
+    const int lcb = hi_t >= 0 ? part[hi_t].key : -1;
+    L.dcheck = lcb >= 0 && lcb < a.maxb;
+    L.lcb = lcb;
   }
   L.nslot += 1;
   if (L.post >= 8) {
@@ -1060,9 +1114,24 @@ NRZI_UNROLL
   if (s_z >= a.S) L.done = 1;
 }
 
+// the DEBUG build's -correct after the slot's writes found column L.lcb's
+// parity wrong: the release check's choice of track, flipped there
+NRZI_HD void nrzi_slot_debug_fix(NrziSlotState& L, const NrziSlotPart* part,
+                                 const NrziSlotLane& a) {
+  int badtrk;
+  if (!nrzi_slot_badtrk(part, a, badtrk)) return;
+  L.flip = badtrk;
+  L.flipcol = L.lcb;
+  L.corrected += 1;
+  L.faked |= 1 << (a.T - 1 - badtrk);
+}
+
 // -correct's flip of the slot just closed, by the track it flips
 NRZI_HD void nrzi_slot_flip(NrziSlotTrk& k, const NrziSlotState& L, int t) {
-  if (t == L.flip) k.put(0, k.col0 ^ 1);
+  if (t == L.flip) {
+    const int c = L.flipcol;
+    k.put(c, (c == 0 ? k.col0 : k.bits[c]) ^ 1);
+  }
 }
 
 // track t's outputs once the machine has stopped, and its counts
@@ -1075,6 +1144,10 @@ NRZI_HD NrziSlotPart nrzi_slot_track_finish(const NrziSlotTrk& k, const NrziSlot
   ti[TI_TRKSUM] = k.trksum;
   tf[TF_TFIRST] = k.tfirst;
   tf[TF_TLAST] = k.tlast;
+  if (a.adj0) {
+    a.adj[2 * t] = k.adj_n;
+    a.adj[2 * t + 1] = k.adj_mean;
+  }
   NrziSlotPart p;
   p.x = p.g = 0.0f;
   p.key = k.missed;
@@ -1099,12 +1172,14 @@ NRZI_UNROLL
   li[LI_CONSOVF] = overflow;
   li[LI_ENDS] = L.end_s;
   li[LI_NSLOT] = L.nslot;
+  if (a.bitspace) *a.bitspace = L.avg;
 }
 
 // The machine over one lane. ex.each(m, f) calls f(track state,
 // transition source, t) for every track and ex.one(m, f) calls f() once;
 // each returns once every call is done (m: the kind of step, NRZI_M_*,
-// or -1). L and part: the lane's state and NRZI_MAX_TRACKS parts, where
+// or -1). ex.parity(f) returns the XOR over the tracks of f(track state,
+// t) & 1. L and part: the lane's state and NRZI_MAX_TRACKS parts, where
 // every track and the combines see them (the combines read all of them
 // at once and use the first T)
 template <class Exec>
@@ -1144,6 +1219,10 @@ NRZI_HD void nrzi_slot_drive(Exec& ex, const NrziSlotLane& a, NrziSlotState& L,
       });
     const int s_z = nrzi_boundary(L.t_lc, b);
     ex.one(NRZI_M_CLOSE, [&] { nrzi_slot_close(L, part, a, b, s_z); });
+    if (L.dcheck) {          // the DEBUG build's check: each track reads its own row
+      const int par = ex.parity([&](NrziSlotTrk& k, int) { return (int)k.bits[L.lcb]; });
+      if (par != a.exp_par) ex.one(NRZI_M_CLOSE, [&] { nrzi_slot_debug_fix(L, part, a); });
+    }
   }
   ex.each(-1, [&](NrziSlotTrk& k, auto&, int t) {
     nrzi_slot_flip(k, L, t);
@@ -1161,6 +1240,11 @@ struct NrziSerial {
     for (int t = 0; t < T; ++t) f(k[t], tr[t], t);
   }
   template <class F> NRZI_HDM void one(int, F f) { f(); }
+  template <class F> NRZI_HDM int parity(F f) {
+    int p = 0;
+    for (int t = 0; t < T; ++t) p ^= f(k[t], t) & 1;
+    return p;
+  }
 };
 
 // the slot machine of one lane, serially (the host build)
@@ -1260,6 +1344,15 @@ struct NrziWarp {
     if (t == 0) f();
     sync(m, c);
   }
+  // a warp vote: every thread of the warp calls it
+  template <class F> NRZI_HDM int parity(F f) {
+    const int v = own ? f(k, t) & 1 : 0;
+#ifdef __CUDA_ARCH__
+    return __popc(__ballot_sync(0xffffffffu, v)) & 1;
+#else
+    return v;
+#endif
+  }
   NRZI_HDM void sync(int m, long long c) {
 #ifdef __CUDA_ARCH__
     __syncwarp();
@@ -1331,12 +1424,15 @@ NRZI_HD NrziSlotLane nrzi_slot_lane_of(const A& a, int lane) {
   L.trk_i = a.trk_i + row * N_TI;
   L.trk_f = a.trk_f + row * N_TF;
   L.lane_i = a.lane_i + (int64_t)lane * N_LI;
+  L.adj0 = 0;
+  L.adj = 0;
+  L.bitspace = 0;
   L.T = a.T;
   L.K = a.K;
   L.S = a.S;
   L.maxb = a.maxb;
   L.max_slots = a.max_slots;
-  L.do_correct = a.do_correct;
+  L.correct = a.do_correct;
   L.exp_par = a.exp_par;
   L.cw = a.p_clk_window[p];
   L.clk_avg_fma = 0;
@@ -1458,7 +1554,12 @@ struct NrziSlotArgs {
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_LI]
   int64_t* stamps;           // [B*P, SLOT_NSTAMP] loop clocks, or null
-  int32_t B, P, T, S, K, maxb, max_slots, do_correct, exp_par;
+  const float* adj0;         // [B*P, T, 2] -adjskew's seeds, or null (B6 only)
+  float* adj;                // [B*P, T, 2] the accumulators at the end
+  float* bitspace;           // [B*P] the clock at the end
+  int32_t B, P, T, S, K, maxb, max_slots;
+  int32_t do_correct;        // NRZI_CORRECT_* (B1's NrziArgs: off or release)
+  int32_t exp_par;
   int32_t clk_avg_fma;       // 1: the clock's other contraction (B6 only)
   float spb, stat_lb, stat_bw;
 };
@@ -1473,10 +1574,17 @@ NRZI_HD void nrzi_slot_copy_track(const NrziSlotArgs& a, int lane, int t) {
   a.trk_f[lt * N_TF + TF_MINAGC] = a.min_agc_gain[lt];
 }
 
-// B6's lane: nrzi_slot_lane_of with the clock contraction it was given
+// B6's lane: nrzi_slot_lane_of with the clock contraction and the
+// -adjskew seeds it was given
 NRZI_HD NrziSlotLane nrzi_slot_lane_b6(const NrziSlotArgs& a, int lane) {
   NrziSlotLane L = nrzi_slot_lane_of(a, lane);
   L.clk_avg_fma = a.clk_avg_fma;
+  if (a.adj0) {
+    const int64_t row = (int64_t)lane * a.T * 2;
+    L.adj0 = a.adj0 + row;
+    L.adj = a.adj + row;
+    L.bitspace = a.bitspace + lane;
+  }
   return L;
 }
 

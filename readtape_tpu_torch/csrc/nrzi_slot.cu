@@ -7,7 +7,13 @@
 // writes the slot scan's final state directly, in B1's output layout
 // (decode/fused.py FusedOut), so nothing is reconstructed afterwards; and
 // it keeps what the XLA scan does and the TPU kernel does not: -correct
-// (from tr_agc), up to 16 tracks, any S below 2^30.
+// (from tr_agc), up to 16 tracks, any S below 2^30. It also runs the two
+// modes that only the JAX package's XLA scan has, and B1 never runs:
+// -adjskew's per-track deviation accumulators (seeded from adj0, written
+// to adj, with the final clock in bitspace) and -correct as the DEBUG
+// build computes it (the parity of the last complete byte's column, a
+// warp vote over each track's own row; the JAX package replays that on
+// the host from streamed write records).
 //
 // What bounds it: serial latency. The machine couples all tracks of a
 // lane, one slot after another, but within a slot each track's work is

@@ -9,7 +9,11 @@ the C), appends their 1-bits, runs the zerocheck branch logic, adjusts the
 clock and advances. ``nrzi_slot_scan`` is the plain version of the slot
 machine inside the fused kernel: a Python loop over slots, vectorized over
 lanes, writing the bit buffers directly in program order (last write
-wins, as in the JAX replay).
+wins, as in the JAX replay). Because it writes them in place, the
+DEBUG-build ``-correct`` (``correct_debug``: the parity check reads the
+column of the last complete byte at slot time) runs inside the machine,
+where the JAX package streams write records out of its scan and replays
+the chain on the host (its correct_debug_replay).
 
 Block postprocess (tapemark/noise/mismatch/CRC/LRC/parity,
 decode_nrzi.c:35-113) is batched over lanes; the 9-track CRC recurrence is
@@ -143,14 +147,20 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
                    maxb: int, max_slots: int,
                    stat_leftbin: float, stat_binwidth: float,
                    clk_ring: int = cm.CLKRATE_WINDOW,
-                   clk_avg_fma: bool = False):
+                   clk_avg_fma: bool = False, correct_debug: bool = False,
+                   adj_init=None):
     """N lanes at once. trans_*: [N, T, K] admitted transitions per track
     (s_det ascending; entries past each lane's count hold BIG_S / 0.0 /
     1.0); counts [N, T]; the clock knobs are [N]. Runs at most max_slots
     slots per lane, as the fused kernel does. clk_avg_fma: the exponential
-    clock's contraction (common.adjust_clock's avg_fma). Returns the
-    per-track bit buffers [N, T, maxb] int8 and the block-result
-    fields."""
+    clock's contraction (common.adjust_clock's avg_fma). correct_debug:
+    -correct as the reference's DEBUG build computes it (do_correct is
+    then not read). adj_init=(n0 [N, T], mean0 [N, T]) f32: the -adjskew
+    accumulators (decoder.c:169-173), per track the incremental mean of
+    (peak time - bit spacing) over the recorded in-range peaks, seeded
+    with the running values; they come back as adj_n / adj_mean, with the
+    clock's final t_bitspaceavg [N]. Returns the per-track bit buffers
+    [N, T, maxb] int8 and the block-result fields."""
     N, T, K = trans_s.shape
     dev = trans_s.device
     ar = torch.arange(N, device=dev)
@@ -188,6 +198,10 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
     bits = torch.zeros((N, T, maxb + 1), dtype=torch.int8, device=dev)
     hist = torch.zeros((N, T, 51), dtype=I32, device=dev)
     ones_h = torch.ones((N, T, 1), dtype=I32, device=dev)
+    adj = adj_init is not None
+    if adj:
+        adj_n = adj_init[0].to(F32).clone()
+        adj_mean = adj_init[1].to(F32).clone()
 
     def at(buf, k):
         return buf.gather(2, k.unsqueeze(-1)).squeeze(-1)
@@ -206,7 +220,7 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
             order): at most 3 per track, a 4th sets the overflow flag;
             then the post-area clock realignment (nrzi_addbit:171-175)."""
             nonlocal kvis, dc, t_firstbit, t_lastbit, missed, overflow
-            nonlocal trksums, t_lc
+            nonlocal trksums, t_lc, adj_n, adj_mean
             seen = []
             for j in range(4):
                 kj = kvis + j
@@ -237,8 +251,16 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
                 code = torch.where(bkt < 0, 0, torch.where(bkt > 49, 49, bkt))
                 hist.scatter_add_(2, torch.where(stat_ok, code, 50)
                                   .long().unsqueeze(-1), ones_h)
-                trksums = trksums + (stat_ok & (bkt >= 0)
-                                     & (bkt <= 49)).to(I32)
+                in_range = stat_ok & (bkt >= 0) & (bkt <= 49)
+                trksums = trksums + in_range.to(I32)
+                if adj:
+                    # the C's expression order, in-range buckets only
+                    n2 = adj_n + in_range.to(F32)
+                    adj_mean = torch.where(
+                        in_range, adj_mean + cm.fdiv(
+                            (val - b0.unsqueeze(-1)) - adj_mean,
+                            torch.clamp_min(n2, 1.0)), adj_mean)
+                    adj_n = n2
             dc = torch.clamp_max(dc + n_new, maxb)
             kvis = torch.clamp_max(kvis + n_new, K)
             overflow = overflow | seen[3].any(dim=-1)
@@ -314,6 +336,18 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
         post2 = torch.where(have, post_h, post_n).to(I32)
         t_lc2 = torch.where(have, adjusted, t_lc + b)
 
+        if correct_debug:
+            # the DEBUG build's last_complete_byte (decode_nrzi.c:258,262):
+            # the index the highest track with a peak in the window leaves,
+            # datacount-1 after a dup deletion when its last peak is in,
+            # else datacount-2
+            cand = last_in | prev_in
+            dcp = torch.where(dup, dc - 1, dc)
+            idx_t = torch.where(last_in, dcp - 1, dcp - 2)
+            hi_trk = (T - 1) - torch.argmax(cand.flip(-1).to(I32), dim=-1)
+            lcb = torch.where(cand.any(dim=-1), idx_t.gather(
+                1, hi_trk.unsqueeze(-1)).squeeze(-1), -1)
+
         dc = torch.where(lv, d, dc)
         t_firstbit = torch.where(lv, tfb, t_firstbit)
         t_lastbit = torch.where(lv, tlb, t_lastbit)
@@ -321,12 +355,16 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
         t_lc = torch.where(live, t_lc2, t_lc)
         t_lm = torch.where(live, right, t_lm)
 
-        # --- optional error correction (release-binary semantics: the
-        # parity check reads column 0; readtape.c nrzi_zerocheck:245,302)
-        if do_correct:
-            col0 = bits[:, :, 0].to(I32)
-            frame0 = (col0 << (T - 1 - trk)).sum(dim=-1).to(I32)
-            par_bad = cm.parity9(frame0) != expected_parity
+        # --- optional error correction: the parity check reads column 0
+        # (the release binary; readtape.c nrzi_zerocheck:245,302) or,
+        # DEBUG build, column last_complete_byte after the slot's writes
+        if do_correct or correct_debug:
+            col = (torch.clamp(lcb, 0, maxb - 1) if correct_debug
+                   else torch.zeros(N, dtype=torch.long, device=dev))
+            colv = bits.gather(2, col.view(N, 1, 1).expand(N, T, 1)
+                               ).squeeze(-1).to(I32)
+            frame = (colv << (T - 1 - trk)).sum(dim=-1).to(I32)
+            par_bad = cm.parity9(frame) != expected_parity
             agc_now = torch.where(kvis >= 1,
                                   at(trans_agc, torch.clamp_min(kvis - 1, 0)),
                                   1.0)
@@ -335,8 +373,10 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
                                       -1.0).amax(dim=-1)
             do_fix = (live & have & par_bad &
                       (hi >= cm.NRZI_BADTRK_FACTOR * next_hi))
-            cur = bits[ar, badtrk, 0]
-            bits[ar, badtrk, 0] = torch.where(do_fix, 1 - cur, cur)
+            if correct_debug:
+                do_fix = do_fix & (lcb >= 0) & (lcb < maxb)
+            cur = bits[ar, badtrk, col]
+            bits[ar, badtrk, col] = torch.where(do_fix, 1 - cur, cur)
             corrected = corrected + do_fix.to(I32)
             faked = faked | torch.where(
                 do_fix, (1 << (T - 1 - badtrk)).to(I32), 0)
@@ -347,12 +387,16 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
         done = done | (live & (ended | past_end))
         nslots = nslots + live.to(I32)
 
-    return dict(
+    out = dict(
         bits=bits[:, :, :maxb], hist=hist[:, :, :50], trksums=trksums,
         dc=dc.to(I32), kvis=kvis.to(I32), t_firstbit=t_firstbit,
         t_lastbit=t_lastbit, missed_midbits=missed,
         corrected_bits=corrected, faked_tracks=faked,
         consume_overflow=overflow, end_s=end_s, nslots=nslots)
+    if adj:
+        out.update(adj_n=adj_n, adj_mean=adj_mean,
+                   t_bitspaceavg=clk["t_bitspaceavg"])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,13 @@ kernel per batch) or "tiered" (admission alone, B5a or B5b, then the slot
 machine alone, B6), the JAX package's READTAPE_FUSED=0 tier. Under -zeros
 NRZI and GCR take their transitions from the zero crossings instead
 (decode/zeros.py: Z1, then B6 for NRZI, Z2 for GCR), and NRZI decodes as
-a sequential chain of one window per block.
+a sequential chain of one window per block. NRZI -adjskew and -correctdbg
+take the tiered kernels under the JAX XLA scan's admission step budget,
+whatever the kernel path, as the JAX package takes its XLA path for them:
+-adjskew decodes one segment and one parmset try at a time, threading
+B6's skew-deviation accumulators from try to try and nudging the skew
+after every data block; -correctdbg decodes every segment with all
+parmsets, B6 running the DEBUG build's -correct.
 
 A tape of unknown density (bpi <= 0; NRZI and PE, as the JAX command line
 detects it) first goes through ``TapeDecoder.detect_density``. With a
@@ -35,11 +41,12 @@ detects it) first goes through ``TapeDecoder.detect_density``. With a
 segments before the decode and logs one line per combo.
 
 9/7-track NRZI, 9-track PE, 9-track GCR and 6-track Whirlwind, from
-int16 samples or float32 volts, -zeros for NRZI and GCR, and -parmscan
-are ported; -adjskew, -correctdbg and -zeros for PE or Whirlwind (which
-the JAX command line refuses) raise NotImplementedError naming the
-option. The entry points run on the card ("cuda") unless the caller asks
-for the CPU.
+int16 samples or float32 volts, -zeros for NRZI and GCR, -parmscan,
+-adjskew and -correctdbg are ported (the last two NRZI only and not under
+-zeros: elsewhere they are ignored, as in the JAX package); -zeros for PE
+or Whirlwind (which the JAX command line refuses) raises
+NotImplementedError naming the option. The entry points run on the card
+("cuda") unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -156,8 +163,6 @@ def check_supported(opts: DecodeOptions, kernel_path: str = "fused"):
     for flag, name in ((opts.find_zeros and opts.mode not in (tb.MODE_NRZI,
                                                              tb.MODE_GCR),
                         "-zeros of a PE or Whirlwind tape"),
-                       (opts.adjskew, "-adjskew"),
-                       (opts.do_correct_debug, "-correctdbg"),
                        (opts.bpi <= 0 and opts.mode not in (tb.MODE_NRZI,
                                                             tb.MODE_PE),
                         "density detection (bpi <= 0) of a "
@@ -215,6 +220,12 @@ def _nrzi_results(out, T, expected_parity, revparity, maxb):
     r["alltrk_max_agc"] = st["max_agc_gain"].amax(dim=-1)
     r["alltrk_min_agc"] = st["min_agc_gain"].amin(dim=-1)
     r["event_overflow"] = st["incomplete"].any(dim=-1)
+    if "adj" in out:
+        # -adjskew: the running accumulators and the clock at block end
+        # (adjust_deskew's bit spacing, readtape.c:1310)
+        r["adj_n"] = out["adj"][..., slot_mod.ADJ_N]
+        r["adj_mean"] = out["adj"][..., slot_mod.ADJ_MEAN]
+        r["t_bitspaceavg"] = out["bitspace"]
     return r
 
 
@@ -243,13 +254,19 @@ def _nrzi_group_tiered(tape, offsets, seg_lens, leads, maxvolts,
                        expected_parity, revparity, rise_floor, min_floor,
                        stat_leftbin, stat_binwidth, *, S, T, maxb,
                        max_slots, K, max_steps, Ws, do_correct,
-                       differentiate, spb_int, skew_on):
+                       differentiate, spb_int, skew_on, correct_debug=False,
+                       adj_init=None, clk_avg_fma=False):
     """The tiered counterpart of _nrzi_group_fused (the JAX package's
     _nrzi_group_pallas): volts prep, the masked union jump table, window
     features per distinct width, admission alone (B5b when every parmset
-    shares one width, else B5a) with no step budget, as the TPU kernels
-    have none, then the slot machine alone (B6) and nrzi_finish. max_steps
-    is not used. Returns device tensors with leading [B, P] axes."""
+    shares one width, else B5a), then the slot machine alone (B6) and
+    nrzi_finish. Returns device tensors with leading [B, P] axes.
+
+    max_steps: the admission step budget; None for none, as the TPU
+    kernels have none. With the XLA scan's budget this is the JAX
+    package's XLA group (_nrzi_segment_device), which -adjskew and
+    -correctdbg take, with B6's correct_debug, adj_init and clk_avg_fma
+    (decode/slot.py)."""
     volts = _segment_volts(tape, offsets, S, maxvolts, invert_sign,
                            skew_delay, differentiate, spb_int, skew_on)
     nxt = fused_mod._mask_jump_table(
@@ -259,12 +276,13 @@ def _nrzi_group_tiered(tape, offsets, seg_lens, leads, maxvolts,
     del volts
     admit = (scan_mod.nrzi_track_scan_tracks if len(set(Ws)) == 1
              else scan_mod.nrzi_track_scan)
-    fin = admit(feat, nxt, pa, Ws=Ws, K=K)
+    fin = admit(feat, nxt, pa, Ws=Ws, K=K, max_steps=max_steps)
     del feat, nxt
     out = slot_mod.nrzi_slot_scan(
         fin, pa, S=S, spb=spb, expected_parity=expected_parity,
         do_correct=do_correct, maxb=maxb, max_slots=max_slots,
-        stat_lb=stat_leftbin, stat_bw=stat_binwidth)
+        stat_lb=stat_leftbin, stat_bw=stat_binwidth, clk_avg_fma=clk_avg_fma,
+        correct_debug=correct_debug, adj_init=adj_init)
     return _nrzi_results(out, T, expected_parity, revparity, maxb)
 
 
@@ -632,14 +650,29 @@ class TapeDecoder:
                 self.tape, (0, n_pad - self.tape.shape[1]))
         return self.tape
 
-    def dispatch_segment_batch(self, spans, bucket=None, nparms=None):
+    def dispatch_segment_batch(self, spans, bucket=None, nparms=None,
+                               parm_sel=None, adj_init=None,
+                               correctdbg=False):
         """Enqueue the decode of a batch of segments (one kernel launch for
         all of them and the first nparms parmsets); returns device
-        results with leading [B, P] axes, for _fetch to bring to the host."""
+        results with leading [B, P] axes, for _fetch to bring to the host.
+
+        parm_sel: a tuple of parmset indices instead of the nparms prefix.
+        NRZI only: adj_init=(n0 [T], mean0 [T]) seeds -adjskew's
+        accumulators (results gain adj_n, adj_mean, t_bitspaceavg);
+        correctdbg runs -correct as the DEBUG build does. Either takes
+        the JAX package's XLA group: the tiered kernels under the XLA
+        scan's admission step budget, whatever the kernel path."""
         opts = self.opts
-        nparms = self.P if nparms is None else min(nparms, self.P)
-        active = opts.parmsets.sets[:nparms]
-        pa = self.pa if nparms == self.P else self.pa.select(range(nparms))
+        if parm_sel is not None:
+            sel = list(parm_sel)
+            active = [opts.parmsets.sets[k] for k in sel]
+            pa = self.pa.select(sel)
+        else:
+            nparms = self.P if nparms is None else min(nparms, self.P)
+            active = opts.parmsets.sets[:nparms]
+            pa = (self.pa if nparms == self.P
+                  else self.pa.select(range(nparms)))
 
         def a0(a):
             return max(a - SEG_WARMUP, 0)
@@ -695,15 +728,33 @@ class TapeDecoder:
         if opts.mode == tb.MODE_GCR:
             return _gcr_group_fused(*args, do_correct=opts.do_correct,
                                     do_correct2=opts.do_correct2, **kw)
-        group = (_nrzi_group_tiered if self.kernel_path == "tiered"
-                 else _nrzi_group_fused)
-        return group(*args, max_slots=max_slots, K=K,
-                     do_correct=opts.do_correct, **kw)
+        if adj_init is not None or correctdbg:
+            B, P = len(spans), len(active)
+            adj = None if adj_init is None else tuple(
+                torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                .expand(B, P, T) for x in adj_init)
+            # XLA's CPU build contracts the clock as fma(1 - a, avg, a *
+            # delta) in the JAX package's -adjskew programs, as in its
+            # peak path in the -correctdbg ones
+            # (scripts/probe_adjskew_contraction.py)
+            return _nrzi_group_tiered(
+                *args, max_slots=max_slots, K=K,
+                do_correct=opts.do_correct and not correctdbg,
+                correct_debug=correctdbg, adj_init=adj,
+                clk_avg_fma=adj is not None, **kw)
+        if self.kernel_path == "tiered":
+            kw["max_steps"] = None
+            return _nrzi_group_tiered(*args, max_slots=max_slots, K=K,
+                                      do_correct=opts.do_correct, **kw)
+        return _nrzi_group_fused(*args, max_slots=max_slots, K=K,
+                                 do_correct=opts.do_correct, **kw)
 
-    def decode_segment_batch(self, spans, bucket=None, nparms=None):
+    def decode_segment_batch(self, spans, bucket=None, nparms=None, **kw):
         """Decode a batch of same-bucket segments; host numpy results with
-        leading [B, P] axes."""
-        return _fetch(self.dispatch_segment_batch(spans, bucket, nparms))
+        leading [B, P] axes (kw: dispatch_segment_batch's parm_sel,
+        adj_init, correctdbg)."""
+        return _fetch(self.dispatch_segment_batch(spans, bucket, nparms,
+                                                  **kw))
 
     # ---- deskew calibration (decoder.c:243-281) ----
     def calibrate_deskew(self, segments, max_blocks=100, min_transitions=1000):
@@ -922,8 +973,13 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
     """The block decode of NRZI, PE and GCR tapes (the JAX package's
     _decode_tape_nrzi_like): -parmscan's grid where asked, batched segment
     decodes with the staged retry, then NRZI's or GCR's remainder rounds
-    or PE's block walk, then block emission in tape order."""
+    or PE's block walk, then block emission in tape order. NRZI -zeros
+    and -adjskew are sequential chains of their own; -correctdbg decodes
+    every segment with all parmsets."""
     segs = dec.segments()
+    nrzi_peaks = opts.mode == tb.MODE_NRZI and not opts.find_zeros
+    adjskew = nrzi_peaks and opts.adjskew
+    correctdbg = nrzi_peaks and opts.do_correct_debug and not adjskew
     stats = dict(nblocks=0, ntapemarks=0, nerrblocks=0, nwarnblocks=0,
                  nunusable=0, nmismatched=0, nmidbiterr=0, ncorrected=0,
                  ngoodmultiple=0,
@@ -966,7 +1022,8 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
 
     def dispatch(indices, nparms):
         """Enqueue every batch of `indices`; returns [(chunk, results)]
-        with results still on the device."""
+        with results still on the device. Under -correctdbg every batch
+        runs the DEBUG build's -correct."""
         elems = MAX_BATCH_ELEMS * max(1, dec.P // nparms)
         by_bucket = {}
         for i in indices:
@@ -977,7 +1034,8 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
             for lo in range(0, len(idxs), bmax):
                 chunk = idxs[lo:lo + bmax]
                 pending.append((chunk, dec.dispatch_segment_batch(
-                    [segs[i] for i in chunk], bucket=S, nparms=nparms)))
+                    [segs[i] for i in chunk], bucket=S, nparms=nparms,
+                    correctdbg=correctdbg)))
         return pending
 
     def collect(pending, results):
@@ -1014,6 +1072,12 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
             int(res["warncount"][0]), mb, opts.mode)
 
     def decode_indices(idxs):
+        if correctdbg:
+            # the JAX package decodes each segment with every parmset
+            # under -correctdbg and picks over all of them; a segment's
+            # lanes do not depend on the others', so they batch
+            collect(dispatch(idxs, dec.P), results)
+            return
         # staged retry, the reference's sequential-try semantics
         # (readtape.c:1755-1795): parmset 0 everywhere, then all parmsets
         # for the blocks that were not a stopping decode
@@ -1063,7 +1127,9 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
         idle; admitted transitions left past that point are another block
         behind a sub-min_gap gap, after the interblock blanking
         (decode_nrzi.c:112)."""
-        if int(res["unconsumed"][p]) <= 0:
+        if int(res["unconsumed"][p]) <= 0 or (
+                (adjskew or correctdbg)
+                and int(res["blktype"][p]) == nrzi_mod.BS_NONE):
             return None
         return int(res["end_s"][p]) + int(cm.NRZI_IBG_SECS / opts.deltat)
 
@@ -1238,14 +1304,84 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
                 continue
             cur = nxt
 
+    def adjskew_chain():
+        """-adjskew (decoder.c:305-320), the JAX package's sequential
+        driver: after every data block each track's skew delay moves by
+        one sample towards its average peak deviation. The skew of block
+        n depends on blocks 0..n-1, and the deviation accumulators thread
+        through every parmset try in the reference's order (reset only
+        after a data block, so tapemark and noise segments roll into the
+        next data block): one segment at a time, each try its own B=1,
+        P=1 decode seeded with the running (count, mean), a winner that
+        is not the last try decoded again (its peaks accumulate again,
+        readtape.c:1853-1863), each remainder decoded right after its
+        block."""
+        T = opts.ntrks
+        adj = [np.zeros(T, np.float32), np.zeros(T, np.float32)]
+        k = 0
+        while k < len(order):
+            i = order[k]
+            k += 1
+            a, b = segs[i]
+
+            def one(psel):
+                r = dec.decode_segment_batch(
+                    [(a, b)], bucket=buckets[i], parm_sel=(psel,),
+                    adj_init=tuple(adj))
+                r = {kk: v[0] for kk, v in r.items()}      # [P=1, ...]
+                adj[:] = [r["adj_n"][0], r["adj_mean"][0]]
+                return r
+
+            tries = [one(0)]
+            while opts.multiple_tries and len(tries) < dec.P:
+                r = tries[-1]
+                if is_stopping_decode(int(r["blktype"][0]),
+                                      int(r["errcount"][0]),
+                                      int(r["warncount"][0]),
+                                      int(r["minbits"][0]), opts.mode):
+                    break
+                tries.append(one(len(tries)))
+            res = {kk: np.stack([r[kk][0] for r in tries]) for kk in tries[0]}
+            results[i] = res
+            p, _ = pick_best(res, len(tries), opts.multiple_tries, opts.mode)
+            bitspace = np.float32(one(p)["t_bitspaceavg"][0]
+                                  if p != len(tries) - 1
+                                  else res["t_bitspaceavg"][p])
+            bt = int(res["blktype"][p])
+            if bt in (nrzi_mod.BS_BLOCK, nrzi_mod.BS_BADBLOCK):
+                # adjust_deskew, for every data block (readtape.c:1310);
+                # MAXSKEWSAMP 50
+                report = []
+                thr = np.float32(0.1) * bitspace
+                for trk in range(T):
+                    dev_ = np.float32(adj[1][trk])
+                    act = 0
+                    if dev_ < thr and dec.skew[trk] > 0:
+                        dec.skew[trk] -= 1
+                        act = -1
+                    elif dev_ > thr and dec.skew[trk] < 50:
+                        dec.skew[trk] += 1
+                        act = 1
+                    report.append((float(dev_) * opts.deltat,
+                                   float(bitspace) * opts.deltat, act,
+                                   int(dec.skew[trk])))
+                res["_adjskew_report"] = report
+                adj[:] = [np.zeros(T, np.float32), np.zeros(T, np.float32)]
+            a0 = max(a - SEG_WARMUP, 0)
+            off = nrzi_next(res, p, b - a0)
+            if off is not None and a < a0 + off < b - 4:
+                add_segment(a0 + off, b, i)
+
     order = list(range(len(segs)))
     if opts.mode == tb.MODE_NRZI and opts.find_zeros:
         zeros_chain()
+    elif adjskew:
+        adjskew_chain()
     else:
         decode_indices(order[:])
     if opts.mode == tb.MODE_PE:
         pe_walk()
-    elif not opts.find_zeros:
+    elif not opts.find_zeros and not adjskew:
         remainder_rounds(gcr_next if opts.mode == tb.MODE_GCR else nrzi_next)
 
     blocks = []
@@ -1295,6 +1431,8 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
                             "missed_midbits", "corrected_bits",
                             "faked_tracks", "avg_bit_spacing",
                             "alltrk_max_agc", "alltrk_min_agc")}
+        if "_adjskew_report" in res:
+            detail["adjskew"] = res["_adjskew_report"]
         if bt == nrzi_mod.BS_BADBLOCK:
             blocks.append(BlockResult("badblock", parmset=p, tries=tries,
                                       errcount=err, warncount=warn,
@@ -1324,6 +1462,9 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
             stats["ncorrected"] += 1
         if err == 0 and warn == 0 and tries > 1:
             stats["ngoodmultiple"] += 1
+    if adjskew:
+        # the end-of-run skew report shows the adjusted delays
+        stats["skew"] = dec.skew.tolist()
     return blocks, stats
 
 

@@ -2,7 +2,9 @@
 readtape_tpu/decode/pallas_slot.py (TPU kernel B6).
 
 ``nrzi_slot_scan`` runs nrzi.nrzi_slot_scan's machine (zerocheck, clock,
-peak statistics, ``-correct``) for every (segment, parmset) lane over the
+peak statistics, ``-correct`` as the release or, ``correct_debug``, the
+DEBUG build computes it, and with ``adj_init`` the -adjskew deviation
+accumulators) for every (segment, parmset) lane over the
 transition buffers that decode/scan.py's admission wrote, and returns B1's
 output (``FusedOut``, read by fused.fused_state): the TPU kernel's
 stream/track-block split and slot_stream_reconstruct exist only to get
@@ -26,6 +28,9 @@ FusedOut, for B segments x P parmsets:
   trk_i int32 [B, P, T, 5]   TI_* per-track integers
   trk_f f32   [B, P, T, 4]   TF_* per-track floats
   lane_i int32 [B, P, 6]     LI_* per-lane integers
+and with adj_init=(n0, mean0), each f32 [B, P, T], the seeds:
+  adj   f32   [B, P, T, 2]   ADJ_N, ADJ_MEAN: the accumulators at the end
+  bitspace f32 [B, P]        the clock's t_bitspaceavg at the end
 """
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ N_TI = 5
 N_TF = 4
 (LI_MISSMID, LI_CORR, LI_FAKED, LI_CONSOVF, LI_ENDS, LI_NSLOT) = range(6)
 N_LI = 6
+(ADJ_N, ADJ_MEAN) = range(2)
 
 
 def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                expected_parity: int, do_correct: bool, maxb: int,
                max_slots: int, stat_lb: float, stat_bw: float,
-               clk_avg_fma: bool = False):
+               clk_avg_fma: bool = False, correct_debug: bool = False,
+               adj_init=None):
     """nrzi.nrzi_slot_scan over every (b, p) lane of the admission
     outputs fin ([B, P, T, K] buffers, [B, P, T] counts and per-track
     fields); returns FusedOut."""
@@ -66,7 +73,10 @@ def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
         lanes(fin["n_admitted"]), S, spb, pa.clk_window[pp],
         pa.clk_alpha[pp], pa.pulse_adj[pp], pa.midbit[pp], expected_parity,
         do_correct, maxb, max_slots, stat_lb, stat_bw,
-        clk_ring=max(int(pa.clk_window.max()), 1), clk_avg_fma=clk_avg_fma)
+        clk_ring=max(int(pa.clk_window.max()), 1), clk_avg_fma=clk_avg_fma,
+        correct_debug=correct_debug,
+        adj_init=None if adj_init is None else tuple(lanes(x)
+                                                     for x in adj_init))
     trk_i = torch.stack([st["dc"], st["kvis"], lanes(fin["n_admitted"]),
                          st["trksums"], lanes(fin["incomplete"]).to(I32)],
                         dim=-1)
@@ -77,14 +87,19 @@ def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                           st["faked_tracks"],
                           st["consume_overflow"].to(I32), st["end_s"],
                           st["nslots"]], dim=-1)
-    return dict(bits=st["bits"].reshape(B, P, T, maxb),
-                hist=st["hist"].reshape(B, P, T, 50),
-                trk_i=trk_i.reshape(B, P, T, N_TI).to(I32),
-                trk_f=trk_f.reshape(B, P, T, N_TF),
-                lane_i=lane_i.reshape(B, P, N_LI).to(I32))
+    out = dict(bits=st["bits"].reshape(B, P, T, maxb),
+               hist=st["hist"].reshape(B, P, T, 50),
+               trk_i=trk_i.reshape(B, P, T, N_TI).to(I32),
+               trk_f=trk_f.reshape(B, P, T, N_TF),
+               lane_i=lane_i.reshape(B, P, N_LI).to(I32))
+    if adj_init is not None:
+        out["adj"] = torch.stack([st["adj_n"], st["adj_mean"]],
+                                 dim=-1).reshape(B, P, T, 2)
+        out["bitspace"] = st["t_bitspaceavg"].reshape(B, P)
+    return out
 
 
-def _check(fin, pa, S, maxb, max_slots):
+def _check(fin, pa, S, maxb, max_slots, adj_init=None):
     B, P, T, K = fin["tr_s"].shape
     for k, dt in (("tr_s", I32), ("tr_t", F32), ("tr_agc", F32)):
         if fin[k].shape != (B, P, T, K) or fin[k].dtype != dt:
@@ -96,6 +111,10 @@ def _check(fin, pa, S, maxb, max_slots):
         raise ValueError(f"{T} tracks or {len(pa.clk_window)} parmsets")
     if not 0 < S < nrzi_mod.BIG_S or min(K, maxb, max_slots) < 1:
         raise ValueError("S, K, maxb and max_slots out of range")
+    if adj_init is not None and (
+            len(adj_init) != 2 or any(x.shape != (B, P, T) or x.dtype != F32
+                                      for x in adj_init)):
+        raise ValueError("adj_init must be two float32 [B, P, T] seeds")
 
 
 @torch.inference_mode()
@@ -103,7 +122,8 @@ def nrzi_slot_scan_plain(fin, pa: cm.ParmArrays, **kw):
     """The plain PyTorch version of B6 (same arguments and outputs as
     nrzi_slot_scan)."""
     nrzi_slot_scan_plain.calls += 1
-    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"])
+    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"],
+           kw.get("adj_init"))
     return slot_lanes(fin, pa, **kw)
 
 
@@ -113,22 +133,26 @@ nrzi_slot_scan_plain.calls = 0
 def nrzi_slot_scan(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                    expected_parity: int, do_correct: bool, maxb: int,
                    max_slots: int, stat_lb: float, stat_bw: float,
-                   clk_avg_fma: bool = False):
+                   clk_avg_fma: bool = False, correct_debug: bool = False,
+                   adj_init=None):
     """fin: decode/scan.py's outputs for B segments x P parmsets; pa: the
     P parmsets; S: the segments' bucket; spb: samples per bit; maxb: bit
     buffer length; max_slots: slot cap per lane; stat_lb/stat_bw:
     peak-statistics bins in samples; clk_avg_fma: the clock's other
-    contraction (module docstring). Returns FusedOut."""
+    contraction (module docstring); correct_debug: the DEBUG build's
+    -correct instead of do_correct's; adj_init: the -adjskew seeds (n0,
+    mean0), f32 [B, P, T] each. Returns FusedOut."""
     kw = dict(S=int(S), spb=float(spb), expected_parity=int(expected_parity),
               do_correct=bool(do_correct), maxb=int(maxb),
               max_slots=int(max_slots), stat_lb=float(stat_lb),
-              stat_bw=float(stat_bw), clk_avg_fma=bool(clk_avg_fma))
+              stat_bw=float(stat_bw), clk_avg_fma=bool(clk_avg_fma),
+              correct_debug=bool(correct_debug), adj_init=adj_init)
     dev = fin["tr_s"].device
     if dev.type == "cpu":
         return nrzi_slot_scan_plain(fin, pa, **kw)
     if dev.type != "cuda":
         raise ValueError(f"nrzi_slot_scan: no kernel for {dev}")
-    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"])
+    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"], adj_init)
     if int(pa.clk_window.max()) > kernels.NRZI_MAX_CLK_RING:
         raise ValueError("clk_window beyond the kernel's ring")
     out = kernels.nrzi_slot(fin, pa, **kw)

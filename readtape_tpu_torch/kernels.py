@@ -62,7 +62,7 @@ class NrziSlotArgs(ctypes.Structure):
         "tr_s", "tr_t", "tr_agc", "n_admitted", "max_agc_gain",
         "min_agc_gain", "incomplete", "p_clk_window", "p_clk_alpha",
         "p_pulse_adj", "p_midbit", "bits", "hist", "trk_i", "trk_f",
-        "lane_i", "stamps")] + [
+        "lane_i", "stamps", "adj0", "adj", "bitspace")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "K", "maxb", "max_slots", "do_correct",
             "exp_par", "clk_avg_fma")] + [
@@ -174,6 +174,8 @@ I32, F32, I8 = torch.int32, torch.float32, torch.int8
 BIG_S = 2 ** 30            # tr_s fill past each track's admissions
 # csrc/nrzi_core.h's per-lane arrays: tracks, the AGC and clock rings
 NRZI_MAX_TRACKS, NRZI_MAX_AGC_RING, NRZI_MAX_CLK_RING = 16, 16, 64
+# nrzi_core.h's NRZI_CORRECT_*: -correct's parity check in B6
+NRZI_CORRECT_OFF, NRZI_CORRECT_RELEASE, NRZI_CORRECT_DEBUG = 0, 1, 2
 
 
 def _nvcc() -> str:
@@ -372,10 +374,11 @@ def nrzi_scan_tracks(feat, nxt, pa, **kw):
 
 def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
                       do_correct, maxb, max_slots, stat_lb, stat_bw,
-                      clk_avg_fma=False):
+                      clk_avg_fma=False, correct_debug=False, adj_init=None):
     """The NrziSlotArgs block and zeroed outputs of one nrzi_slot launch
     (_prepare's return). fin: nrzi_scan's outputs (tr_s is fin's, first so
-    that _launch finds the device). Outputs as decode.fused.FusedOut."""
+    that _launch finds the device). Outputs as decode.slot.nrzi_slot_scan
+    (FusedOut, and with adj_init "adj" and "bitspace")."""
     dev = tr_s.device
     B, P, T, K = tr_s.shape
     ins = {k: fin[k].contiguous() for k in (
@@ -389,9 +392,16 @@ def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
                trk_i=torch.empty((B, P, T, 5), dtype=I32, device=dev),
                trk_f=torch.empty((B, P, T, 4), dtype=F32, device=dev),
                lane_i=torch.empty((B, P, 6), dtype=I32, device=dev))
+    if adj_init is not None:
+        ins["adj0"] = torch.stack([x.to(dev, F32) for x in adj_init],
+                                  dim=-1).contiguous()
+        out["adj"] = torch.empty((B, P, T, 2), dtype=F32, device=dev)
+        out["bitspace"] = torch.empty((B, P), dtype=F32, device=dev)
+    correct = (NRZI_CORRECT_DEBUG if correct_debug else
+               NRZI_CORRECT_RELEASE if do_correct else NRZI_CORRECT_OFF)
     ptrs = {k: v.data_ptr() for d in (ins, out) for k, v in d.items()}
     args = NrziSlotArgs(**ptrs, B=B, P=P, T=T, S=S, K=K, maxb=maxb,
-                        max_slots=max_slots, do_correct=int(bool(do_correct)),
+                        max_slots=max_slots, do_correct=correct,
                         exp_par=int(expected_parity),
                         clk_avg_fma=int(bool(clk_avg_fma)), spb=float(spb),
                         stat_lb=float(stat_lb), stat_bw=float(stat_bw))

@@ -44,6 +44,7 @@ from readtape_tpu.synth import default_spec, synthesize_tape
 from readtape_tpu_torch import cli as tcli
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
+from readtape_tpu_torch.decode import slot as tsl
 
 torch.set_num_threads(2)
 
@@ -413,7 +414,36 @@ def test_no_card_no_output(tmp_path):
                                       ("-trace", "-trace")])
 def test_unported_options_raise_before_reading(opt, name, tmp_path,
                                                monkeypatch):
+    """-trace, not ported yet, raises NotImplementedError before any file
+    is read or written. -adjskew and -correctdbg, ported since, run: on
+    the clean labelled tape they write the .tap of a run without them,
+    -adjskew logs its per-track deviation lines and -correctdbg runs the
+    slot machine's DEBUG-build -correct (tests/test_torch_adjskew.py and
+    test_torch_correctdbg.py hold them to the JAX package)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=name):
-        tcli.main(["-nrzi", opt, "missing"], device="cpu")
-    assert os.listdir(tmp_path) == []
+    if opt == "-trace":
+        with pytest.raises(NotImplementedError, match=name):
+            tcli.main(["-nrzi", opt, "missing"], device="cpu")
+        assert os.listdir(tmp_path) == []
+        return
+    hdr, samples = _nrzi_tape()
+    tb.write_tbin("t.tbin", hdr, samples)
+    debug = []
+    plain = tsl.nrzi_slot_scan_plain
+
+    def spy(fin, pa, **kw):
+        debug.append(kw["correct_debug"])
+        return plain(fin, pa, **kw)
+    spy.calls = 0
+    monkeypatch.setattr(tsl, "nrzi_slot_scan_plain", spy)
+    assert tcli.main(["-v", "-nrzi", "-tap", "-outp=a_", "t"],
+                     device="cpu") == 0
+    assert tcli.main(["-v", "-nrzi", opt, "-tap", "-outp=b_", "t"],
+                     device="cpu") == 0
+    assert (tmp_path / "a_t.tap").read_bytes() == \
+        (tmp_path / "b_t.tap").read_bytes()
+    log = (tmp_path / "b_t.log").read_text()
+    if opt == "-adjskew":
+        assert log.count("deviation is") == 9 * 4     # 4 data blocks
+    else:
+        assert debug and all(debug)

@@ -1,9 +1,10 @@
 """Tests that need an NVIDIA card (marker `cuda`; they skip elsewhere).
 Each CUDA kernel must equal its plain version on the card (the -zeros
-kernels Z1 and Z2 too), an NRZI (fused and tiered), PE, GCR or Whirlwind
-decode on the card must equal the plain decode on the CPU block for
-block, and the Whirlwind bench tape must decode on the card to its ground
-truth. Imports no JAX and nothing of
+kernels Z1 and Z2 too, and B6 in the modes of -adjskew and -correctdbg),
+an NRZI (fused and tiered, and under -adjskew and -correctdbg), PE, GCR
+or Whirlwind decode on the card must equal the plain decode on the CPU
+block for block, and the Whirlwind bench tape must decode on the card to
+its ground truth. Imports no JAX and nothing of
 the JAX package (the port carries its own synthesizer and formats), so
 the card's machine runs it without the JAX package's test
 configuration:
@@ -95,6 +96,61 @@ def test_tiered_kernels_equal_plain(card, T, correct):
     want = tsl.nrzi_slot_scan_plain(fin, pa8, **skw)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("mode", ["adjskew", "correctdbg"])
+def test_slot_option_modes_equal_plain(card, mode):
+    """B6 over B5a's buffers (8 parmsets) with -adjskew's accumulators
+    seeded non-zero, or with the DEBUG build's -correct and a mid-block
+    transition dropped per lane (chip_smoke.drop_mid_bits), so that every
+    such lane corrects; against its plain version."""
+    volts, seg_lens, leads, pa, kw = chip_smoke.kernel_inputs(
+        9, 8192, False, seed=11)
+    feat, nxt, pa8, skw = chip_smoke.tiered_inputs(volts, seg_lens, leads,
+                                                   pa, kw, 8)
+    fin = tsc.nrzi_track_scan(feat, nxt, pa8, **skw)
+    skw = chip_smoke.slot_kwargs(kw, volts.shape[-1], False)
+    B, P, T, _ = fin["tr_s"].shape
+    rng = np.random.default_rng(13)
+    if mode == "adjskew":
+        skw.update(clk_avg_fma=True, adj_init=tuple(
+            torch.as_tensor(x, device="cuda") for x in (
+                rng.integers(1, 60, (B, P, T)).astype(np.float32),
+                rng.uniform(-3, 3, (B, P, T)).astype(np.float32))))
+    else:
+        fin, dropped = chip_smoke.drop_mid_bits(fin, kw["spb"])
+        skw.update(correct_debug=True)
+    launches = tsl.nrzi_slot_scan.launches
+    got = tsl.nrzi_slot_scan(fin, pa8, **skw)
+    assert tsl.nrzi_slot_scan.launches == launches + 1
+    want = tsl.nrzi_slot_scan_plain(fin, pa8, **skw)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if mode == "correctdbg":
+        corrected = want["lane_i"][..., tfu.LI_CORR].cpu() > 0
+        assert dropped.any() and corrected[dropped].all()
+
+
+@pytest.mark.parametrize("option", ["-adjskew", "-correctdbg"])
+def test_option_decode_on_card_equals_cpu(card, option):
+    """-adjskew on its oracle recipe, -correctdbg on the tape where it
+    corrects a bit that -correct does not: blocks, reports and final skew
+    equal on the card and on the CPU, and the ground truth."""
+    if option == "-adjskew":
+        blocks, hdr, samples = chip_smoke.adjskew_tape()
+    else:
+        blocks, hdr, samples = chip_smoke.flipped_bit_tape()
+    over = {o: kw for o, kw, _ in chip_smoke.OPTION_PATHS}[option]
+    opts = chip_smoke.tape_options(hdr, tb.MODE_NRZI, 800, **over)
+    launches = tsl.nrzi_slot_scan.launches
+    out_gpu, st_gpu = tpl.decode_tape(samples, opts)
+    assert tsl.nrzi_slot_scan.launches > launches
+    out_cpu, st_cpu = tpl.decode_tape(samples, opts, device="cpu")
+    assert out_gpu == out_cpu and st_gpu["skew"] == st_cpu["skew"]
+    assert [b.data for b in out_gpu if b.kind == "data"] == blocks
+    for k in ("peak_hist", "tried", "chosen"):
+        np.testing.assert_array_equal(st_gpu[k], st_cpu[k])
 
 
 def test_tiered_decode_on_card_equals_cpu(card):

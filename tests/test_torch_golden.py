@@ -10,7 +10,8 @@ CPU; options the port does not run raise NotImplementedError (density
 detection only for GCR: the JAX command line detects it for NRZI and PE
 tapes alone; -zeros only for PE: the JAX command line refuses it there),
 and -parmscan, which is ported, changes no block and without a log logs
-nothing, while on NRZI it logs the JAX package's "ignored" line."""
+nothing, while on NRZI it logs the JAX package's "ignored" line; the
+ported -adjskew and -correctdbg decode."""
 
 import json
 import os
@@ -91,11 +92,16 @@ def test_kernel_build_raises_without_nvcc():
     (dict(do_correct_debug=True), "-correctdbg"),
     (dict(parmscan=True), "-parmscan"),
     (dict(mode=tb.MODE_GCR, bpi=0.0, ips=25), "density detection")])
-def test_unported_options_raise(over, name):
+def test_unported_options_raise(over, name, monkeypatch):
     """The options the port does not run raise NotImplementedError. The
     two -parmscan cases, which the port runs: on GCR without a log the
     blocks equal those decoded without -parmscan (the grid only logs); on
-    NRZI the JAX package's "ignored" line is logged."""
+    NRZI the JAX package's "ignored" line is logged. -adjskew and
+    -correctdbg, ported since, run: on the clean one-block tape they
+    decode its block, -adjskew with its per-track report and the skew
+    left as it was, -correctdbg with all eight parmsets
+    (tests/test_torch_adjskew.py and test_torch_correctdbg.py hold them to
+    the JAX package)."""
     if over.get("mode") == tb.MODE_GCR and over.get("parmscan"):
         hdr, samples = _gcr_tape()
     else:
@@ -104,6 +110,27 @@ def test_unported_options_raise(over, name):
               deltat=hdr.tdelta_ns * 1e-9, maxvolts=hdr.maxvolts)
     kw.update(over)
     opts = tpl.DecodeOptions(**kw)
+    if name in ("-adjskew", "-correctdbg"):
+        plain = tpl.DecodeOptions(**dict(kw, adjskew=False,
+                                         do_correct_debug=False))
+        want, _ = tpl.decode_tape(samples, plain, device="cpu")
+        batches = []
+        orig = tpl.TapeDecoder.dispatch_segment_batch
+
+        def spy(self, *a, **k):
+            batches.append(k)
+            return orig(self, *a, **k)
+        monkeypatch.setattr(tpl.TapeDecoder, "dispatch_segment_batch", spy)
+        got, stats = tpl.decode_tape(samples, opts, device="cpu")
+        assert len(got) == 1 and got[0].data == want[0].data
+        if name == "-adjskew":
+            assert len(got[0].detail["adjskew"]) == 9
+            assert stats["skew"] == [0] * 9
+            assert all(k["parm_sel"] == (0,) for k in batches)
+        else:
+            assert all(k["correctdbg"] and k["nparms"] == 8
+                       for k in batches)
+        return
     if name != "-parmscan":
         with pytest.raises(NotImplementedError, match=name):
             tpl.decode_tape(samples, opts, device="cpu")

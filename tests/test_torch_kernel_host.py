@@ -11,7 +11,15 @@ kernel's phase A does (nrzi_walk_chunk), over window features it computes
 for each chunk (nrzi_feature_rows; the rows it did not compute hold NaN),
 with the kernel's chunk of 256 samples and with one of 64; then the slot
 machine's per-track steps and per-lane combines, track by track
-(nrzi_slot_machine: the drive the card runs one track per thread)."""
+(nrzi_slot_machine: the drive the card runs one track per thread).
+
+Last, B6's lane (nrzi_slot_lane, tests/test_torch_scan.py's host build)
+in the slot machine's two modes that B1 never runs: -adjskew's
+accumulators, seeded non-zero, and the DEBUG build's -correct (on
+buffers where it flips a bit mid-block, on buffers where only the
+release check flips one, and on tests/test_torch_slot.py's tied gains,
+where every slot flips the first of the two highest), each against the
+plain version, and both at once."""
 
 import ctypes
 import shutil
@@ -23,8 +31,13 @@ import torch
 
 from readtape_tpu_torch import kernels
 from readtape_tpu_torch.decode import fused as tfu
+from readtape_tpu_torch.decode import slot as tsl
 
+from test_torch_adjskew import seeds
+from test_torch_correctdbg import drop_mid_bit
 from test_torch_fused import CASES, _inputs
+from test_torch_scan import tiered_host_lib  # noqa: F401
+from test_torch_slot import slot_case
 
 torch.set_num_threads(2)
 
@@ -108,3 +121,33 @@ def test_host_state_machine_matches_plain(host_lib, case):
         np.testing.assert_array_equal(got["trk_f"].numpy(),
                                       want["trk_f"].numpy(),
                                       err_msg=f"chunk {chunk}")
+
+
+@pytest.mark.parametrize("mode,name", [
+    ("adjskew", "1blk"), ("correctdbg", "middrop"), ("correctdbg", "correct"),
+    ("correctdbg", "tie"), ("both", "correct")])
+def test_host_slot_lane_new_modes_match_plain(tiered_host_lib,  # noqa: F811
+                                              mode, name):
+    fin, pa, kw, trans, _ = slot_case("1blk" if name == "middrop" else name)
+    if name == "middrop":
+        fin, _ = drop_mid_bit(fin, trans, kw["spb"])
+    B, P, T, _ = fin["tr_s"].shape
+    if mode in ("adjskew", "both"):
+        kw = dict(kw, clk_avg_fma=True, adj_init=seeds(B, P, T, seed=13))
+    if mode in ("correctdbg", "both"):
+        kw = dict(kw, do_correct=False, correct_debug=True)
+    want = tsl.nrzi_slot_scan_plain(fin, pa, **kw)
+    args, got, keep = kernels.nrzi_slot_prepare(fin["tr_s"], fin, pa, **kw)
+    assert args.do_correct == (kernels.NRZI_CORRECT_DEBUG
+                               if mode != "adjskew" else int(kw["do_correct"]))
+    tiered_host_lib.slot_host_run(ctypes.byref(args))
+    del keep
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    corrected = want["lane_i"][0, :, tsl.LI_CORR]
+    if mode != "adjskew":
+        # the DEBUG check flips mid-block or at every tied slot, never
+        # the first frame's bit the release check flips
+        assert ((corrected > 0) == (name != "correct")).all()
