@@ -17,7 +17,9 @@ non-zero:
               8 parmsets, S=16384, one noisy), with -correct, on 7-track
               segments and on the first batch that phase 4's NRZI decode
               hands it; the tiered NRZI kernels on the same segments:
-              nrzi_track_scan (B5a, the 8 parmsets' three window widths),
+              nrzi_track_scan (B5a, the 8 parmsets' three window widths;
+              and 15 parmsets, six widths, under a step budget that
+              stops some lanes and not others),
               nrzi_track_scan_tracks (B5b, parmset 0), nrzi_slot_scan (B6,
               over B5a's buffers, with and without -correct, and on the
               7-track segments), and each at the first batch that phase
@@ -128,7 +130,9 @@ runs none of the checks: it prints nvcc's -Xptxas -v lines (registers,
 stack frame, spills of each kernel), the phases of nrzi_fused_scan and
 the slot machine of nrzi_slot_scan at their NRZI bench launches (with
 the machine's time per slot by kind of step), nrzi_track_scan_tracks'
-walk per lane at the tiered bench's first launch, the phases of
+walk per lane at the tiered bench's first launch, nrzi_track_scan's
+walk and barrier wait per walker at -correctdbg's first launch on the
+NRZI bench tape, the phases of
 gcr_fused_scan at the GCR bench's launch, Z1's passes A, B and C per
 lane (plain at B=40 and at the NRZI chain's B=1, differentiated) and
 Z2's walk per admitted transition, the time of each of
@@ -136,7 +140,8 @@ ww_fused_scan's launches at the Whirlwind bench tape and of each phase
 of pe_fused_scan at the PE bench decode's first launch and at its
 second (a walk hop, B=1), then times where a warm decode_tape of each
 bench tape spends its wall (each step with a synchronize around it; the
-GCR bench also as float volts and with -zeros),
+NRZI bench also tiered and under -correctdbg, the GCR bench also as
+float volts and with -zeros),
 and profiles one more decode with torch.profiler for the card's busy
 time.
 Imports nothing of JAX and nothing of the JAX package: the example tapes
@@ -1050,6 +1055,30 @@ def tiered_inputs(volts, seg_lens, leads, pa, kw, nparms):
             dict(Ws=Ws, K=kw["K"]))
 
 
+def p15_inputs(volts, seg_lens, leads, pa, kw):
+    """B5a's arguments with 15 parmsets, the most a parms file holds:
+    kernel_inputs' 8 builtin ones and 7 more with wider windows (bitfrac
+    + 0.15) and a lower rise (x 0.6), six widths in all, so the kernel
+    takes two blocks per (segment, track); under kernel_inputs' XLA step
+    budget, which binds on the noisy segment's lanes and not on the clean
+    ones'."""
+    import dataclasses
+
+    import torch
+    from readtape_tpu_torch.decode import common as cm
+    pa15 = pa.select(list(range(8)) + list(range(7)))
+    more = (torch.arange(15, device=volts.device) >= 8).float()
+    pa15 = dataclasses.replace(
+        pa15, pkww_bitfrac=pa15.pkww_bitfrac + 0.15 * more,
+        pkww_rise=pa15.pkww_rise * (1.0 - 0.4 * more))
+    deltat = 1.0 / (800.0 * 50.0 * kw["spb"])
+    Ws = tuple(cm.pkww_width_for(f, 800.0, 50.0, deltat)
+               for f in pa15.pkww_bitfrac.tolist())
+    feat, nxt, pa15, skw = tiered_inputs(volts, seg_lens, leads, pa15,
+                                         dict(kw, Ws=Ws), 15)
+    return feat, nxt, pa15, dict(skw, max_steps=kw["max_steps"])
+
+
 def compare_scan(name, kernel, feat, nxt, pa, kw):
     """One launch of B5a or B5b (`kernel`) against its plain version on
     the same card inputs; compare_kernel's dict, with the kernel's
@@ -1248,11 +1277,12 @@ def phase_tiered_kernel():
     kernel_inputs' segments (B5a with all 8 parmsets and their three
     window widths, B5b with parmset 0, B6 over B5a's buffers, and under
     -correct over them with one first-frame bit per lane removed; the
-    same, without -correct, on 7-track segments), then each at the
-    first batch that phase 4's tiered decode hands it (B5b and B6 on the
-    NRZI bench tape's first pass, B5a on the noisy tape's retry); B5b
-    also at the bench decode's second batch and at density detection's
-    launch."""
+    same, without -correct, on 7-track segments; B5a also with 15
+    parmsets, two blocks per (segment, track), under a step budget that
+    stops some lanes and not others), then each at the first batch that
+    phase 4's tiered decode hands it (B5b and B6 on the NRZI bench tape's
+    first pass, B5a on the noisy tape's retry); B5b also at the bench
+    decode's second batch and at density detection's launch."""
     import dataclasses
 
     from readtape_tpu_torch import kernels
@@ -1281,7 +1311,20 @@ def phase_tiered_kernel():
             res[f"b5b {tag}"] = compare_scan(f"b5b {tag}",
                                              "nrzi_track_scan_tracks",
                                              feat, nxt, pa1, skw)
-            del feat, nxt
+            feat, nxt, pa15, skw = p15_inputs(volts, seg_lens, leads, pa, kw)
+            r = res["b5a p15"] = compare_scan("b5a p15", "nrzi_track_scan",
+                                              feat, nxt, pa15, skw)
+            out = r.pop("out")
+            inc, nadm = out["incomplete"], out["n_admitted"]
+            if not (bool(inc.any()) and not bool(inc.all())
+                    and int(nadm.max()) <= skw["K"]):
+                raise AssertionError(
+                    f"b5a p15: the budget stopped {int(inc.sum())} of "
+                    f"{inc.numel()} lanes, or K overflowed")
+            print(f"  b5a p15: the budget of {skw['max_steps']} steps "
+                  f"stopped {int(inc.sum())} of {inc.numel()} lanes",
+                  flush=True)
+            del feat, nxt, out
     _, hdr, samples = bench_tape()
     opts = tape_options(hdr, tb.MODE_NRZI, 800)
     # B5b at the tiered decode's two batches (B=128, then 34) and at
@@ -2052,7 +2095,8 @@ def phase_options(card):
     the CPU: .tap and .log equal (the time masked). Then the NRZI bench
     tape under each option, timed (decode_timed): its blocks against the
     ground truth, its wall and launches. Returns {kernels-line entry:
-    (B6's launches, wall s, Msamples/s)}."""
+    (launches, wall s, Msamples/s)}: B6's and the admission's under each
+    option."""
     import dataclasses
     from readtape_tpu_torch.decode import pipeline as tpl
     from readtape_tpu_torch.formats import tbin as tb
@@ -2115,6 +2159,7 @@ def phase_options(card):
               f"launches {launches}: {wall:.3f} s wall, {msps:.3f} "
               f"Msamples/s ({card})", flush=True)
         runs[entry] = (launches["nrzi_slot_scan"], wall, msps)
+        runs[f"{admit} {opt}"] = (launches[admit], wall, msps)
     return runs
 
 
@@ -2444,6 +2489,55 @@ def b5b_phases():
           f"clock {float(1 / ns.mean()):.3f} GHz", flush=True)
 
 
+def b5a_phases():
+    """Where B5a's time goes at -correctdbg's launch (the NRZI bench
+    decode's first, B=16, P=8, G=3): per walker (a (segment, parmset,
+    track) lane), its clock64() cycles walking and waiting at its block's
+    barrier after the chunks it walked (for its block's slower walkers,
+    or for the staging), and its steps; the wait's share of the walk over
+    all walkers; per block the least wait of its walkers (what the block
+    waited for the staging alone); the longest walk per admission and
+    per step, and that walker's own wait (what a deeper ring of chunks,
+    letting walkers drift apart, could take off the kernel's time)."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    _, hdr, samples = bench_tape()
+    (feat, nxt, pa), kw = first_call(
+        kernels, "nrzi_scan", samples,
+        tape_options(hdr, tb.MODE_NRZI, 800, **DEBUG_CORRECT))
+    kernels.scan_stamps(feat, nxt, pa, **kw)
+    out, st = kernels.scan_stamps(feat, nxt, pa, **kw)
+    st = st.double()
+    ns = ((st[:, kernels.SCAN_ST_G1] - st[:, kernels.SCAN_ST_G0])
+          / (st[:, kernels.SCAN_ST_C1] - st[:, kernels.SCAN_ST_C0]))
+    walk = st[:, kernels.SCAN_ST_WALK] * ns
+    wait = st[:, kernels.SCAN_ST_WAIT] * ns
+    steps = st[:, kernels.SCAN_ST_STEPS]
+    wall = (st[:, kernels.SCAN_ST_G1] - st[:, kernels.SCAN_ST_G0]) / 1e6
+    nadm = out["n_admitted"].reshape(-1).double().cpu()
+    G, B, T, S, _ = feat.shape
+    P = len(kw["Ws"])
+    # lanes (b*P + p)*T + t; a block: one (b, t), every p (P <= 8)
+    least = wait.reshape(B, P, T).min(dim=1).values
+    lane = int(walk.argmax())
+    w = float(walk[lane])
+    t = time_launches(lambda: kernels.nrzi_scan(feat, nxt, pa, **kw), 10)
+    print(f"B5a nrzi_track_scan b5a correctdbg (B={B} P={P} G={G} T={T} "
+          f"S={S}): kernel {t:.3f} ms; per walker walk (clock64) mean "
+          f"{float(walk.mean()) / 1e6:.3f} max {w / 1e6:.3f} ms ("
+          f"{int(nadm[lane])} admissions, {w / float(nadm[lane]):.0f} ns "
+          f"per admission; {int(steps[lane])} steps, "
+          f"{w / float(steps[lane]):.0f} ns per step; it waited "
+          f"{float(wait[lane]) / 1e6:.3f} ms); barrier wait mean "
+          f"{float(wait.mean()) / 1e6:.3f} max "
+          f"{float(wait.max()) / 1e6:.3f} ms, "
+          f"{100 * float(wait.sum() / walk.sum()):.1f}% of the walk; a "
+          f"block's least wait mean {float(least.mean()) / 1e6:.3f} max "
+          f"{float(least.max()) / 1e6:.3f} ms; walker wall mean "
+          f"{float(wall.mean()):.3f} max {float(wall.max()):.3f} ms; SM "
+          f"clock {float(1 / ns.mean()):.3f} GHz", flush=True)
+
+
 def mach_note(cycles, ns, nslot):
     """The slot machine's ns per slot in each of its steps (cycles summed
     over a lane's slots, on thread 0: a step ends when every track has)."""
@@ -2531,6 +2625,7 @@ def breakdown(card):
         print(f"  {ln}", flush=True)
     nrzi_phases()
     b5b_phases()
+    b5a_phases()
     gcr_phases()
     zeros_phases()
     kernel_phases()
@@ -2540,7 +2635,10 @@ def breakdown(card):
     _, hdr, samples = bench_tape()
     nrzi = tape_options(hdr, tb.MODE_NRZI, 800)
     tapes = [("NRZI bench", samples, nrzi, "fused"),
-             ("NRZI bench, tiered", samples, nrzi, "tiered")]
+             ("NRZI bench, tiered", samples, nrzi, "tiered"),
+             ("NRZI bench, -correctdbg", samples,
+              tape_options(hdr, tb.MODE_NRZI, 800, **DEBUG_CORRECT),
+              "fused")]
     _, hdr, samples = pe_bench_tape()
     tapes.append(("PE bench", samples, tape_options(hdr, tb.MODE_PE, 1600),
                   "fused"))
@@ -2659,7 +2757,10 @@ def main():
                             ("zerocross_transitions", "z1 main"),
                             ("gcr_zeros_scan", "z2 main"),
                             ("nrzi_slot_scan -adjskew", "b6 adjskew"),
-                            ("nrzi_slot_scan -correctdbg", "b6 correctdbg")):
+                            ("nrzi_slot_scan -correctdbg", "b6 correctdbg"),
+                            ("nrzi_track_scan_tracks -adjskew", "b5b adjskew"),
+                            ("nrzi_track_scan -correctdbg",
+                             "b5a correctdbg")):
         r = times[main_case]
         kernel = name.split()[0]
         line.append(dict(

@@ -4,8 +4,8 @@
 // the tests. Every function is __host__ __device__ and touches one
 // (segment, parmset) lane, or one track of it. There is one copy of each
 // machine: the admission step (NrziWalk::admit, whose admission test and
-// AGC policy GCR's walk shares) that B1 and B5b drive chunk by chunk and
-// B5a over its whole jump table, and the slot machine's per-track steps
+// AGC policy GCR's walk shares) that B1, B5a and B5b drive chunk by chunk,
+// and the slot machine's per-track steps
 // and per-lane combines (nrzi_slot_drive) that the card runs with one
 // thread per track of a warp and the host runs serially, track by track.
 //
@@ -103,6 +103,11 @@
 #define SCAN_ST_WALK 4
 #define SCAN_ST_STEPS 5
 #define SCAN_NSTAMP 6
+// B5a's per-walker stamps: B5b's, and the walker's clock64() cycles at the
+// block's chunk barriers after the chunks it walked (waiting for slower
+// walkers of its block, or for the staging)
+#define SCAN_ST_WAIT 6
+#define SCANA_NSTAMP 7
 
 // Everything one launch needs. Pointers are device pointers for the
 // kernel and host pointers for the host build. Lane = b * P + p.
@@ -209,10 +214,9 @@ NRZI_HD int nrzi_next_cand(const uint32_t* words, int nw, int S, int p) {
 // ---------------------------------------------------------------------------
 // phase A: one track's admission scan (trackscan.run_jump_scan_seq +
 // nrzi_track_scan_pre + nrzi_agc_policy), one step struct (NrziWalk)
-// driven two ways: B1 and B5b walk chunk by chunk (nrzi_walk_chunk), B1
-// over window features computed a chunk ahead, B5b over its table's rows
-// staged a chunk ahead; B5a walks a masked jump table over precomputed
-// features whole (nrzi_admit_scan)
+// walked chunk by chunk (nrzi_walk_chunk): B1 over window features
+// computed a chunk ahead, B5a and B5b over their table's rows staged a
+// chunk ahead
 // ---------------------------------------------------------------------------
 
 struct NrziFeat {
@@ -273,10 +277,10 @@ NRZI_HD NrziFeat nrzi_feat_of(const NrziTableRow& row) {
 }
 
 // ---------------------------------------------------------------------------
-// The chunked admission walk (B1, B2, B3, B4, B5b): a track's tape is cut
+// The chunked admission walk (B1, B2, B3, B4, B5): a track's tape is cut
 // into chunks of C samples (C a multiple of 32); for each chunk the caller
 // provides the chunk's candidate words and the window features at its
-// candidates (computed rows, or B5b's table rows), and the walk runs the
+// candidates (computed rows, or B5's table rows), and the walk runs the
 // same steps run_jump_scan_seq takes over the whole track. The cursor carries across chunks: a blind jump may land past the
 // chunk, and a search for the next candidate goes on in the next one.
 // ---------------------------------------------------------------------------
@@ -336,7 +340,7 @@ NRZI_HD int nrzi_stage_hi(int c1, int S) { return c1 + 1 < S ? c1 + 1 : S; }
 // Walk one track through the chunk [c0, c1): w.admit(s, f) runs one step
 // at a candidate s with its features f of rows[s - c0] and moves w.cur (a
 // blind jump, or a search from s + 1). One step per landing, as the JAX
-// XLA scan counts them (and nrzi_admit_scan); a track stops at S or,
+// XLA scan counts them; a track stops at S or,
 // landed, after max_steps steps. Returns false once the track has stopped.
 template <class Walk, class Row>
 NRZI_HD bool nrzi_walk_chunk(Walk& w, const uint32_t* words, const Row* rows,
@@ -494,9 +498,7 @@ struct NrziTableSrc {
   const NrziTableRow* ft;  // [S]
   const int32_t* nxt;      // [S + 1]
   int S;
-  NRZI_HDM int next(int p) const { return nxt[p < S ? p : S]; }
   NRZI_HDM bool cand(int s) const { return nxt[s] == s; }
-  NRZI_HDM void feat(int s, int, NrziFeat& f) const { f = nrzi_feat_of(ft[s]); }
 };
 
 // one parmset's admission knobs
@@ -680,30 +682,6 @@ NRZI_HD NrziAdmitRes nrzi_walk_result(const NrziWalk& w, int S) {
   r.max_agc = w.g.max_agc;
   r.min_agc = w.g.min_agc;
   return r;
-}
-
-// The walk w (initialised) over a candidate source whole (B5a): one step
-// per landing, as the JAX XLA scan counts them; a lane stops after
-// max_steps steps (its budget) or when its cursor passes S
-template <class Src>
-NRZI_HD void nrzi_admit_scan(NrziWalk& w, const Src& src, int S, int max_steps) {
-  int pos = src.next(0);
-  while (pos < S && w.steps < max_steps) {
-    const int s = pos;
-    w.steps += 1;
-    if (src.cand(s)) {
-      NrziFeat f;
-      src.feat(s, w.kn.W, f);
-      w.admit(s, f);
-      if (!w.cur.search) {
-        pos = w.cur.pos;
-        continue;
-      }
-    }
-    // a rejection, or a blind jump that landed on a non-candidate: snap
-    pos = src.next(s + 1);
-  }
-  w.cur.pos = pos;
 }
 
 NRZI_HD NrziKnobs nrzi_knobs(const int32_t* p_w, const int32_t* p_agc_window,
@@ -1460,8 +1438,9 @@ NRZI_HD void nrzi_zero_lane(const NrziArgs& a, int lane, int tid, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// B5 (admission alone, nrzi_scan.cu: B5a walks the whole table per
-// thread with nrzi_scan_lane, B5b walks it per block, chunk by chunk, over
+// B5 (admission alone, nrzi_scan.cu: B5a a block per (segment, track),
+// its parmsets' walkers over chunks staged once for all of them; B5b a
+// block per (segment, parmset, track) lane; both walk chunk by chunk over
 // entries staged in shared memory) and B6 (the slot machine alone:
 // nrzi_slot.cu runs a lane per warp, the host build nrzi_slot_lane).
 // Their outputs come pre-filled from the wrapper (kernels.py): transition
@@ -1486,7 +1465,8 @@ struct NrziScanArgs {
   float* max_agc_gain;
   float* min_agc_gain;
   int8_t* incomplete;
-  int64_t* stamps;           // [B*P*T, SCAN_NSTAMP] B5b's walk clocks, or null
+  int64_t* stamps;           // [B*P*T, SCAN_NSTAMP] B5b's walk clocks
+                             // (B5a: SCANA_NSTAMP), or null
   int32_t B, P, T, S, G, K, max_steps;
 };
 
@@ -1527,14 +1507,203 @@ NRZI_HD void nrzi_scan_walk_finish(const NrziWalk& w, const NrziScanArgs& a, int
   a.incomplete[lane] = r.incomplete || r.n_adm > a.K;
 }
 
-// B5a's lane: the walk over its table whole
-NRZI_HD void nrzi_scan_lane(const NrziScanArgs& a, int lane) {
-  float heights[NRZI_MAX_AGC_RING];
-  NrziWalk w;
-  nrzi_scan_walk_init(w, a, lane, heights);
-  nrzi_admit_scan(w, nrzi_scan_src(a, lane), a.S, a.max_steps);
-  nrzi_scan_walk_finish(w, a, lane);
+// ---------------------------------------------------------------------------
+// B5a's block (nrzi_scan.cu nrzi_scan_kernel): one (segment, track) row
+// b*T + t and a walker for each of the parmsets p0 .. p0 + nw - 1 (P cut
+// into nrzi_scan_parts parts). The walkers read one jump table and at
+// most nw feature groups, so the block stages each chunk of C table
+// entries once for all of them, into slot i & 1: its entries, its
+// candidate words (bit s: nxt[s] == s) and, for each group a walker
+// reads, the feature rows at its candidates. Each live walker then walks
+// the chunk (nrzi_walk_chunk) over the words and its group's rows under
+// its own step budget, and stops on its own; the block goes on while any
+// walker is alive. An executor ex runs the two: on the card (nrzi_scan.cu
+// ScanCard) staging warps fill chunk i + 1 while each walker, thread 0 of
+// a warp of its own, walks chunk i; on the host (NrziScanSerial) the
+// staging, then each walker, in turn
+// ---------------------------------------------------------------------------
+
+#define NRZI_SCAN_MAX_WALK 8       // walkers (parmsets) per block
+
+// P parmsets cut into parts of at most NRZI_SCAN_MAX_WALK, as even as
+// they go: returns the number of parts, *pb the parmsets of the largest
+NRZI_HD int nrzi_scan_parts(int P, int* pb) {
+  const int n = (P + NRZI_SCAN_MAX_WALK - 1) / NRZI_SCAN_MAX_WALK;
+  *pb = (P + n - 1) / n;
+  return n;
 }
+
+struct NrziScanBlk {
+  const int32_t* nxt;        // the row's jump table [S + 1]
+  const NrziTableRow* ft;    // the row's rows of group 0 [S]; group g's at
+  int64_t gstride;           //   ft + g * gstride
+  int32_t* ent;              // [2][C] staged entries
+  uint32_t* wd;              // [2][CW] candidate words
+  NrziTableRow* rows;        // [2][ng][C] feature rows, at candidates only
+  int S, C, CW, ng;
+  int gsrc[NRZI_SCAN_MAX_WALK];   // the group of each of the ng row blocks
+};
+
+// one walker: its walk, lane (b*P + p)*T + t, row block; with stamps, the
+// clock64() cycles it walked and waited at the block's barrier after the
+// chunks it walked
+struct NrziScanWalker {
+  NrziWalk w;
+  int lane, gslot;
+  bool alive;
+  long long walked, waited;
+};
+
+// bytes of a block's slots at chunk C, ng groups and nw walkers
+NRZI_HD size_t nrzi_scan_blk_smem(int C, int ng, int nw) {
+  return (size_t)2 * ng * C * sizeof(NrziTableRow) + (size_t)2 * C * 4 +
+         (size_t)2 * (C >> 5) * 4 + (size_t)nw * NRZI_MAX_AGC_RING * 4;
+}
+
+// The block of row b*T + t and parmsets p0 .. p0 + nw - 1 over the slots
+// at sm (nrzi_scan_blk_smem(C, ng, nw), 16-byte aligned, ng at least the
+// groups these parmsets read); *heights: the walkers' AGC rings there
+NRZI_HD NrziScanBlk nrzi_scan_blk(const NrziScanArgs& a, int row, int p0, int nw, int C,
+                                  int ng, unsigned char* sm, float** heights) {
+  NrziScanBlk k;
+  k.nxt = a.nxt + (int64_t)row * (a.S + 1);
+  k.ft = (const NrziTableRow*)a.feat + (int64_t)row * a.S;
+  k.gstride = (int64_t)a.B * a.T * a.S;
+  k.S = a.S;
+  k.C = C;
+  k.CW = C >> 5;
+  k.ng = 0;
+  for (int g = 0; g < a.G; ++g)
+    for (int j = 0; j < nw; ++j)
+      if (a.grp[p0 + j] == g) {
+        k.gsrc[k.ng++] = g;
+        break;
+      }
+  k.rows = (NrziTableRow*)sm;
+  k.ent = (int32_t*)(k.rows + 2 * ng * C);
+  k.wd = (uint32_t*)(k.ent + 2 * C);
+  *heights = (float*)(k.wd + 2 * k.CW);
+  return k;
+}
+
+// walker j of the block (parmset p0 + j) at its start
+NRZI_HD void nrzi_scan_walker_init(NrziScanWalker& w, const NrziScanArgs& a,
+                                   const NrziScanBlk& k, int row, int p0, int j,
+                                   float* heights) {
+  const int p = p0 + j;
+  w.lane = ((row / a.T) * a.P + p) * a.T + row % a.T;
+  nrzi_scan_walk_init(w.w, a, w.lane, heights + j * NRZI_MAX_AGC_RING);
+  w.gslot = 0;
+  for (int g = 0; g < k.ng; ++g)
+    if (k.gsrc[g] == a.grp[p]) w.gslot = g;
+  w.alive = true;
+  w.walked = w.waited = 0;
+}
+
+NRZI_HD int nrzi_scan_c1(const NrziScanBlk& k, int i) {
+  return (i + 1) * k.C < k.S ? (i + 1) * k.C : k.S;
+}
+
+// entry slot i & 1 <- nxt[c0 .. c1), staging thread ex.tid of ex.n a share
+template <class Ex>
+NRZI_HD void nrzi_scan_entries(Ex& ex, const NrziScanBlk& k, int i) {
+  const int c0 = i * k.C, c1 = nrzi_scan_c1(k, i);
+  int32_t* e = k.ent + (i & 1) * k.C;
+  for (int s = c0 + ex.tid; s < c1; s += ex.n) ex.cp4(e + (s - c0), k.nxt + s);
+  ex.commit();
+}
+
+// row slot i & 1 <- chunk i's candidate words, a word per staging warp in
+// turn (one vote of its 32 lanes over the staged entries), and each
+// candidate's row of every staged group (its lane copies them)
+template <class Ex>
+NRZI_HD void nrzi_scan_rows(Ex& ex, const NrziScanBlk& k, int i) {
+  const int c0 = i * k.C, c1 = nrzi_scan_c1(k, i);
+  const int32_t* e = k.ent + (i & 1) * k.C;
+  uint32_t* wd = k.wd + (i & 1) * k.CW;
+  NrziTableRow* r = k.rows + (i & 1) * k.ng * k.C;
+  for (int q = ex.warp; q < k.CW; q += ex.nwarp) {
+    const int x0 = q << 5;
+    const uint32_t word =
+        ex.ballot([&](int l) { return c0 + x0 + l < c1 && e[x0 + l] == c0 + x0 + l; });
+    ex.lanes([&](int l) {
+      if (l == 0) wd[q] = word;
+      if ((word >> l) & 1u)
+        for (int j = 0; j < k.ng; ++j)
+          ex.cp_row(r + j * k.C + x0 + l, k.ft + k.gsrc[j] * k.gstride + c0 + x0 + l);
+    });
+  }
+  ex.commit();
+}
+
+// chunk i's words and rows from its staged entries, chunk i + 1's entries
+// on their way; returns once chunk i's rows have landed
+template <class Ex>
+NRZI_HD void nrzi_scan_fill(Ex& ex, const NrziScanBlk& k, int i, int nch) {
+  ex.wait_entries();
+  nrzi_scan_rows(ex, k, i);
+  if (i + 1 < nch) nrzi_scan_entries(ex, k, i + 1);
+  else ex.commit();
+  ex.wait_rows();
+}
+
+// before chunk 0 (nch >= 1): chunk 0 staged, chunk 1's entries on their way
+template <class Ex>
+NRZI_HD void nrzi_scan_prime(Ex& ex, const NrziScanBlk& k, int nch) {
+  ex.stage([&] {
+    nrzi_scan_entries(ex, k, 0);
+    nrzi_scan_fill(ex, k, 0, nch);
+  });
+  ex.any();
+}
+
+// The block's step at chunk i of nch: the staging fills chunk i + 1 while
+// each live walker walks chunk i over its words and its group's rows, with
+// the budget max_steps. Returns, at a barrier of the block, whether any
+// walker is still alive
+template <class Ex>
+NRZI_HD bool nrzi_scan_chunk(Ex& ex, const NrziScanBlk& k, int i, int nch, int max_steps) {
+  if (i + 1 < nch) ex.stage([&] { nrzi_scan_fill(ex, k, i + 1, nch); });
+  const int c0 = i * k.C, c1 = nrzi_scan_c1(k, i);
+  const uint32_t* wd = k.wd + (i & 1) * k.CW;
+  const NrziTableRow* r = k.rows + (i & 1) * k.ng * k.C;
+  ex.walk([&](NrziScanWalker& w) {
+    w.alive = nrzi_walk_chunk(w.w, wd, r + w.gslot * k.C, c0, c1, k.S, max_steps);
+  });
+  return ex.any();
+}
+
+// B5a's executor on the host: the staging (one thread, its warp's 32
+// lanes in a loop), then each live walker, in turn
+struct NrziScanSerial {
+  NrziScanWalker* w;         // [nw]
+  int nw;
+  int tid, n, warp, nwarp;   // the staging thread: 0 of 1, warp 0 of 1
+  template <class F> NRZI_HDM void stage(F f) { f(); }
+  template <class F> NRZI_HDM void walk(F f) {
+    for (int j = 0; j < nw; ++j)
+      if (w[j].alive) f(w[j]);
+  }
+  NRZI_HDM bool any() const {
+    bool r = false;
+    for (int j = 0; j < nw; ++j) r = r || w[j].alive;
+    return r;
+  }
+  template <class F> NRZI_HDM uint32_t ballot(F f) const {
+    uint32_t m = 0;
+    for (int l = 0; l < 32; ++l)
+      if (f(l)) m |= 1u << l;
+    return m;
+  }
+  template <class F> NRZI_HDM void lanes(F f) const {
+    for (int l = 0; l < 32; ++l) f(l);
+  }
+  NRZI_HDM void cp4(int32_t* d, const int32_t* s) const { *d = *s; }
+  NRZI_HDM void cp_row(NrziTableRow* d, const NrziTableRow* s) const { *d = *s; }
+  NRZI_HDM void commit() const {}
+  NRZI_HDM void wait_entries() const {}
+  NRZI_HDM void wait_rows() const {}
+};
 
 struct NrziSlotArgs {
   const int32_t* tr_s;       // [B*P, T, K] (nrzi_scan's outputs)

@@ -13,10 +13,22 @@
 // What bounds it: serial latency. A lane's steps form a dependent chain
 // (the AGC state of one admission sets the thresholds of the next), and
 // each step reads a 40-byte feature row and a jump-table entry at a
-// data-dependent position. The two entry points:
-//   B5a  one thread per lane, 32 lanes per block, a track's parmsets side
-//        by side (they read the same jump table); each step reads device
-//        memory (nrzi_admit_scan over the table)
+// data-dependent position. So no step reads device memory: the walks read
+// chunks of the table staged in shared memory. The two entry points:
+//   B5a  one block per (segment, track), with a walker for each of its
+//        parmsets (up to NRZI_SCAN_MAX_WALK a block; more parmsets take
+//        more blocks, the grid's y): they read the same jump table and at
+//        most G feature groups, so two staging warps stage each chunk
+//        once for all of them -- its entries by cp.async, its candidate
+//        words by ballot, and the candidates' rows of each group its
+//        walkers read by cp.async -- into one of two shared-memory slots,
+//        a chunk ahead of the walks. Each walker is thread 0 of a warp of
+//        its own, so walkers of different parmsets never diverge within a
+//        warp; each keeps its own walk, AGC ring and step budget and
+//        stops on its own, and the block goes on while any walker is
+//        alive (nrzi_core.h nrzi_scan_chunk, the host build's twin too).
+//        The walkers of a block meet at a barrier after every chunk, so
+//        a chunk costs its slowest walker's time
 //   B5b  one block per lane: thread 0 of warp 0 walks, warp 1 stages the
 //        lane's table in chunks of C entries, a chunk ahead of the walk:
 //        the chunk's jump-table entries by cp.async, its candidate words
@@ -35,18 +47,11 @@
 
 #include "nrzi_core.h"
 
-#define NRZI_SCAN_THREADS 32     // B5a: lanes per block
+#define SCANA_CHUNK 256          // B5a: table entries per chunk
+#define SCANA_STAGE_WARPS 2      // B5a: staging warps per block
 #define SCAN_CHUNK 256           // B5b: table entries per chunk
 #define SCAN_THREADS 64          // B5b: the walker's warp, the staging warp
 #define SCAN_MIN_BLOCKS 9        // B5b: blocks per SM (1,152 lanes, 132 SMs)
-
-__global__ void __launch_bounds__(NRZI_SCAN_THREADS) nrzi_scan_kernel(NrziScanArgs a) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.B * a.P * a.T) return;
-  // lanes (b, t, p), p fastest
-  const int p = j % a.P, t = (j / a.P) % a.T, b = j / (a.P * a.T);
-  nrzi_scan_lane(a, (b * a.P + p) * a.T + t);
-}
 
 // cp.async of 8 bytes
 __device__ __forceinline__ void scan_cp8(void* dst, const void* src) {
@@ -170,13 +175,133 @@ __global__ void __launch_bounds__(SCAN_THREADS, SCAN_MIN_BLOCKS)
   }
 }
 
-// B5a: parmsets of any window widths (G feature groups). Launches on
+// B5a's executor on the card (nrzi_core.h nrzi_scan_chunk): warps 0 ..
+// pb - 1 walk (thread 0 of warp j runs walker j, where the block has it),
+// the SCANA_STAGE_WARPS warps after them stage. Its members are __host__
+// __device__ so that the step's template may call them; they do their
+// work in the device build only
+struct ScanCard {
+  NrziScanWalker w;
+  bool walker, stager, walked;   // walked: this walker walked this chunk
+  int tid, n, warp, nwarp, lane; // staging thread tid of n, warp of nwarp
+  template <class F> NRZI_HDM void stage(F f) {
+    if (stager) f();
+  }
+  template <class F> NRZI_HDM void walk(F f) {
+    walked = walker && w.alive;
+    if (walked) {
+      const long long c = nrzi_clock();
+      f(w);
+      w.walked += nrzi_clock() - c;
+    }
+  }
+  NRZI_HDM bool any() {
+#ifdef __CUDA_ARCH__
+    const long long c = clock64();
+    const bool r = __syncthreads_or(walker && w.alive);
+    if (walked) w.waited += clock64() - c;
+    walked = false;
+    return r;
+#else
+    return false;
+#endif
+  }
+  template <class F> NRZI_HDM uint32_t ballot(F f) const {
+#ifdef __CUDA_ARCH__
+    return __ballot_sync(0xffffffffu, f(lane));
+#else
+    return 0;
+#endif
+  }
+  template <class F> NRZI_HDM void lanes(F f) const { f(lane); }
+  NRZI_HDM void cp4(int32_t* d, const int32_t* s) const { nrzi_cp4(d, s); }
+  NRZI_HDM void cp_row(NrziTableRow* d, const NrziTableRow* s) const {
+#ifdef __CUDA_ARCH__
+    for (int k = 0; k < NRZI_NFEAT; k += 2) scan_cp8(&d->r[k], &s->r[k]);
+#endif
+  }
+  NRZI_HDM void commit() const {
+#ifdef __CUDA_ARCH__
+    nrzi_cp_commit();
+#endif
+  }
+  // chunk i's entries, staged by every staging thread
+  NRZI_HDM void wait_entries() const {
+#ifdef __CUDA_ARCH__
+    nrzi_cp_wait();
+    nrzi_stage_sync(n);
+#endif
+  }
+  // all but the last group: chunk i's rows, with chunk i + 1's entries
+  // still on their way
+  NRZI_HDM void wait_rows() const {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#endif
+  }
+};
+
+// B5a: block (row b*T + t, part y) of a grid (B*T, parts); pb parmsets a
+// part, ng >= the groups any part reads
+__global__ void __launch_bounds__((NRZI_SCAN_MAX_WALK + SCANA_STAGE_WARPS) * 32)
+    nrzi_scan_kernel(NrziScanArgs a, int C, int pb, int ng) {
+  extern __shared__ __align__(16) unsigned char scana_sm[];
+  const int row = blockIdx.x, p0 = blockIdx.y * pb, tid = threadIdx.x, wp = tid >> 5;
+  const int nw = min(pb, a.P - p0);
+  ScanCard ex;
+  ex.walker = wp < nw && (tid & 31) == 0;
+  ex.stager = wp >= pb;
+  ex.walked = false;
+  ex.lane = tid & 31;
+  ex.tid = tid - pb * 32;
+  ex.n = blockDim.x - pb * 32;
+  ex.warp = ex.tid >> 5;
+  ex.nwarp = ex.n >> 5;
+  float* heights;
+  const NrziScanBlk k = nrzi_scan_blk(a, row, p0, nw, C, ng, scana_sm, &heights);
+  int64_t* st = 0;
+  if (ex.walker) {
+    nrzi_scan_walker_init(ex.w, a, k, row, p0, wp, heights);
+    if (a.stamps) {
+      st = a.stamps + (int64_t)ex.w.lane * SCANA_NSTAMP;
+      st[SCAN_ST_G0] = nrzi_gtimer();
+      st[SCAN_ST_C0] = clock64();
+    }
+  }
+  const int nch = (a.S + C - 1) / C;
+  nrzi_scan_prime(ex, k, nch);
+  for (int i = 0; i < nch; ++i)
+    if (!nrzi_scan_chunk(ex, k, i, nch, a.max_steps)) break;
+  if (ex.stager) nrzi_cp_wait();
+  if (ex.walker) {
+    nrzi_scan_walk_finish(ex.w.w, a, ex.w.lane);
+    if (st) {
+      st[SCAN_ST_C1] = clock64();
+      st[SCAN_ST_G1] = nrzi_gtimer();
+      st[SCAN_ST_WALK] = ex.w.walked;
+      st[SCAN_ST_STEPS] = ex.w.w.steps;
+      st[SCAN_ST_WAIT] = ex.w.waited;
+    }
+  }
+}
+
+// B5a: parmsets of any window widths (G feature groups). The block's
+// shared memory (~64 KB at G = 3 and 8 parmsets, up to ~163 KB) is
+// granted beyond the 48 KB default, or the launch fails. Launches on
 // `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int nrzi_scan_launch(const NrziScanArgs* a, void* stream) {
-  const int n = a->B * a->P * a->T;
+  if (a->P < 1 || a->G < 1 || a->G > a->P || a->S < 1) return (int)cudaErrorInvalidValue;
+  const int n = a->B * a->T;
   if (n <= 0) return 0;
-  nrzi_scan_kernel<<<(n + NRZI_SCAN_THREADS - 1) / NRZI_SCAN_THREADS, NRZI_SCAN_THREADS,
-                     0, (cudaStream_t)stream>>>(*a);
+  int pb;
+  const int parts = nrzi_scan_parts(a->P, &pb);
+  const int ng = a->G < pb ? a->G : pb;
+  const size_t smem = nrzi_scan_blk_smem(SCANA_CHUNK, ng, pb);
+  const cudaError_t e = cudaFuncSetAttribute(
+      nrzi_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  nrzi_scan_kernel<<<dim3(n, parts), (pb + SCANA_STAGE_WARPS) * 32, smem,
+                     (cudaStream_t)stream>>>(*a, SCANA_CHUNK, pb, ng);
   return (int)cudaGetLastError();
 }
 

@@ -148,9 +148,11 @@ NRZI_NSTAMP = NRZI_ST_MACH + len(NRZI_MACH)
 SLOT_ST_MACH = 4
 SLOT_NSTAMP = SLOT_ST_MACH + len(NRZI_MACH)
 # B5b's per-lane walk stamps: global timer and clock64() at the walk's
-# start and end, the walker's cycles spent walking, its steps
+# start and end, the walker's cycles spent walking, its steps; B5a's per
+# walker also its cycles at the block's barrier after the chunks it walked
 SCAN_ST_G0, SCAN_ST_C0, SCAN_ST_C1, SCAN_ST_G1 = 0, 1, 2, 3
 SCAN_ST_WALK, SCAN_ST_STEPS, SCAN_NSTAMP = 4, 5, 6
+SCAN_ST_WAIT, SCANA_NSTAMP = 6, 7
 # zeros_core.h's stamps. Z1 per (segment, track) lane: global timer and
 # clock64() at the start and end, thread 0's cycles in passes A, B and C,
 # the buckets pass B stepped over. Z2 per (segment, parmset, track)
@@ -492,6 +494,13 @@ def nrzi_phase_stamps(volts, seg_lens, leads, pa, **kw):
     """nrzi_fused with nrzi_core.h's phase stamps [B*P, NRZI_NSTAMP]."""
     return _phase_stamps("nrzi_fused", nrzi_prepare, NRZI_NSTAMP, volts,
                          seg_lens, leads, pa, **kw)
+
+
+def scan_stamps(feat, nxt, pa, **kw):
+    """nrzi_scan (B5a) with nrzi_core.h's walker stamps [B*P*T,
+    SCANA_NSTAMP]."""
+    return _phase_stamps("nrzi_scan", nrzi_scan_prepare, SCANA_NSTAMP,
+                         feat, nxt, pa, per_track=True, **kw)
 
 
 def scan_tracks_stamps(feat, nxt, pa, **kw):

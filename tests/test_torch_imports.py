@@ -1,6 +1,7 @@
 """The port stands alone: no module of readtape_tpu_torch (decode/zeros.py
-and formats/csvfmt.py included), and not chip_smoke.py, imports jax or
-anything of the JAX package (readtape_tpu).
+and formats/csvfmt.py included), and not chip_smoke.py or the card's A/B
+timing scripts (scripts/*_ab.py), imports jax or anything of the JAX
+package (readtape_tpu).
 The port's own copies of the JAX-free modules (formats, synth) agree with
 the JAX package's: the built-in parmsets, the .tbin format, and the
 example tapes chip_smoke.py builds from its recipe table, sample for
@@ -42,7 +43,9 @@ def _forbidden(name):
 
 def test_no_import_of_jax_or_the_jax_package():
     bad = []
-    for path in _port_sources():
+    ab = sorted(glob.glob(os.path.join(REPO, "scripts", "*_ab.py")))
+    assert len(ab) >= 2
+    for path in _port_sources() + ab:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):

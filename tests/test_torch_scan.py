@@ -5,17 +5,24 @@ nsteps = S, the contract tests/test_pallas_scan.py holds the TPU kernels
 to, on that file's inputs (_setup: B=2, S=4096, P=3 with mixed widths, or
 one shared width for B5b); plus the density-detection shape (window 8,
 parmset 0's knobs, the XLA scan's step budget, no candidate mask) on a
-noisy segment where the budget binds. The port computes its own window
-features and jump tables from the same volts.
+noisy segment where the budget binds, and B5a with all 8 parmsets under
+-correctdbg's step budget on segments under 5 mV rms of noise, where it
+binds for some parmsets only. The port computes its own window features
+and jump tables from the same volts.
 
-Then csrc/nrzi_core.h's B5 lanes, compiled for the host with g++, against
-the plain version on the same inputs: the CUDA source's logic checked
-without a GPU. B5a's lane walks its table whole (nrzi_scan_lane, what
-csrc/nrzi_scan.cu runs per thread); B5b's and density detection's walk it
-chunk by chunk as B5b's blocks do (nrzi_walk_chunk over each chunk's
-candidate words, bit s set where nxt[s] == s, and the feature rows of its
-candidates only; the other rows hold NaN), at the kernel's chunk of 256
-entries and at one of 64.
+Then csrc/nrzi_core.h's B5 blocks, compiled for the host with g++,
+against the plain version on the same inputs: the CUDA source's logic
+checked without a GPU. Both walk the table chunk by chunk
+(nrzi_walk_chunk over each chunk's candidate words, bit s set where
+nxt[s] == s, and the feature rows of its candidates only; the other rows
+hold NaN), at the kernel's chunk of 256 entries and at one of 64. B5a
+runs its blocks' step, nrzi_scan_chunk, as csrc/nrzi_scan.cu does: one
+block per (segment, track) and part of the parmsets, each chunk's words
+and each width group's rows staged once, then every live walker's walk
+over them; on the existing B5a inputs, on the noisy ones, with K = 60
+(admissions overflow the buffers) and with 15 parmsets (two parts, six
+widths) under a budget that binds on some lanes. B5b's and density
+detection's walk each lane as B5b's blocks do.
 
 Tolerance: none. Every buffer entry (fill included), count, flag and
 f32 value is exact.
@@ -100,23 +107,59 @@ def port_inputs(v, Ws, rf, mf, seg_len, lead, masked=True):
     return tsc.window_features(volts, Ws), nxt.to(torch.int32)
 
 
-def setup_case(name):
-    """(port inputs, scan kwargs, JAX reference) of one case."""
+def setup_case(name, ref=True):
+    """(port inputs, scan kwargs, JAX reference or None) of one case."""
     if name == "density":
-        return density_case()
-    cfg = _setup(uniform_w=(name == "B5b"))
+        return density_case(ref)
+    if name == "B5a-P15":
+        return p15_case()
+    noisy = name == "B5a-noisy"
+    cfg = _setup(uniform_w=(name == "B5b"), P=8 if noisy else 3)
     v = np.asarray(cfg["v"])
     B, T, S = v.shape
+    nsteps = S
+    if noisy:
+        v = v + np.random.default_rng(5).normal(0.0, 0.005, v.shape).astype(
+            np.float32)
+        nsteps = 1536
     rf = np.full(T, 0.02, np.float32)
     mf = np.zeros(T, np.float32)
-    seg_len, lead, K = S - 700, 64, 512
+    seg_len, lead = S - 700, 64
+    K = 60 if name == "B5a-overflow" else 512
     feat, nxt = port_inputs(v, cfg["Ws"], rf, mf, seg_len, lead)
-    ref = jax_scan(v, cfg["Ws"], cfg["P"], K, S, rf, mf, seg_len, lead)
-    kw = dict(Ws=cfg["Ws"], K=K, max_steps=None)
-    return feat, nxt, port_parms(cfg["P"]), kw, ref
+    want = jax_scan(v, cfg["Ws"], cfg["P"], K, nsteps, rf, mf, seg_len,
+                    lead) if ref else None
+    kw = dict(Ws=cfg["Ws"], K=K,
+              max_steps=tfu.scan_step_budget(nsteps) if noisy else None)
+    return feat, nxt, port_parms(cfg["P"]), kw, want
 
 
-def density_case():
+def p15_case():
+    """B5a with 15 parmsets, the most a parms file holds: the 8 builtin
+    NRZI ones and 7 more with wider windows (bitfrac + 0.15) and a lower
+    rise (x 0.6), six widths in all, so the kernel splits them over two
+    blocks per (segment, track) (8 + 7, three widths each, two of the
+    second's not the first's), on _setup's segments under 5 mV rms of
+    noise; a step budget of 1,792 stops about a third of the lanes."""
+    import dataclasses
+    cfg = _setup(P=8)
+    v = np.asarray(cfg["v"]) + np.random.default_rng(7).normal(
+        0.0, 0.005, cfg["v"].shape).astype(np.float32)
+    B, T, S = v.shape
+    base = builtin_parmsets(tb.MODE_NRZI).sets
+    sets = base + [dataclasses.replace(
+        p, pkww_bitfrac=p.pkww_bitfrac + 0.15, pkww_rise=p.pkww_rise * 0.6)
+        for p in base[:7]]
+    Ws = tuple(cm.pkww_width_for(p.pkww_bitfrac, 800, 50, 1.28e-6)
+               for p in sets)
+    feat, nxt = port_inputs(v, Ws, np.full(T, 0.02, np.float32),
+                            np.zeros(T, np.float32), S - 700, 64)
+    pa = cm.ParmArrays.from_parmsets(ParmSets(sets=sets,
+                                              mode=tb.MODE_NRZI), "cpu")
+    return feat, nxt, pa, dict(Ws=Ws, K=512, max_steps=1792), None
+
+
+def density_case(ref=True):
     """detect_density's scan on two 4096-sample segments under 0.6 V rms
     of noise: W=8, parmset 0, floors at half the AGC ceiling, no mask, the
     XLA budget max(512, S // 4) steps (it stops 8 of the 18 lanes),
@@ -131,7 +174,8 @@ def density_case():
     mf = np.full(T, p0.min_peak / 2 * 0.8, np.float32)
     K, nsteps = max(512, S // 6), max(512, S // 4)
     feat, nxt = port_inputs(v, (8,), rf, mf, S, 0, masked=False)
-    ref = jax_scan(v, (8,), 1, K, nsteps, rf, mf, S, 0, masked=False)
+    ref = jax_scan(v, (8,), 1, K, nsteps, rf, mf, S, 0,
+                   masked=False) if ref else None
     kw = dict(Ws=(8,), K=K, max_steps=tfu.scan_step_budget(nsteps))
     return feat, nxt, port_parms(1), kw, ref
 
@@ -139,7 +183,7 @@ def density_case():
 def run_port(name, feat, nxt, pa, kw):
     """The case's wrapper on CPU tensors: its plain version runs."""
     fn, plain = ((tsc.nrzi_track_scan, tsc.nrzi_track_scan_plain)
-                 if name == "B5a" else
+                 if name.startswith("B5a") else
                  (tsc.nrzi_track_scan_tracks,
                   tsc.nrzi_track_scan_tracks_plain))
     calls = plain.calls
@@ -148,26 +192,59 @@ def run_port(name, feat, nxt, pa, kw):
     return {k: x.numpy() for k, x in got.items()}
 
 
-@pytest.mark.parametrize("name", ["B5a", "B5b", "density"])
+@pytest.mark.parametrize("name", ["B5a", "B5b", "density", "B5a-noisy"])
 def test_scan_matches_jax_xla(name):
     feat, nxt, pa, kw, ref = setup_case(name)
-    if name != "B5a":
+    if not name.startswith("B5a"):
         assert feat.shape[0] == 1
     got = run_port(name, feat, nxt, pa, kw)
     for k in FIELDS:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     assert got["n_admitted"].sum() > 300, "too few admissions"
-    # the XLA budget binds on the density case only; nothing overflows K
-    assert got["incomplete"].any() == (name == "density")
+    # the XLA budget binds on the density and noisy cases only; nothing
+    # overflows K
+    assert got["incomplete"].any() == (name in ("density", "B5a-noisy"))
     assert got["n_admitted"].max() <= kw["K"]
+    if name == "B5a-noisy":             # some parmsets only
+        cut = got["incomplete"].any(axis=(0, 2))
+        assert cut.any() and not cut.all(), cut
 
 
 _DRIVER = r"""
 #include <math.h>
 #include <vector>
 #include "nrzi_core.h"
-extern "C" void scan_host_run(const NrziScanArgs* a) {
-  for (int lane = 0; lane < a->B * a->P * a->T; ++lane) nrzi_scan_lane(*a, lane);
+// B5a's blocks (nrzi_scan.cu nrzi_scan_kernel), one after another: each
+// (segment, track) row and part of the parmsets, its walkers driven chunk
+// by chunk at C entries through nrzi_scan_chunk; a row slot holds NaN
+// before the step that fills it, so a walk reads rows at candidates only
+extern "C" void scan_block_host_run(const NrziScanArgs* a, int C) {
+  int pb;
+  const int parts = nrzi_scan_parts(a->P, &pb);
+  const int ng = a->G < pb ? a->G : pb, nch = (a->S + C - 1) / C;
+  std::vector<uint64_t> sm((nrzi_scan_blk_smem(C, ng, pb) + 7) / 8);
+  NrziTableRow poison;
+  for (int k = 0; k < NRZI_NFEAT; ++k) poison.r[k] = NAN;
+  for (int row = 0; row < a->B * a->T; ++row)
+    for (int y = 0; y < parts; ++y) {
+      const int p0 = y * pb, nw = pb < a->P - p0 ? pb : a->P - p0;
+      float* heights;
+      const NrziScanBlk k = nrzi_scan_blk(*a, row, p0, nw, C, ng,
+                                          (unsigned char*)sm.data(), &heights);
+      auto clear = [&](int slot) {
+        for (int x = 0; x < k.ng * C; ++x) k.rows[slot * k.ng * C + x] = poison;
+      };
+      NrziScanWalker w[NRZI_SCAN_MAX_WALK];
+      for (int j = 0; j < nw; ++j) nrzi_scan_walker_init(w[j], *a, k, row, p0, j, heights);
+      NrziScanSerial ex{w, nw, 0, 1, 0, 1};
+      clear(0);
+      nrzi_scan_prime(ex, k, nch);
+      for (int i = 0; i < nch; ++i) {
+        clear((i + 1) & 1);
+        if (!nrzi_scan_chunk(ex, k, i, nch, a->max_steps)) break;
+      }
+      for (int j = 0; j < nw; ++j) nrzi_scan_walk_finish(w[j].w, *a, w[j].lane);
+    }
 }
 // B5b's walk: each lane's table in chunks of C entries
 extern "C" void scan_chunk_host_run(const NrziScanArgs* a, int C) {
@@ -217,29 +294,38 @@ def tiered_host_lib(tmp_path_factory):
                     "-fPIC", "-I", kernels.CSRC, "-o", str(so), str(src)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    for fn, struct in ((lib.scan_host_run, kernels.NrziScanArgs),
-                       (lib.slot_host_run, kernels.NrziSlotArgs)):
-        fn.argtypes = [ctypes.POINTER(struct)]
+    lib.slot_host_run.argtypes = [ctypes.POINTER(kernels.NrziSlotArgs)]
+    lib.slot_host_run.restype = None
+    for fn in (lib.scan_block_host_run, lib.scan_chunk_host_run):
+        fn.argtypes = [ctypes.POINTER(kernels.NrziScanArgs), ctypes.c_int]
         fn.restype = None
-    lib.scan_chunk_host_run.argtypes = [ctypes.POINTER(kernels.NrziScanArgs),
-                                        ctypes.c_int]
-    lib.scan_chunk_host_run.restype = None
     return lib
 
 
-@pytest.mark.parametrize("name", ["B5a", "B5b", "density"])
+@pytest.mark.parametrize("name", ["B5a", "B5b", "density", "B5a-noisy",
+                                  "B5a-overflow", "B5a-P15"])
 def test_host_scan_lane_matches_plain(tiered_host_lib, name):
-    feat, nxt, pa, kw, _ = setup_case(name)
+    feat, nxt, pa, kw, _ = setup_case(name, ref=False)
     want = run_port(name, feat, nxt, pa, kw)
     steps = feat.shape[3] + 1 if kw["max_steps"] is None else kw["max_steps"]
-    for chunk in ((None,) if name == "B5a" else (256, 64)):
+    run = (tiered_host_lib.scan_block_host_run if name.startswith("B5a")
+           else tiered_host_lib.scan_chunk_host_run)
+    for chunk in (256, 64):
         args, got, keep = kernels.nrzi_scan_prepare(
             feat, nxt, pa, Ws=kw["Ws"], K=kw["K"], max_steps=steps)
-        if chunk is None:
-            tiered_host_lib.scan_host_run(ctypes.byref(args))
-        else:
-            tiered_host_lib.scan_chunk_host_run(ctypes.byref(args), chunk)
+        run(ctypes.byref(args), chunk)
         del keep
         for k in FIELDS:
             np.testing.assert_array_equal(got[k].numpy(), want[k],
                                           err_msg=f"{k}, chunk {chunk}")
+    # each case's point: the K overflow, the budget binding on some
+    # lanes (noisy: on some parmsets only) and not others
+    inc, nadm = want["incomplete"], want["n_admitted"]
+    if name == "B5a-overflow":
+        assert (nadm > kw["K"]).any() and (nadm <= kw["K"]).any()
+    elif name in ("B5a-noisy", "B5a-P15"):
+        assert not (nadm > kw["K"]).any()
+        cut = inc.any(axis=(0, 2)) if name == "B5a-noisy" else inc
+        assert cut.any() and not cut.all()
+    if name == "B5a-P15":
+        assert len(kw["Ws"]) == 15 and feat.shape[0] == 6
