@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths, -zeros and
-float (CSV) tapes included, its command line (-parmscan included) and
-NRZI -adjskew and -correctdbg, on one NVIDIA GPU and check them.
+float (CSV) tapes included, its command line (-parmscan included), NRZI
+-adjskew and -correctdbg, and -trace, on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -54,8 +54,15 @@ non-zero:
               and -correctdbg (B=16, P=8; and with a mid-block bit
               dropped per lane, so that every lane corrects), and the
               admission before each (B5b, B5a), at the first launch
-              each option's bench decode makes; all timed, each with
-              its bound and its
+              each option's bench decode makes; -trace's record modes at
+              the launches the trace makes (B=1, P=1, one window of the
+              bench tape): B5b then B6 with its per-slot and per-column
+              records on the NRZI bench tape and on the flipped-bit tape
+              (a parity error inside a block), B2 and B3 with their
+              per-admission rows on the PE and GCR bench tapes, B4 with
+              its peak and character times on the Whirlwind one; all
+              timed (-trace's: the mean of 20 launches), each with its
+              bound and its
               serial chain (Z1 plain: the significant phases of pass B;
               Z2: the admitted transitions; Z1 differentiated: none)
   4. main     decode_tape on the card at bench scale, each path with the
@@ -120,6 +127,14 @@ non-zero:
               line on both (.tap and .log equal); then the NRZI bench
               tape under each option, timed with the launch counts set
               to 0 just before, every block against the ground truth
+  9. trace    the command line with -trace=a,b on the NRZI, PE, GCR and
+              Whirlwind bench tapes (a window holding a block) and with
+              -trace on the NRZI one: the trace step timed alone with the
+              launch counts set to 0 just before (each record mode's
+              kernel once, no plain version), its .trace.csv byte for
+              byte equal to the one the same step writes on the CPU
+              over the window (the plain versions; no CPU decode of the
+              tape)
 
 Then one JSON line describing the kernels, the card's name and power
 limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
@@ -816,11 +831,10 @@ def ww_options(hdr, fluxdir="neg", **kw):
                              fluxdir=fluxdir, multiple_tries=False, **kw)
 
 
-def first_call(module, name, samples, opts, kernel_path="fused", index=0):
+def call_of(module, name, run, index=0):
     """(args, kwargs) of the first call (or the index-th, from 0) of
-    module.<name> that decode_tape makes on `samples`: the shape the main
-    path gives it. The function is wrapped only for this one decode."""
-    from readtape_tpu_torch.decode import pipeline as tpl
+    module.<name> that run() makes; the function is wrapped only while
+    run() runs."""
     seen = []
     fn = getattr(module, name)
 
@@ -830,13 +844,20 @@ def first_call(module, name, samples, opts, kernel_path="fused", index=0):
         return fn(*args, **kw)
     setattr(module, name, record)
     try:
-        tpl.decode_tape(samples, opts, device=DEVICE,
-                        kernel_path=kernel_path)
+        run()
     finally:
         setattr(module, name, fn)
     if len(seen) <= index:
-        raise AssertionError(f"decode_tape made {len(seen)} calls of {name}")
+        raise AssertionError(f"{len(seen)} calls of {name}")
     return seen[index]
+
+
+def first_call(module, name, samples, opts, kernel_path="fused", index=0):
+    """call_of for the calls that decode_tape makes on `samples`: the
+    shape the main path gives module.<name>."""
+    from readtape_tpu_torch.decode import pipeline as tpl
+    return call_of(module, name, lambda: tpl.decode_tape(
+        samples, opts, device=DEVICE, kernel_path=kernel_path), index)
 
 
 def main_path_inputs(launcher, samples, opts, index=0):
@@ -921,10 +942,11 @@ def chain_note(n, what, ms):
     return f"longest chain {n} {what}, {ms * 1e6 / max(n, 1):.0f} ns per link"
 
 
-def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
+def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw, reps=10):
     """One launch of `kernel` (a decode.fused wrapper's name) against its
-    plain version on the same card inputs. Returns a dict with the max
-    abs f32 error, kernel ms, plain ms and the bound."""
+    plain version on the same card inputs, then the mean of reps
+    launches. Returns a dict with the max abs f32 error, kernel ms, plain
+    ms and the bound."""
     import torch
     from readtape_tpu_torch.decode import fused as tfu
     kern = getattr(tfu, kernel)
@@ -940,7 +962,9 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     dc, nadm = {"nrzi_fused_scan": (tfu.TI_DC, tfu.TI_NADM),
                 "pe_fused_scan": (tfu.PI_DC, tfu.PI_NTOTAL),
                 "gcr_fused_scan": (tfu.GI_DC, tfu.GI_NTOTAL)}[kernel]
-    if int(ti[..., dc].max()) < 150:
+    # a record mode's (-trace's) blocks are not read: its records are
+    if int(want["rec_n"].max() if kw.get("trace_scan")
+           else ti[..., dc].max()) < 150:
         raise AssertionError(f"{name}: segments decoded too little")
     n_adm = int(ti[..., nadm].sum())
     # a lane's longest track admits, then (NRZI) its slot machine runs
@@ -948,7 +972,8 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw):
     if kernel == "nrzi_fused_scan":
         chain += int(want["lane_i"][..., tfu.LI_NSLOT].max())
         what = "admissions + slots"
-    t_kern = time_launches(lambda: kern(volts, seg_lens, leads, pa, **kw), 10)
+    t_kern = time_launches(lambda: kern(volts, seg_lens, leads, pa, **kw),
+                           reps)
     b_ms, b_by = bound(name, volts, want, kernel_ops(volts, kw, n_adm))
     B, T, S = volts.shape
     print(f"  {name} (B={B} P={len(kw['Ws'])} T={T} S={S}): kernel "
@@ -972,11 +997,12 @@ def ww_ops(volts, out, W):
     return 2 * T * S * W + 60 * n_adm + 100 * n_ev
 
 
-def compare_ww(name, volts, kw, plain_device=DEVICE):
+def compare_ww(name, volts, kw, plain_device=DEVICE, min_blocks=3, reps=3):
     """One ww_fused_scan launch on the card against ww_fused_scan_plain
     on the same inputs, copied to `plain_device` first: every output
-    equal, integers, characters and floats (F32_TOL). Returns
-    compare_kernel's dict."""
+    equal, integers, characters and floats (F32_TOL); at least
+    min_blocks blocks and 1000 characters. Returns compare_kernel's
+    dict."""
     import torch
     from readtape_tpu_torch.decode import fused as tfu
     got = tfu.ww_fused_scan(volts, **kw)
@@ -991,9 +1017,10 @@ def compare_ww(name, volts, kw, plain_device=DEVICE):
     t_plain = (time.perf_counter() - t0) * 1e3
     err = check_equal(name, got, want)
     sc = want["scal"]
-    if int(sc[tfu.WS_NBLOCKS]) < 3 or int(sc[tfu.WS_DATACOUNT]) < 1000:
+    if int(sc[tfu.WS_NBLOCKS]) < min_blocks or \
+            int(sc[tfu.WS_DATACOUNT]) < 1000:
         raise AssertionError(f"{name}: the tape decoded too little")
-    t_kern = time_launches(lambda: tfu.ww_fused_scan(volts, **kw), 3)
+    t_kern = time_launches(lambda: tfu.ww_fused_scan(volts, **kw), reps)
     b_ms, b_by = bound(name, volts, want, ww_ops(volts, want, kw["W"]))
     T, S = volts.shape
     # the longest track's admission steps, then the machine's events
@@ -1079,7 +1106,7 @@ def p15_inputs(volts, seg_lens, leads, pa, kw):
     return feat, nxt, pa15, dict(skw, max_steps=kw["max_steps"])
 
 
-def compare_scan(name, kernel, feat, nxt, pa, kw):
+def compare_scan(name, kernel, feat, nxt, pa, kw, reps=10):
     """One launch of B5a or B5b (`kernel`) against its plain version on
     the same card inputs; compare_kernel's dict, with the kernel's
     outputs as "out". The bound counts each admission's feature row and
@@ -1096,7 +1123,7 @@ def compare_scan(name, kernel, feat, nxt, pa, kw):
     n_adm = int(want["n_admitted"].sum())
     if int(want["n_admitted"].max()) < 150:
         raise AssertionError(f"{name}: segments admitted too little")
-    t_kern = time_launches(lambda: fn(feat, nxt, pa, **kw), 10)
+    t_kern = time_launches(lambda: fn(feat, nxt, pa, **kw), reps)
     b_ms, b_by = bound_of(n_adm * (10 * 4 + 4) + nbytes(want.values()),
                           60 * n_adm)
     G, B, T, S, _ = feat.shape
@@ -1110,7 +1137,7 @@ def compare_scan(name, kernel, feat, nxt, pa, kw):
                 bound_by=b_by, out=got)
 
 
-def compare_slot(name, fin, pa, kw, must_correct=None):
+def compare_slot(name, fin, pa, kw, must_correct=None, reps=10):
     """One launch of B6 against its plain version on the same buffers;
     compare_kernel's dict. The bound counts each admitted transition's
     (s, t, agc) read once, -adjskew's seeds read once and every output
@@ -1131,7 +1158,7 @@ def compare_slot(name, fin, pa, kw, must_correct=None):
     B, P, T, K = fin["tr_s"].shape
     n_tr = int(fin["n_admitted"].clamp(max=K).sum())
     n_slots = int(want["lane_i"][..., tfu.LI_NSLOT].sum())
-    t_kern = time_launches(lambda: slot.nrzi_slot_scan(fin, pa, **kw), 10)
+    t_kern = time_launches(lambda: slot.nrzi_slot_scan(fin, pa, **kw), reps)
     seeds = kw.get("adj_init") or ()
     b_ms, b_by = bound_of(n_tr * 12 + nbytes(seeds) + nbytes(want.values()),
                           40 * T * n_slots)
@@ -1468,6 +1495,90 @@ def phase_zeros_kernel():
     return res
 
 
+# -trace's cells: the bench tapes, each with the command line's mode flag
+# and a window of seconds that holds the start of a block (NRZI also the
+# default -trace, the first 10,000 samples)
+TRACE_TAPES = {
+    "nrzi": (bench_tape, "NRZI", ["-nrzi"], 800, 50, (0.004, 0.024)),
+    "pe": (pe_bench_tape, "PE", ["-pe"], 1600, 50, (0.0045, 0.0145)),
+    "gcr": (gcr_bench_tape, "GCR", ["-gcr"], 9042, 25, (0.0045, 0.011)),
+    "ww": (ww_bench_tape, "WW", ["-whirlwind", "-fluxdir=neg"], 100, 30,
+           (0.004, 1.2)),
+}
+
+
+def trace_tape(name):
+    """(header, samples, decode options, window [a, b) in samples) of a
+    TRACE_TAPES cell, the window as the command line computes it."""
+    from readtape_tpu_torch.formats import tbin as tb
+    make, mode, _, bpi, ips, (s0, s1) = TRACE_TAPES[name]
+    _, hdr, samples = make()
+    mode = getattr(tb, "MODE_" + mode)
+    opts = (ww_options(hdr) if mode == tb.MODE_WW
+            else tape_options(hdr, mode, bpi, ips))
+    dt = hdr.tdelta_ns * 1e-9
+    return hdr, samples, opts, (int(s0 / dt), min(len(samples),
+                                                  int(s1 / dt)))
+
+
+def trace_run(opts, samples, a, b, device=None):
+    """-trace's lanes of samples [a, b) on `device` (DEVICE if None):
+    TapeDecoder.trace_lanes, or for Whirlwind ww_trace_lanes."""
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import tbin as tb
+    device = device or DEVICE
+    if opts.mode == tb.MODE_WW:
+        return tpl.ww_trace_lanes(samples, opts, a, b, device=device)
+    return tpl.TapeDecoder(samples, opts, device=device).trace_lanes(a, b)
+
+
+def phase_trace_kernel():
+    """-trace's record modes against their plain versions on the card, at
+    the launches the trace makes (B=1, P=1, one window; the means of 20
+    launches): B5b and then B6 with its per-slot and per-column records
+    on the NRZI bench tape's window and on the flipped-bit tape's first
+    10,000 samples (a parity error inside a block), B2 and B3 with their
+    per-admission rows on the PE and GCR bench tapes' windows, B4 with
+    its peak and character times on the Whirlwind bench tape's window
+    (its plain version on a host copy)."""
+    from readtape_tpu_torch import kernels
+    from readtape_tpu_torch.formats import tbin as tb
+    res = {}
+    hdr, samples, opts, (a, b) = trace_tape("nrzi")
+    _, fhdr, fsamples = flipped_bit_tape()
+    fopts = tape_options(fhdr, tb.MODE_NRZI, 800)
+    for tag, (o, x, w) in (("trace", (opts, samples, (a, b))),
+                           ("trace flipped", (fopts, fsamples, (0, 10000)))):
+        def run():
+            return trace_run(o, x, *w)
+        if tag == "trace":
+            (feat, nxt, pa), kw = call_of(kernels, "nrzi_scan_tracks", run)
+            res["b5b trace"] = compare_scan("b5b trace",
+                                            "nrzi_track_scan_tracks", feat,
+                                            nxt, pa, kw, reps=20)
+            del feat, nxt
+        (fin, pa), kw = call_of(kernels, "nrzi_slot", run)
+        res[f"b6 {tag}"] = compare_slot(f"b6 {tag}", fin, pa, kw, reps=20)
+    perr = trace_run(fopts, fsamples, 0, 10000)[1]["parerr"]
+    if not perr:
+        raise AssertionError("b6 trace flipped: no parity error event")
+    print(f"  b6 trace flipped: {len(perr)} parity error events", flush=True)
+    for name, launcher, kernel in (("pe", "pe_fused", "pe_fused_scan"),
+                                   ("gcr", "gcr_fused", "gcr_fused_scan")):
+        hdr, samples, opts, (a, b) = trace_tape(name)
+        (volts, seg_lens, leads, pa), kw = call_of(
+            kernels, launcher, lambda: trace_run(opts, samples, a, b))
+        res[f"{name} trace"] = compare_kernel(f"{name} trace", kernel, volts,
+                                              seg_lens, leads, pa, kw,
+                                              reps=20)
+    hdr, samples, opts, (a, b) = trace_tape("ww")
+    (volts,), kw = call_of(kernels, "ww_fused",
+                           lambda: trace_run(opts, samples, a, b))
+    res["ww trace"] = compare_ww("ww trace", volts, kw, plain_device="cpu",
+                                 min_blocks=1, reps=20)
+    return res
+
+
 def phase_kernel():
     """Kernel vs plain on the card. Returns {case: compare_kernel dict}."""
     import torch
@@ -1512,6 +1623,7 @@ def phase_kernel():
             "gcr_fused", samples, tape_options(hdr, tb.MODE_GCR, 9042, 25)))
     res.update(phase_ww_kernel())
     res.update(phase_zeros_kernel())
+    res.update(phase_trace_kernel())
     for r in res.values():
         r.pop("out", None)
     torch.cuda.empty_cache()
@@ -2164,6 +2276,96 @@ def phase_options(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: -trace
+# ---------------------------------------------------------------------------
+
+TRACE_KERNELS = {"nrzi": ["nrzi_track_scan_tracks", "nrzi_slot_scan"],
+                 "pe": ["pe_fused_scan"], "gcr": ["gcr_fused_scan"],
+                 "ww": ["ww_fused_scan"]}
+
+
+def phase_trace(card):
+    """The command line with -trace=a,b on the card for each bench tape
+    of TRACE_TAPES, and with -trace (the first 10,000 samples) on the
+    NRZI one. Its trace step (cli.write_trace_file) is timed on its own,
+    with the launch counts set to 0 just before it and read just after:
+    only the record modes' kernels ran, once each, and no plain version.
+    The .trace.csv must equal, byte for byte, the one the same step
+    writes on the CPU with the command line's own options: the plain
+    versions over the window alone (no CPU decode of the tape). Returns
+    {kernels-line entry: (launches, wall s, None)} of the -trace=a,b
+    runs."""
+    from readtape_tpu_torch import cli
+    from readtape_tpu_torch.formats import tbin as tb
+    runs = {}
+    write = cli.write_trace_file
+    cases = [(name, f"-trace={TRACE_TAPES[name][5][0]},"
+              f"{TRACE_TAPES[name][5][1]}") for name in TRACE_TAPES]
+    cases.insert(1, ("nrzi", "-trace"))
+
+    class Quiet:
+        def info(self, *_):
+            pass
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, opt) in enumerate(cases):
+            make, _, flags, *_ = TRACE_TAPES[name]
+            _, hdr, samples = make()
+            seen = {}
+
+            def timed(*args, **kw):
+                reset_counts()
+                t0 = time.perf_counter()
+                write(*args, **kw)
+                sync()
+                seen["wall"] = time.perf_counter() - t0
+                seen["launches"] = check_launches(f"{name} {opt}",
+                                                  TRACE_KERNELS[name])
+                seen["call"] = (args, kw)
+            d = os.path.join(tmp, str(i))
+            os.makedirs(d)
+            here = os.getcwd()
+            os.chdir(d)
+            try:
+                tb.write_tbin("t.tbin", hdr, samples)
+                cli.write_trace_file = timed
+                try:
+                    run_cli(flags + [opt, "t"], DEVICE)
+                finally:
+                    cli.write_trace_file = write
+                if seen["launches"] != {k: 1 for k in TRACE_KERNELS[name]}:
+                    raise AssertionError(f"{name} {opt}: launches "
+                                         f"{seen['launches']}")
+                (o, _, x, dopts, _, _), kw = seen["call"]
+                t0 = time.perf_counter()
+                write(o, "cpu", x, dopts, None, Quiet(),
+                      **dict(kw, device="cpu"))
+                t_cpu = time.perf_counter() - t0
+                with open("t.trace.csv", "rb") as f:
+                    got = f.read()
+                with open("cpu.trace.csv", "rb") as f:
+                    want = f.read()
+                with open("t.log") as f:
+                    logged = f.read()
+            finally:
+                os.chdir(here)
+            if got != want:
+                raise AssertionError(f"{name} {opt}: the card's .trace.csv "
+                                     f"differs from the CPU's")
+            nl = got.count(b"\n") - 1
+            if f'created trace file "t.trace.csv" ({nl} lines)' \
+                    not in logged:
+                raise AssertionError(f"{name} {opt}: no log line")
+            print(f"  {name} {opt}: {nl} lines, {len(got):,} bytes equal "
+                  f"to the CPU's; trace step {seen['wall']:.3f} s on the "
+                  f"card (launches {seen['launches']}), {t_cpu:.3f} s on "
+                  f"the CPU ({card})", flush=True)
+            if opt != "-trace":
+                for k, n in seen["launches"].items():
+                    runs[f"{k} -trace"] = (n, seen["wall"], None)
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # breakdown: where a bench decode's wall goes
 # ---------------------------------------------------------------------------
 
@@ -2742,9 +2944,16 @@ def main():
     print(f"phase 8 options: ok, -adjskew and -correctdbg card == cpu on "
           f"their recipes, the bench tape under each to its ground truth "
           f"({card})", flush=True)
+    try:
+        runs.update(phase_trace(card))
+    except AssertionError as e:
+        fail("trace", str(e))
+    print(f"phase 9 trace: ok, -trace on the four bench tapes through the "
+          f"command line, each .trace.csv equal to the CPU's ({card})",
+          flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
-        fail("options", "jax or the JAX package was imported")
+        fail("trace", "jax or the JAX package was imported")
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),
@@ -2760,7 +2969,12 @@ def main():
                             ("nrzi_slot_scan -correctdbg", "b6 correctdbg"),
                             ("nrzi_track_scan_tracks -adjskew", "b5b adjskew"),
                             ("nrzi_track_scan -correctdbg",
-                             "b5a correctdbg")):
+                             "b5a correctdbg"),
+                            ("nrzi_track_scan_tracks -trace", "b5b trace"),
+                            ("nrzi_slot_scan -trace", "b6 trace"),
+                            ("pe_fused_scan -trace", "pe trace"),
+                            ("gcr_fused_scan -trace", "gcr trace"),
+                            ("ww_fused_scan -trace", "ww trace")):
         r = times[main_case]
         kernel = name.split()[0]
         line.append(dict(

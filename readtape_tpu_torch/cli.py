@@ -6,15 +6,17 @@ the reference readtape's surface, readtape.c:748-1022):
   python -m readtape_tpu_torch [options] <basefilename>[.csv|.tbin|.tap|.txt]
 
 Outputs: <base>.tap or <base>.nnn.bin data files split at tapemarks / IBM
-labels, <base>.log, the interpreted <base>.<opts>.txt and
-<base>.peakstats.csv. The decode runs on the card; the Python entry
-``main(argv, device="cpu")`` runs it on the CPU (the kernels' plain
-versions), as the tests do. No path falls back to the CPU when the card is
-asked for and missing: the run raises before it writes anything.
+labels, <base>.log, the interpreted <base>.<opts>.txt,
+<base>.peakstats.csv and, with -trace[=a[,b]], the <base>.trace.csv debug
+spreadsheet (the kernels' record modes on the card). The decode runs on
+the card; the Python entry ``main(argv, device="cpu")`` runs it on the CPU
+(the kernels' plain versions), as the tests do. No path falls back to the
+CPU when the card is asked for and missing: the run raises before it
+writes anything.
 
 Not ported yet, and raising NotImplementedError before any file is read:
--trace, and -mesh with more than one card visible (with one, it is
-ignored, as the JAX command line does).
+-mesh with more than one card visible (with one, it is ignored, as the
+JAX command line does).
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ options include:
   -cdc -univac -linesize=n -dataspace=n -linefeed -tapread -outf= -outp=
   -sumt= -sumc= -m -nm -v[n] -q -f
   -adjskew -correctdbg (-correct with the reference DEBUG build's parity
-  index) -mesh[=DxP] (ignored with one card; more than one is not ported yet)
-not ported yet: -trace[=a,b]
+  index) -trace[=a[,b]] (<base>.trace.csv of samples [0, 10000) or seconds
+  a to b, b = a + 0.01 if absent) -mesh[=DxP] (ignored with one card; more
+  than one is not ported yet)
 """
 
 
@@ -382,10 +385,8 @@ def process_file(o: Options, basefile: str, ext: str, *, device="cuda",
         from .decode.pipeline import check_device
         dev = check_device(device)
         cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-        for flag, name in ((o.trace, "-trace"),
-                           (o.mesh is not None and cards > 1, "-mesh")):
-            if flag:
-                raise NotImplementedError(name)
+        if o.mesh is not None and cards > 1:
+            raise NotImplementedError("-mesh")
     outbase = o.outf or (o.outp + basefile)  # ref concatenates the
     # given path+basename verbatim (readtape.c:1972-1975), so with no
     # -outp/-outf the outputs land next to the input file
@@ -527,11 +528,46 @@ def process_file(o: Options, basefile: str, ext: str, *, device="cuda",
     blocks, stats = decode_tape(samples, dopts, log, device=dev,
                                 decoder=dec, kernel_path=kernel_path)
 
+    # ---- optional debug trace (trace.c equivalent) ----
+    if o.trace:
+        write_trace_file(o, outbase, samples, dopts, dec, log, t0=t0,
+                         deltat=deltat, device=dev, kernel_path=kernel_path)
+
     # ---- outputs ----
     write_outputs(o, outbase, blocks, stats, dopts, log, start_time,
                   len(samples), t0=t0, deltat=deltat, hdr=hdr)
     log.close()
     return stats["nerrblocks"] == 0 and stats["nunusable"] == 0
+
+
+def write_trace_file(o, outbase, samples, dopts, dec, log, *, t0, deltat,
+                     device, kernel_path):
+    """<outbase>.trace.csv: samples [0, min(N, 10000)) for -trace, the
+    given seconds for -trace=a,b. Like the JAX command line, over a
+    decoder whose skew is the options' (the decode's own, unless -deskew
+    or -adjskew moved it)."""
+    from .decode.pipeline import TapeDecoder, ww_trace_lanes
+    from .out.trace import write_trace
+    if o.trace is True:
+        a, b = 0, min(len(samples), 10000)
+    else:
+        a = max(0, int((o.trace[0] - t0) / deltat))
+        b = min(len(samples), int((o.trace[1] - t0) / deltat))
+    if o.mode == MODE_WW:
+        volts, lanes = ww_trace_lanes(samples, dopts, a, b, device=device)
+    else:
+        skew = np.zeros(dopts.ntrks, np.int32)
+        if dopts.skew is not None:
+            skew[:len(dopts.skew)] = dopts.skew
+        if dec is None or not np.array_equal(dec.skew, skew):
+            dec = TapeDecoder(samples, dopts, device=device,
+                              kernel_path=kernel_path)
+        volts, lanes = dec.trace_lanes(a, b)
+    mode_name = {MODE_NRZI: "nrzi", MODE_PE: "pe", MODE_GCR: "gcr",
+                 MODE_WW: "ww"}.get(o.mode, "nrzi")
+    nl = write_trace(outbase + ".trace.csv", t0 + a * deltat, deltat, volts,
+                     mode=mode_name, lanes=lanes)
+    log.info(f'created trace file "{outbase}.trace.csv" ({nl} lines)')
 
 
 def write_outputs(o, outbase, blocks, stats, dopts, log, start_time,

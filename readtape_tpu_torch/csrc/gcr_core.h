@@ -69,6 +69,9 @@ struct GcrArgs {
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_GL]
   int64_t* stamps;           // [B*P, PE_NSTAMP] phase clocks, or null
+  // -trace's record mode (pe_core.h), or null
+  float* dbg_f;              // [B*P, T, K, 2] peak time, pulse adjustment after it
+  int32_t* dbg_i;            // [B*P, T, K, 2] top, zeros inferred before it
   int32_t B, P, T, S, G, K, maxb, max_steps;
   int32_t wmax;              // the widest of p_w
   float spb, stat_lb, stat_bw;
@@ -181,8 +184,10 @@ NRZI_HD void gcr_bit_step(GcrBits& g, float t_this, float z1, float z2,
 // NrziWalk's (nrzi_core.h)
 // ---------------------------------------------------------------------------
 
-// one track's admission walk: its knobs, outputs and state
-struct GcrWalk {
+// one track's admission walk: its knobs, outputs and state. REC: the
+// record mode (GcrArgs::dbg_f set), its own instantiation (GcrTraceWalk)
+template <bool REC>
+struct GcrWalkT {
   NrziCursor cur;
   int steps, n_adm;
   NrziAgc g;
@@ -195,6 +200,8 @@ struct GcrWalk {
   int32_t* rec_i;            // [K, N_GR]
   float* rec_f;              // [K, N_PRF]
   int32_t* ie;               // [PE_IDLE_CAP, 2]
+  float* dbg_f;              // [K, 2] record mode's rows
+  int32_t* dbg_i;            // [K, 2]
 
   // one step at a candidate s with window features f
   NRZI_HDM void admit(int s, const NrziFeat& f) {
@@ -219,14 +226,14 @@ struct GcrWalk {
     // mid-scan idle (decoder.c:879-888): an idle entry before this
     // detection drops datablock, so this admission re-seeds the block;
     // compact_outputs' overflow rule keeps the last interval in the last
-    // slot
+    // slot (record mode: the interval is kept, datablock stays)
     const int entry = gcr_idle_entry(gb.t_lastpeak, gb.clk.avg, s_lastdet);
     if (gb.datablock && entry <= s - 1) {
       const int slot = n_ie < PE_IDLE_CAP - 1 ? n_ie : PE_IDLE_CAP - 1;
       ie[2 * slot] = entry;
       ie[2 * slot + 1] = s;
       n_ie += 1;
-      gb.datablock = false;
+      if (!REC) gb.datablock = false;
     }
     s_lastdet = s;
     had_data = true;
@@ -234,7 +241,14 @@ struct GcrWalk {
     // the record (K >= max_steps: one per step at most, never overflows)
     int32_t* ri = rec_i + (int64_t)n_adm * N_GR;
     float* rf = rec_f + (int64_t)n_adm * N_PRF;
+    const int dc0 = gb.dc;
     gcr_bit_step(gb, t_this, z1, z2, padj, cwin, ca, spb, maxb, ri + GR_WR0);
+    if (REC) {
+      dbg_f[2 * n_adm] = t_this;
+      dbg_f[2 * n_adm + 1] = gb.t_pulse_adj;
+      dbg_i[2 * n_adm] = is_top;
+      dbg_i[2 * n_adm + 1] = (int8_t)(gb.dc - dc0 - 1);
+    }
     ri[GR_SDET] = s;
     ri[GR_HB] = hb;
     rf[PRF_TFB] = gb.t_firstbit;
@@ -247,10 +261,13 @@ struct GcrWalk {
     cur.search = false;
   }
 };
+using GcrWalk = GcrWalkT<false>;
+using GcrTraceWalk = GcrWalkT<true>;
 
 // track t of a lane at the start of its segment; heights, ring:
 // NRZI_MAX_AGC_RING and NRZI_MAX_CLK_RING floats
-NRZI_HD void gcr_walk_init(GcrWalk& w, const GcrArgs& a, int lane, int t,
+template <bool REC>
+NRZI_HD void gcr_walk_init(GcrWalkT<REC>& w, const GcrArgs& a, int lane, int t,
                            float* heights, float* ring) {
   const int b = lane / a.P, p = lane % a.P;
   const int64_t row = (int64_t)lane * a.T + t;
@@ -286,10 +303,15 @@ NRZI_HD void gcr_walk_init(GcrWalk& w, const GcrArgs& a, int lane, int t,
   w.rec_i = a.rec_i + row * a.K * N_GR;
   w.rec_f = a.rec_f + row * a.K * N_PRF;
   w.ie = a.ie + row * PE_IDLE_CAP * 2;
+  if (REC) {
+    w.dbg_f = a.dbg_f + row * a.K * 2;
+    w.dbg_i = a.dbg_i + row * a.K * 2;
+  }
 }
 
 // the track's scan results once its walk has stopped
-NRZI_HD void gcr_walk_finish(const GcrWalk& w, const GcrArgs& a, int lane, int t) {
+template <bool REC>
+NRZI_HD void gcr_walk_finish(const GcrWalkT<REC>& w, const GcrArgs& a, int lane, int t) {
   int32_t* sc = a.scan + ((int64_t)lane * a.T + t) * N_PS;
   sc[PS_NADM] = w.n_adm;
   sc[PS_INCOMP] = w.cur.pos < a.S;
@@ -305,6 +327,7 @@ NRZI_HD void gcr_walk_finish(const GcrWalk& w, const GcrArgs& a, int lane, int t
 // its first candidate after tau
 // ---------------------------------------------------------------------------
 
+template <bool REC>
 NRZI_HD int gcr_apply_track(const GcrArgs& a, int lane, int t, int tau) {
   const int64_t row = (int64_t)lane * a.T + t;
   const int maxb = a.maxb;
@@ -350,7 +373,7 @@ NRZI_HD int gcr_apply_track(const GcrArgs& a, int lane, int t, int tau) {
     tf[TF_MAXAGC] = last[PRF_AGCMX];
     tf[TF_MINAGC] = last[PRF_AGCMN];
   }
-  return pe_first_cand(a, lane, t, pe_imax(0, pe_imin(tau + 1, a.S)));
+  return pe_first_cand<REC>(a, lane, t, pe_imax(0, pe_imin(tau + 1, a.S)));
 }
 
 NRZI_HD void gcr_write_lane(const GcrArgs& a, int lane, int tau, bool overflow,

@@ -10,6 +10,8 @@
 // all-idle point tau, the records replayed only up to tau, and the first
 // candidate after it. The group-level postprocess (5-bit groups, ECC,
 // -correct) stays outside, in PyTorch (decode/gcr.py::gcr_finish).
+// With GcrArgs::dbg_f set (-trace's record mode, pe_core.h) it runs the
+// JAX trace's scan instead and writes each admission's row of the trace.
 //
 // What bounds it: serial latency in phase A. Each track's admissions form
 // a chain of dependent steps (the AGC, clock and pulse-adjust state of one
@@ -46,6 +48,9 @@
 
 #include "gcr_core.h"
 
+// REC: the record mode (dbg_f set), its own instantiation, so that the
+// decode's kernel carries none of it
+template <bool REC>
 __global__ void __launch_bounds__(PE_THREADS, 1) gcr_fused_kernel(GcrArgs a, int C) {
   extern __shared__ __align__(16) unsigned char gcr_sm[];
   const int lane = blockIdx.x, tid = threadIdx.x;
@@ -59,17 +64,17 @@ __global__ void __launch_bounds__(PE_THREADS, 1) gcr_fused_kernel(GcrArgs a, int
   }
   gcr_zero_lane(a, lane, tid, blockDim.x);
   uint32_t* cw = a.cand + (int64_t)lane * T * pe_nwords(a);
-  pe_cand_words(a, lane, cw);
+  pe_cand_words<REC>(a, lane, cw);
   __syncthreads();
   pe_stamp(a, lane, PE_ST_CZ);
 
   // ---- phase A ----
-  pe_phase_a<GcrWalk>(
+  pe_phase_a<GcrWalkT<REC>>(
       a, lane, cw, gcr_sm, C,
-      [&](GcrWalk& w, int t, float* heights, float* ring) {
+      [&](GcrWalkT<REC>& w, int t, float* heights, float* ring) {
         gcr_walk_init(w, a, lane, t, heights, ring);
       },
-      [&](const GcrWalk& w, int t) { gcr_walk_finish(w, a, lane, t); });
+      [&](const GcrWalkT<REC>& w, int t) { gcr_walk_finish(w, a, lane, t); });
   pe_stamp(a, lane, PE_ST_CA);
 
   // ---- phase B ----
@@ -81,7 +86,7 @@ __global__ void __launch_bounds__(PE_THREADS, 1) gcr_fused_kernel(GcrArgs a, int
 
   // ---- phase C ----
   const int tau = overflow ? PE_BIG_TAU : tau_sh;
-  if (tid < T) atomicMin(&after_sh, gcr_apply_track(a, lane, tid, tau));
+  if (tid < T) atomicMin(&after_sh, gcr_apply_track<REC>(a, lane, tid, tau));
   __syncthreads();
   pe_stamp(a, lane, PE_ST_CC);
   if (tid == 0) gcr_write_lane(a, lane, tau, overflow, after_sh);
@@ -95,9 +100,11 @@ extern "C" int gcr_fused_launch(const GcrArgs* a, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int C = pe_chunk(a->T, a->wmax);
   const size_t smem = pe_smem(a->T, C, a->wmax);
+  // the record mode's instantiation, or the decode's
+  void (*kernel)(GcrArgs, int) = a->dbg_f ? gcr_fused_kernel<true> : gcr_fused_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      gcr_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  gcr_fused_kernel<<<a->B * a->P, PE_THREADS, smem, (cudaStream_t)stream>>>(*a, C);
+  kernel<<<a->B * a->P, PE_THREADS, smem, (cudaStream_t)stream>>>(*a, C);
   return (int)cudaGetLastError();
 }

@@ -752,6 +752,11 @@ struct NrziSlotLane {
   const float* adj0;       // [T, 2] -adjskew's seeds (count, mean), or null
   float* adj;              // [T, 2] the accumulators at the end (with adj0)
   float* bitspace;         // the clock's t_bitspaceavg at the end, or null
+  // -trace's record mode (-correct off), or null: per slot its boundary
+  // min(s_z, S) and adjusted clock position (0 without transitions), per
+  // (track, column) the slot of the last write, -1 before any
+  float* dbg_slot;         // [max_slots, 2]
+  int32_t* col_slot;       // [T, maxb], filled with -1
   int T, K, S, maxb, max_slots, exp_par, cw;
   int correct;             // NRZI_CORRECT_*
   int clk_avg_fma;         // the exponential clock's other contraction
@@ -762,15 +767,19 @@ struct NrziSlotLane {
 struct NrziSlotTrk {
   int8_t* bits;            // the track's [maxb] row
   int32_t* hist;           // its [50] histogram row
+  int32_t* cslot;          // record mode: its [maxb] row of col_slot
+  int slot;                // record mode: the slot its steps run in
   int lim;                 // min(count, K): its valid transitions
   int kvis, dc, trksum, missed, overflow;
   int n_new;               // what the last consume round found
   int col0;                // bits[0], the column -correct's parity reads
   float tfirst, tlast;
   float adj_n, adj_mean;   // -adjskew's count and mean deviation
+  template <bool REC = false>
   NRZI_HDM void put(int i, int v) {
     bits[i] = (int8_t)v;
     if (i == 0) col0 = v;
+    if (REC) cslot[i] = slot;
   }
 };
 
@@ -835,6 +844,8 @@ NRZI_HD NrziSlotPart nrzi_slot_track_open(NrziSlotTrk& k, Tr& tr, const NrziSlot
   k.tfirst = k.tlast = 0.0f;
   k.adj_n = a.adj0 ? a.adj0[2 * t] : 0.0f;
   k.adj_mean = a.adj0 ? a.adj0[2 * t + 1] : 0.0f;
+  k.cslot = a.col_slot ? a.col_slot + (int64_t)t * a.maxb : 0;
+  k.slot = 0;
   tr.start(k.lim);
   tr.ahead(0);
   NrziSlotPart p;
@@ -882,7 +893,7 @@ NRZI_UNROLL
 // s_zc become 1-bits; a 4th sets the overflow flag. Returns the latest of
 // their times (NRZI_NEG_T if none) for the realignment, and leaves in
 // k.n_new how many it found
-template <class Tr>
+template <bool REC, class Tr>
 NRZI_HD float nrzi_consume_track(NrziSlotTrk& k, const Tr& tr, int t, int s_zc,
                                  const NrziSlotState& L, const NrziSlotLane& a) {
   // the next four samples and three times, read at once
@@ -902,7 +913,7 @@ NRZI_UNROLL
     if (j >= n_new) break;
     const int kj = k.kvis + j;
     const float tj = tv[j];
-    k.put(k.dc + j < a.maxb - 1 ? k.dc + j : a.maxb - 1, 1);
+    k.put<REC>(k.dc + j < a.maxb - 1 ? k.dc + j : a.maxb - 1, 1);
     if (k.dc + j == 0) k.tfirst = tj;
     k.tlast = tj;
     t_max = nrzi_maxf(t_max, tj);
@@ -953,7 +964,7 @@ NRZI_UNROLL
 // transition and, for the DEBUG build's check, the index it leaves in
 // last_complete_byte (decode_nrzi.c:258,262): datacount-1 after a dup
 // deletion when its last peak is in the window, else datacount-2
-template <class Tr>
+template <bool REC, class Tr>
 NRZI_HD NrziSlotPart nrzi_zerocheck_track(NrziSlotTrk& k, const Tr& tr,
                                           const NrziSlotState& L,
                                           const NrziSlotLane& a, float b) {
@@ -972,12 +983,12 @@ NRZI_HD NrziSlotPart nrzi_zerocheck_track(NrziSlotTrk& k, const Tr& tr,
   const bool zero = !last_in && !prev_in && !later;
   int d = dup ? dc0 - 1 : dc0;
   if (later) {                 // insert 0 before the 1 just appended
-    k.put(d - 1 > 0 ? d - 1 : 0, 0);
-    k.put(d < maxb - 1 ? d : maxb - 1, 1);
+    k.put<REC>(d - 1 > 0 ? d - 1 : 0, 0);
+    k.put<REC>(d < maxb - 1 ? d : maxb - 1, 1);
     d = d + 1 < maxb ? d + 1 : maxb;
   }
   if (zero) {                  // plain zero: append a 0
-    k.put(d < maxb - 1 ? d : maxb - 1, 0);
+    k.put<REC>(d < maxb - 1 ? d : maxb - 1, 0);
     d = d + 1 < maxb ? d + 1 : maxb;
   }
   if ((later || zero) && dc0 == 0 && d > dc0) k.tfirst = tz;
@@ -1018,9 +1029,11 @@ NRZI_UNROLL
 
 // the slot's close over the tracks' zerocheck parts: the clock, the
 // post-area count, the next slot's window and -correct; s_z: the slot's
-// boundary
+// boundary; REC, the record mode: s_last, the boundary its last consume
+// round ran to
+template <bool REC>
 NRZI_HD void nrzi_slot_close(NrziSlotState& L, const NrziSlotPart* part,
-                             const NrziSlotLane& a, float b, int s_z) {
+                             const NrziSlotLane& a, float b, int s_z, int s_last) {
   int numbits = 0, numlater = 0, par = 0;
   float avg_pos = 0.0f;
 NRZI_UNROLL
@@ -1083,6 +1096,10 @@ NRZI_UNROLL
     const int lcb = hi_t >= 0 ? part[hi_t].key : -1;
     L.dcheck = lcb >= 0 && lcb < a.maxb;
     L.lcb = lcb;
+  }
+  if (REC) {
+    a.dbg_slot[2 * L.nslot] = (float)(s_last < a.S ? s_last : a.S);
+    a.dbg_slot[2 * L.nslot + 1] = have ? adjusted : 0.0f;
   }
   L.nslot += 1;
   if (L.post >= 8) {
@@ -1159,8 +1176,10 @@ NRZI_UNROLL
 // or -1). ex.parity(f) returns the XOR over the tracks of f(track state,
 // t) & 1. L and part: the lane's state and NRZI_MAX_TRACKS parts, where
 // every track and the combines see them (the combines read all of them
-// at once and use the first T)
-template <class Exec>
+// at once and use the first T). REC: the record mode (NrziSlotLane::
+// dbg_slot and col_slot set), a separate instantiation so that the
+// decode's machine carries none of it
+template <bool REC, class Exec>
 NRZI_HD void nrzi_slot_drive(Exec& ex, const NrziSlotLane& a, NrziSlotState& L,
                              NrziSlotPart* part) {
   ex.each(-1, [&](NrziSlotTrk& k, auto& tr, int t) {
@@ -1175,28 +1194,31 @@ NRZI_HD void nrzi_slot_drive(Exec& ex, const NrziSlotLane& a, NrziSlotState& L,
     // its steps at once: its second round only after a first that filled
     // all four places (else it finds nothing), then its zerocheck
     const bool realign = L.post > 0;
+    int s_last = 0;
     for (int r = 0; r < (realign ? 2 : 1); ++r) {
+      if (REC) s_last = nrzi_boundary(L.t_lc, b);
       ex.each(NRZI_M_TRACKS, [&](NrziSlotTrk& k, auto& tr, int t) {
         if (r == 0) {
           nrzi_slot_flip(k, L, t);
           tr.ahead(k.kvis);
+          if (REC) k.slot = L.nslot;
         }
         const int s_z = nrzi_boundary(L.t_lc, b);
         const int s_zc = s_z < a.S ? s_z : a.S;
-        part[t].x = nrzi_consume_track(k, tr, t, s_zc, L, a);
+        part[t].x = nrzi_consume_track<REC>(k, tr, t, s_zc, L, a);
         if (!realign) {
-          if (k.n_new == 4) nrzi_consume_track(k, tr, t, s_zc, L, a);
-          part[t] = nrzi_zerocheck_track(k, tr, L, a, b);
+          if (k.n_new == 4) nrzi_consume_track<REC>(k, tr, t, s_zc, L, a);
+          part[t] = nrzi_zerocheck_track<REC>(k, tr, L, a, b);
         }
       });
       if (realign) ex.one(NRZI_M_REALIGN, [&] { nrzi_slot_realign(L, part, a, b); });
     }
     if (realign)
       ex.each(NRZI_M_TRACKS, [&](NrziSlotTrk& k, auto& tr, int t) {
-        part[t] = nrzi_zerocheck_track(k, tr, L, a, b);
+        part[t] = nrzi_zerocheck_track<REC>(k, tr, L, a, b);
       });
     const int s_z = nrzi_boundary(L.t_lc, b);
-    ex.one(NRZI_M_CLOSE, [&] { nrzi_slot_close(L, part, a, b, s_z); });
+    ex.one(NRZI_M_CLOSE, [&] { nrzi_slot_close<REC>(L, part, a, b, s_z, s_last); });
     if (L.dcheck) {          // the DEBUG build's check: each track reads its own row
       const int par = ex.parity([&](NrziSlotTrk& k, int) { return (int)k.bits[L.lcb]; });
       if (par != a.exp_par) ex.one(NRZI_M_CLOSE, [&] { nrzi_slot_debug_fix(L, part, a); });
@@ -1239,7 +1261,10 @@ NRZI_HD void nrzi_slot_run(const NrziSlotLane& a) {
   }
   NrziSlotState L;
   NrziSlotPart part[NRZI_MAX_TRACKS] = {};
-  nrzi_slot_drive(ex, a, L, part);
+  if (a.dbg_slot)
+    nrzi_slot_drive<true>(ex, a, L, part);
+  else
+    nrzi_slot_drive<false>(ex, a, L, part);
 }
 
 #ifdef __CUDACC__
@@ -1348,7 +1373,9 @@ static inline size_t nrzi_slot_smem(int T) {
 // The slot machine of one lane on one warp: all 32 threads call it. sm:
 // nrzi_slot_smem(a.T) bytes of shared memory, 16-byte aligned. The
 // histogram rows live there and are written out at the end. mach: null,
-// or where thread 0 writes the cycles spent in each step (NRZI_NMACH)
+// or where thread 0 writes the cycles spent in each step (NRZI_NMACH).
+// REC: the record mode (nrzi_slot_drive)
+template <bool REC = false>
 static __device__ void nrzi_slot_warp(const NrziSlotLane& a, unsigned char* sm,
                                       int64_t* mach) {
   NrziSlotState& L = *(NrziSlotState*)sm;
@@ -1376,7 +1403,7 @@ static __device__ void nrzi_slot_warp(const NrziSlotLane& a, unsigned char* sm,
     ex.tr.gt = a.tr_t + (int64_t)t * a.K;
     ex.tr.gagc = a.tr_agc + (int64_t)t * a.K;
   }
-  nrzi_slot_drive(ex, a, L, part);
+  nrzi_slot_drive<REC>(ex, a, L, part);
   if (ex.own) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     for (int i = 0; i < 50; ++i) a.hist[ex.t * 50 + i] = ex.k.hist[i];
@@ -1405,6 +1432,8 @@ NRZI_HD NrziSlotLane nrzi_slot_lane_of(const A& a, int lane) {
   L.adj0 = 0;
   L.adj = 0;
   L.bitspace = 0;
+  L.dbg_slot = 0;
+  L.col_slot = 0;
   L.T = a.T;
   L.K = a.K;
   L.S = a.S;
@@ -1726,6 +1755,8 @@ struct NrziSlotArgs {
   const float* adj0;         // [B*P, T, 2] -adjskew's seeds, or null (B6 only)
   float* adj;                // [B*P, T, 2] the accumulators at the end
   float* bitspace;           // [B*P] the clock at the end
+  float* dbg_slot;           // [B*P, max_slots, 2] -trace's records, or null
+  int32_t* col_slot;         // [B*P, T, maxb] (B6 only, -correct off)
   int32_t B, P, T, S, K, maxb, max_slots;
   int32_t do_correct;        // NRZI_CORRECT_* (B1's NrziArgs: off or release)
   int32_t exp_par;
@@ -1753,6 +1784,10 @@ NRZI_HD NrziSlotLane nrzi_slot_lane_b6(const NrziSlotArgs& a, int lane) {
     L.adj0 = a.adj0 + row;
     L.adj = a.adj + row;
     L.bitspace = a.bitspace + lane;
+  }
+  if (a.dbg_slot) {
+    L.dbg_slot = a.dbg_slot + (int64_t)lane * a.max_slots * 2;
+    L.col_slot = a.col_slot + (int64_t)lane * a.T * a.maxb;
   }
   return L;
 }

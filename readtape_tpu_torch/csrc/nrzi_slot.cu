@@ -14,6 +14,11 @@
 // build computes it (the parity of the last complete byte's column, a
 // warp vote over each track's own row; the JAX package replays that on
 // the host from streamed write records).
+// With NrziSlotArgs::dbg_slot set (-trace's record mode, -correct off) it
+// also writes each slot's boundary and adjusted clock position and, per
+// (track, column), the slot of the last write: what the JAX package's
+// debug scan streams for the trace's zerchk, avgpos, data and parerr
+// lanes.
 //
 // What bounds it: serial latency. The machine couples all tracks of a
 // lane, one slot after another, but within a slot each track's work is
@@ -29,6 +34,9 @@
 
 #include "nrzi_core.h"
 
+// REC: the record mode (NrziSlotArgs::dbg_slot set), its own
+// instantiation, so that the decode's kernel carries none of it
+template <bool REC>
 __global__ void __launch_bounds__(32) nrzi_slot_kernel(NrziSlotArgs a) {
   extern __shared__ __align__(16) unsigned char slot_sm[];
   const int lane = blockIdx.x, t = threadIdx.x;
@@ -37,7 +45,7 @@ __global__ void __launch_bounds__(32) nrzi_slot_kernel(NrziSlotArgs a) {
   // each track's thread copies its admission fields, then reads them back
   if (t < a.T) nrzi_slot_copy_track(a, lane, t);
   if (st) st[SLOT_ST_C0] = clock64();
-  nrzi_slot_warp(nrzi_slot_lane_b6(a, lane), slot_sm, st ? st + SLOT_ST_MACH : 0);
+  nrzi_slot_warp<REC>(nrzi_slot_lane_b6(a, lane), slot_sm, st ? st + SLOT_ST_MACH : 0);
   if (st) {
     st[SLOT_ST_C1] = clock64();
     st[SLOT_ST_G1] = nrzi_gtimer();
@@ -49,6 +57,9 @@ extern "C" int nrzi_slot_launch(const NrziSlotArgs* a, void* stream) {
   if (a->T < 1 || a->T > NRZI_MAX_TRACKS || a->K < 1) return (int)cudaErrorInvalidValue;
   const int n = a->B * a->P;
   if (n <= 0) return 0;
-  nrzi_slot_kernel<<<n, 32, nrzi_slot_smem(a->T), (cudaStream_t)stream>>>(*a);
+  if (a->dbg_slot)
+    nrzi_slot_kernel<true><<<n, 32, nrzi_slot_smem(a->T), (cudaStream_t)stream>>>(*a);
+  else
+    nrzi_slot_kernel<false><<<n, 32, nrzi_slot_smem(a->T), (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

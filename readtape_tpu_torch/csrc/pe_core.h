@@ -132,15 +132,31 @@ struct PeArgs {
   float* trk_f;              // [B*P, T, N_TF]
   int32_t* lane_i;           // [B*P, N_PL]
   int64_t* stamps;           // [B*P, PE_NSTAMP] phase clocks, or null
+  // -trace's record mode, or null (PE_DBG_* below)
+  float* dbg_f;              // [B*P, T, K, 2] peak time, clock window after it
+  int32_t* dbg_i;            // [B*P, T, K, 2] top, is_data | bitval << 1
   int32_t B, P, T, S, G, K, maxb, max_steps;
   int32_t wmax;              // the widest of p_w
   float spb, stat_lb, stat_bw;
 };
 
+// Record mode (dbg_f set; REC in the PE and GCR kernels, each its own
+// instantiation of the kernel, its walk and its candidate floor, so that
+// the decode's instantiation carries none of it): the JAX package's
+// -trace scan (pe_track_scan / gcr_track_scan without idle tracking)
+// instead of the decode's: every track's candidates in [0, seg_len), no
+// staggered start; PE's pre-first-peak t_lastpeak 0 and its exponential
+// clock contracted as fma(1 - a, avg, a * delta), as XLA's CPU build
+// compiles that scan; GCR's mid-scan idle never drops datablock. Each
+// admission also writes its row of dbg_f and dbg_i (two columns each,
+// what the -trace lanes read). The other outputs are then those of that
+// scan, which nothing reads.
+
 // Phase 0 and phase B below also serve the GCR kernel (gcr_core.h): they
 // are templates over the argument block, which must have the fields they
 // read (volts, seg_len, lead, p_w, wset, rise_floor, min_floor, cand, ie,
-// scan, B, P, T, S, G) with PeArgs' meaning and layouts.
+// scan, B, P, T, S, G) with PeArgs' meaning and layouts. REC selects
+// the record mode's candidate floor.
 template <class A>
 NRZI_HD int pe_nwords(const A& a) { return (a.S + 31) >> 5; }
 
@@ -162,14 +178,21 @@ NRZI_HD bool pe_union_at(const A& a, const float* v, int t, int s) {
   return c;
 }
 
+// the first sample of segment b where track t's window of width W may
+// hold a candidate (0 in record mode)
+template <bool REC, class A>
+NRZI_HD int pe_track_lo(const A& a, int b, int t, int W) {
+  return REC ? 0 : a.lead[b] + t + W - 1;
+}
+
 // the candidate bit of sample s of track t (a kernel builds a word from 32
 // lanes: each reads its own window, so neighbouring lanes read
 // neighbouring samples)
-template <class A>
+template <bool REC, class A>
 NRZI_HD bool pe_cand_bit(const A& a, int lane, int t, int s) {
   const int b = lane / a.P, p = lane % a.P;
   const float* v = a.volts + ((int64_t)b * a.T + t) * a.S;
-  const int lo = a.lead[b] + t + a.p_w[p] - 1;
+  const int lo = pe_track_lo<REC>(a, b, t, a.p_w[p]);
   const int hi = pe_imin(a.seg_len[b], a.S);
   return s >= lo && s < hi && pe_union_at(a, v, t, s);
 }
@@ -194,8 +217,11 @@ NRZI_HD int pe_idle_entry(float t_lp, float thr, int s_floor) {
 // (nrzi_feature_rows).
 // ---------------------------------------------------------------------------
 
-// one track's admission walk: its knobs, outputs and state
-struct PeWalk {
+// one track's admission walk: its knobs, outputs and state. REC: the
+// record mode (PeArgs::dbg_f set), its own instantiation (PeTraceWalk), so
+// that the decode's walk (PeWalk) carries none of it
+template <bool REC>
+struct PeWalkT {
   NrziCursor cur;
   int steps;
   // admission + AGC state (trackscan.admission_init, common.agc_state_init)
@@ -217,6 +243,8 @@ struct PeWalk {
   int32_t* rec_i;            // [K, N_PR]
   float* rec_f;              // [K, N_PRF]
   int32_t* ie;               // [PE_IDLE_CAP, 2]
+  float* dbg_f;              // [K, 2] record mode's rows
+  int32_t* dbg_i;            // [K, 2]
 
   // one step at a candidate s with window features f
   NRZI_HDM void admit(int s, const NrziFeat& f) {
@@ -298,7 +326,8 @@ struct PeWalk {
         bitndx = bitndx + 1 >= cwin ? 0 : bitndx + 1;
         avg = bsp + (delta - old) / (float)cwin;
       } else if (ca > 0.0f) {
-        avg = fmaf(ca, delta, (1.0f - ca) * bsp);
+        // XLA's CPU build contracts the -trace scan's the other way
+        avg = REC ? fmaf(1.0f - ca, bsp, ca * delta) : fmaf(ca, delta, (1.0f - ca) * bsp);
       } else {
         avg = spb;
       }
@@ -378,16 +407,25 @@ struct PeWalk {
     rf[PRF_TLB] = t_lastbit;
     rf[PRF_AGCMX] = max_agc;
     rf[PRF_AGCMN] = min_agc;
+    if (REC) {
+      dbg_f[2 * n_adm] = t_this;
+      dbg_f[2 * n_adm + 1] = t_clkwindow;
+      dbg_i[2 * n_adm] = is_top;
+      dbg_i[2 * n_adm + 1] = (int)is_data | ((int)bitval << 1);
+    }
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
     cur.pos = s + L + 1;
     cur.search = false;
   }
 };
+using PeWalk = PeWalkT<false>;
+using PeTraceWalk = PeWalkT<true>;
 
 // track t of a lane at the start of its segment; heights, ring:
 // NRZI_MAX_AGC_RING and NRZI_MAX_CLK_RING floats
-NRZI_HD void pe_walk_init(PeWalk& w, const PeArgs& a, int lane, int t,
+template <bool REC>
+NRZI_HD void pe_walk_init(PeWalkT<REC>& w, const PeArgs& a, int lane, int t,
                           float* heights, float* ring) {
   const int b = lane / a.P, p = lane % a.P;
   const int64_t row = (int64_t)lane * a.T + t;
@@ -409,7 +447,7 @@ NRZI_HD void pe_walk_init(PeWalk& w, const PeArgs& a, int lane, int t,
   w.bitndx = 0;
   w.avg = a.spb;
   // the virtual pre-first-peak t_lastpeak is the track's staggered start
-  // (decoder.c:856-862), its first idle check one later
+  // (decoder.c:856-862; 0 in record mode), its first idle check one later
   w.idle = true;
   w.datablock = w.clknext = false;
   w.bit1_up = true;
@@ -417,7 +455,7 @@ NRZI_HD void pe_walk_init(PeWalk& w, const PeArgs& a, int lane, int t,
   w.cf = a.p_clk_factor[p];
   w.t_clkwindow = a.spb / 2.0f * w.cf;
   w.t_pulse_adj = w.t_lastbit = w.t_firstbit = 0.0f;
-  w.t_lastpeak = (float)(a.lead[b] + t);
+  w.t_lastpeak = REC ? 0.0f : (float)(a.lead[b] + t);
   w.dc = 0;
   w.s_lastdet = a.lead[b] + t + 1;
   w.n_ie = 0;
@@ -435,10 +473,15 @@ NRZI_HD void pe_walk_init(PeWalk& w, const PeArgs& a, int lane, int t,
   w.rec_i = a.rec_i + row * a.K * N_PR;
   w.rec_f = a.rec_f + row * a.K * N_PRF;
   w.ie = a.ie + row * PE_IDLE_CAP * 2;
+  if (REC) {
+    w.dbg_f = a.dbg_f + row * a.K * 2;
+    w.dbg_i = a.dbg_i + row * a.K * 2;
+  }
 }
 
 // the track's scan results once its walk has stopped
-NRZI_HD void pe_walk_finish(const PeWalk& w, const PeArgs& a, int lane, int t) {
+template <bool REC>
+NRZI_HD void pe_walk_finish(const PeWalkT<REC>& w, const PeArgs& a, int lane, int t) {
   int32_t* sc = a.scan + ((int64_t)lane * a.T + t) * N_PS;
   sc[PS_NADM] = w.n_adm;
   sc[PS_INCOMP] = w.cur.pos < a.S;
@@ -531,13 +574,13 @@ NRZI_HD void pe_lane_flags(const A& a, int lane, bool& overflow, bool& deep) {
 
 // first union candidate >= x on track t masked to [lead + t + Wmin - 1,
 // seg_len) (the smallest-W jump table of _pe_segment_device), or S
-template <class A>
+template <bool REC, class A>
 NRZI_HD int pe_first_cand(const A& a, int lane, int t, int x) {
   const int b = lane / a.P, p = lane % a.P, S = a.S;
   const float* v = a.volts + ((int64_t)b * a.T + t) * S;
   const int hi = pe_imin(a.seg_len[b], S);
-  const int own = a.lead[b] + t + a.p_w[p] - 1;   // the lane's bitmask starts here
-  int s = pe_imax(x, a.lead[b] + t + a.wset[0] - 1);
+  const int own = pe_track_lo<REC>(a, b, t, a.p_w[p]);   // the lane's bitmask starts here
+  int s = pe_imax(x, pe_track_lo<REC>(a, b, t, a.wset[0]));
   for (; s < own && s < hi; ++s)
     if (pe_union_at(a, v, t, s)) return s;
   const int nw = pe_nwords(a);
@@ -545,6 +588,7 @@ NRZI_HD int pe_first_cand(const A& a, int lane, int t, int x) {
                         pe_imax(s, own));
 }
 
+template <bool REC>
 NRZI_HD void pe_apply_track(const PeArgs& a, int lane, int t, int tau,
                             int& cand_after, int& cand_race) {
   const int64_t row = (int64_t)lane * a.T + t;
@@ -615,8 +659,8 @@ NRZI_HD void pe_apply_track(const PeArgs& a, int lane, int t, int tau,
   int max_w = 0;
   for (int p = 0; p < a.P; ++p) max_w = pe_imax(max_w, a.p_w[p]);
   const int S = a.S;
-  cand_after = pe_first_cand(a, lane, t, pe_imax(0, pe_imin(tau + 1, S)));
-  cand_race = pe_first_cand(a, lane, t, pe_imax(0, pe_imin(tau - max_w, S)));
+  cand_after = pe_first_cand<REC>(a, lane, t, pe_imax(0, pe_imin(tau + 1, S)));
+  cand_race = pe_first_cand<REC>(a, lane, t, pe_imax(0, pe_imin(tau - max_w, S)));
 }
 
 NRZI_HD void pe_write_lane(const PeArgs& a, int lane, int tau, bool overflow,
@@ -650,11 +694,11 @@ NRZI_HD void pe_zero_lane(const PeArgs& a, int lane, int tid, int n) {
 
 // phase 0's candidate words of a lane, cw [T, NW]: a warp per word, lane
 // l tests sample 32 w + l (coalesced) and one ballot makes the word
-template <class A>
+template <bool REC, class A>
 __device__ void pe_cand_words(const A& a, int lane, uint32_t* cw) {
   const int nw = pe_nwords(a), tid = threadIdx.x;
   for (int q = tid >> 5; q < a.T * nw; q += blockDim.x >> 5) {
-    const bool c = pe_cand_bit(a, lane, q / nw, ((q % nw) << 5) + (tid & 31));
+    const bool c = pe_cand_bit<REC>(a, lane, q / nw, ((q % nw) << 5) + (tid & 31));
     const unsigned word = __ballot_sync(0xffffffffu, c);
     if ((tid & 31) == 0) cw[q] = word;
   }

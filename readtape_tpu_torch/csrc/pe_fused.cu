@@ -8,6 +8,8 @@
 // JAX package's XLA path (_pe_segment_device) adds to that and the PE walk
 // needs: each track's idle intervals, the lane's all-idle point tau, the
 // records replayed only up to tau, and the first candidates after it.
+// With PeArgs::dbg_f set (-trace's record mode, pe_core.h) it runs the
+// JAX trace's scan instead and writes each admission's row of the trace.
 //
 // What bounds it: serial latency in phase A. Each track's admissions form
 // a chain of dependent steps (the AGC and clock state of one admission set
@@ -43,6 +45,9 @@
 
 #include "pe_core.h"
 
+// REC: the record mode (dbg_f set), its own instantiation, so that the
+// decode's kernel carries none of it
+template <bool REC>
 __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C) {
   extern __shared__ __align__(16) unsigned char pe_sm[];
   const int lane = blockIdx.x, tid = threadIdx.x;
@@ -57,17 +62,17 @@ __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C
   }
   pe_zero_lane(a, lane, tid, blockDim.x);
   uint32_t* cw = a.cand + (int64_t)lane * T * pe_nwords(a);
-  pe_cand_words(a, lane, cw);
+  pe_cand_words<REC>(a, lane, cw);
   __syncthreads();
   pe_stamp(a, lane, PE_ST_CZ);
 
   // ---- phase A ----
-  pe_phase_a<PeWalk>(
+  pe_phase_a<PeWalkT<REC>>(
       a, lane, cw, pe_sm, C,
-      [&](PeWalk& w, int t, float* heights, float* ring) {
+      [&](PeWalkT<REC>& w, int t, float* heights, float* ring) {
         pe_walk_init(w, a, lane, t, heights, ring);
       },
-      [&](const PeWalk& w, int t) { pe_walk_finish(w, a, lane, t); });
+      [&](const PeWalkT<REC>& w, int t) { pe_walk_finish(w, a, lane, t); });
   pe_stamp(a, lane, PE_ST_CA);
 
   // ---- phase B ----
@@ -81,7 +86,7 @@ __global__ void __launch_bounds__(PE_THREADS, 1) pe_fused_kernel(PeArgs a, int C
   const int tau = overflow ? PE_BIG_TAU : tau_sh;
   if (tid < T) {
     int ca, cr;
-    pe_apply_track(a, lane, tid, tau, ca, cr);
+    pe_apply_track<REC>(a, lane, tid, tau, ca, cr);
     atomicMin(&after_sh, ca);
     atomicMin(&race_sh, cr);
   }
@@ -98,9 +103,11 @@ extern "C" int pe_fused_launch(const PeArgs* a, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int C = pe_chunk(a->T, a->wmax);
   const size_t smem = pe_smem(a->T, C, a->wmax);
+  // the record mode's instantiation, or the decode's
+  void (*kernel)(PeArgs, int) = a->dbg_f ? pe_fused_kernel<true> : pe_fused_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      pe_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pe_fused_kernel<<<a->B * a->P, PE_THREADS, smem, (cudaStream_t)stream>>>(*a, C);
+  kernel<<<a->B * a->P, PE_THREADS, smem, (cudaStream_t)stream>>>(*a, C);
   return (int)cudaGetLastError();
 }

@@ -83,6 +83,12 @@ struct WwArgs {
   float* trk_f;              // [T] h_sum
   int32_t* scal;             // [N_WS]
   int64_t* stamps;           // [WW_NSTAMP(T)] timing stamps, or null
+  // -trace's record mode (both set), or null: each record's peak time
+  // f32(s) + frac beside tr_s, and each data character's clock-end time
+  // (in the machine's carried time base) beside chars; the admission and
+  // the machine compile it as instantiations of their own
+  float* tr_t;               // [T, K]
+  float* char_t;             // [maxchars]
   int32_t T, S, W, K, maxchars, maxblocks, agc_window, clk_window, fluxdir,
       span;
   int32_t role[6];
@@ -118,8 +124,11 @@ NRZI_HD uint32_t ww_cand_word(const WwArgs& a, int t, int w) {
 // ahead of it (nrzi_feature_rows)
 // ---------------------------------------------------------------------------
 
-// one track's admission walk: its knobs, outputs and state
-struct WwWalk {
+// one track's admission walk: its knobs, outputs and state. REC: the
+// record mode (WwArgs::tr_t set), its own instantiation, so that the
+// decode's walk (WwWalk) carries none of it
+template <bool REC>
+struct WwWalkT {
   NrziCursor cur;
   int steps;
   float agc, v_lasttop, v_lastbot, v_top, v_bot, h_sum;
@@ -130,6 +139,7 @@ struct WwWalk {
   int32_t* tr_s;             // [K] records
   float* tr_frac;
   int8_t* tr_top;
+  float* tr_t;               // record mode: the peak times
 
   // one step at a candidate s with window features f
   NRZI_HDM void admit(int s, const NrziFeat& f) {
@@ -190,15 +200,18 @@ struct WwWalk {
     tr_s[idx] = s;
     tr_frac[idx] = frac;
     tr_top[idx] = is_top ? 1 : 0;
+    if (REC) tr_t[idx] = (float)s + frac;
     n_adm += 1;
     // blind until the peak leaves the window: the next step tests s + L + 1
     cur.pos = s + L + 1;
     cur.search = false;
   }
 };
+using WwWalk = WwWalkT<false>;
 
 // track t's walk at the start of the tape; heights: WW_AGC_RING floats
-NRZI_HD void ww_walk_init(WwWalk& w, const WwArgs& a, int t, float* heights) {
+template <bool REC>
+NRZI_HD void ww_walk_init(WwWalkT<REC>& w, const WwArgs& a, int t, float* heights) {
   w.cur.pos = 0;
   w.cur.search = true;
   w.steps = 0;
@@ -217,15 +230,18 @@ NRZI_HD void ww_walk_init(WwWalk& w, const WwArgs& a, int t, float* heights) {
   w.tr_s = a.tr_s + (int64_t)t * a.K;
   w.tr_frac = a.tr_frac + (int64_t)t * a.K;
   w.tr_top = a.tr_top + (int64_t)t * a.K;
+  if (REC) w.tr_t = a.tr_t + (int64_t)t * a.K;
 }
 
 // the walk of a chunk, with no step budget
-NRZI_HD bool ww_walk_chunk(WwWalk& w, const uint32_t* words,
+template <class Walk>
+NRZI_HD bool ww_walk_chunk(Walk& w, const uint32_t* words,
                            const NrziFeat* rows, int c0, int c1, int S) {
   return nrzi_walk_chunk(w, words, rows, c0, c1, S, 0x7fffffff);
 }
 
-NRZI_HD void ww_walk_finish(const WwWalk& w, const WwArgs& a, int t) {
+template <bool REC>
+NRZI_HD void ww_walk_finish(const WwWalkT<REC>& w, const WwArgs& a, int t) {
   int32_t* ti = a.trk_i + (int64_t)t * N_WT;
   ti[WT_NADM] = w.n_adm;
   ti[WT_HCNT] = w.h_cnt;
@@ -368,6 +384,7 @@ NRZI_HD int ww_chk(const WwMachine& m, int trk, float lo, float clkend) {
   return (tps > lo && tps < clkend) ? 1 : 2;
 }
 
+template <bool REC>
 NRZI_HD void ww_chk_databits(WwMachine& m, const WwArgs& a, float clkend) {
   const float lo = clkend - m.avg;
   int r_pm = ww_chk(m, a.role[WW_PRI_MSB], lo, clkend);
@@ -378,6 +395,7 @@ NRZI_HD void ww_chk_databits(WwMachine& m, const WwArgs& a, float clkend) {
   int lsb = (r_pl == 1 || r_al == 1) ? 1 : 0;
   int miss = ((r_pm | r_am) == 3 ? 1 : 0) + ((r_pl | r_al) == 3 ? 1 : 0);
   a.chars[ww_imin(m.datacount, a.maxchars - 1)] = (int8_t)((msb << 1) | lsb);
+  if (REC) a.char_t[ww_imin(m.datacount, a.maxchars - 1)] = clkend;
   m.datacount = ww_imin(m.datacount + 1, a.maxchars);
   m.miss1 += miss;
 }
@@ -419,7 +437,8 @@ NRZI_HD void ww_machine_init(WwMachine& m, const WwArgs& a, WwMachineMem* mem) {
 }
 
 // one merged event (ww_global_scan's step for a valid event); tt: the
-// packed track | is_top << 4
+// packed track | is_top << 4; REC: the record mode (WwArgs::char_t set)
+template <bool REC = false>
 NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int s, float frac, int tt) {
   const int trk = tt & 15;
   const bool is_top = (tt & 16) != 0;
@@ -481,7 +500,7 @@ NRZI_HD void ww_event(WwMachine& m, const WwArgs& a, int s, float frac, int tt) 
       if (bkt >= 0 && bkt <= 49) q.trksum[trk] += 1;
     }
     if (ww_is_clk(a, trk)) {
-      if (t - m.t_lce > b * 0.5f) ww_chk_databits(m, a, t);
+      if (t - m.t_lce > b * 0.5f) ww_chk_databits<REC>(m, a, t);
       m.t_lce = t;
     }
     // missing-clock warnings (decode_ww.c:210-223)

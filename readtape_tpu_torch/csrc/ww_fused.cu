@@ -8,7 +8,9 @@
 // JAX package's XLA path (run_pass_single) computes, not the TPU kernel:
 // no 2048-record block window and no bail, int32 positions with the
 // XLA path's rolling integer base and int32 counters, and the XLA flush's
-// end time for a tapemark at the end of the tape.
+// end time for a tapemark at the end of the tape. With WwArgs::tr_t set
+// (-trace's record mode) it also writes each record's peak time and each
+// character's clock-end time.
 //
 // What bounds it: serial latency. WW has one lane, not a batch of
 // segments: each track's admissions form a chain of dependent steps (the
@@ -65,6 +67,9 @@ static size_t ww_admit_smem(int C, int W) {
   return nrzi_stage_smem(1, C, W) + WW_AGC_RING * 4;
 }
 
+// REC (here and in ww_machine_kernel): the record mode (WwArgs::tr_t and
+// char_t set), its own instantiation
+template <bool REC>
 __global__ void __launch_bounds__(WW_ADMIT_THREADS, 1) ww_admit_kernel(WwArgs a, int C) {
   extern __shared__ __align__(16) unsigned char ww_sm[];
   const int t = blockIdx.x, S = a.S, W = a.W, nw = ww_nwords(a);
@@ -76,7 +81,7 @@ __global__ void __launch_bounds__(WW_ADMIT_THREADS, 1) ww_admit_kernel(WwArgs a,
                                    a.cand + (int64_t)t * nw, 1, S, W, C, W, nw,
                                    ptid, np);        // [WW_AGC_RING]
 
-  WwWalk w;
+  WwWalkT<REC> w;
   const long long c_start = clock64();
   long long walked = 0;                    // cycles spent walking
   if (stager) sg.prime(nch);
@@ -111,6 +116,7 @@ __global__ void __launch_bounds__(WW_RANK_THREADS) ww_rank_kernel(WwArgs a) {
   }
 }
 
+template <bool REC>
 __global__ void __launch_bounds__(WW_MACHINE_THREADS, 1) ww_machine_kernel(WwArgs a) {
   __shared__ int32_t es[2][WW_EV_CHUNK];
   __shared__ float ef[2][WW_EV_CHUNK];
@@ -147,7 +153,7 @@ __global__ void __launch_bounds__(WW_MACHINE_THREADS, 1) ww_machine_kernel(WwArg
     } else if (tid == 0) {
       const int b = i & 1, n = min(WW_EV_CHUNK, N - i * WW_EV_CHUNK);
       const long long c = clock64();
-      for (int j = 0; j < n; ++j) ww_event(m, a, es[b][j], ef[b][j], et[b][j]);
+      for (int j = 0; j < n; ++j) ww_event<REC>(m, a, es[b][j], ef[b][j], et[b][j]);
       looped += clock64() - c;
     }
   }
@@ -184,15 +190,19 @@ static cudaError_t ww_phase(const WwArgs& a, int i, cudaStream_t st) {
   } else if (i == 1) {
     const int C = ww_admit_chunk(a.W);
     const size_t smem = ww_admit_smem(C, a.W);
+    void (*admit)(WwArgs, int) = a.tr_t ? ww_admit_kernel<true> : ww_admit_kernel<false>;
     cudaError_t e = cudaFuncSetAttribute(
-        ww_admit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        admit, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    ww_admit_kernel<<<a.T, WW_ADMIT_THREADS, smem, st>>>(a, C);
+    admit<<<a.T, WW_ADMIT_THREADS, smem, st>>>(a, C);
   } else if (i == 2) {
     ww_rank_kernel<<<ww_grid((int64_t)a.T * a.K, WW_RANK_THREADS),
                      WW_RANK_THREADS, 0, st>>>(a);
   } else {
-    ww_machine_kernel<<<1, WW_MACHINE_THREADS, 0, st>>>(a);
+    if (a.tr_t)
+      ww_machine_kernel<true><<<1, WW_MACHINE_THREADS, 0, st>>>(a);
+    else
+      ww_machine_kernel<false><<<1, WW_MACHINE_THREADS, 0, st>>>(a);
   }
   return cudaGetLastError();
 }

@@ -39,6 +39,21 @@ replayed up to tau, and the first candidates after it. Outputs
   lane_i int32 [B, P, 4]     PL_* per-lane integers
 ``pe_fused_state`` reads them out for pe_finish and the pipeline.
 
+With ``trace_scan=True`` pe_fused_scan and gcr_fused_scan replace the
+decode's scan by the JAX package's -trace scan (its pe_track_scan /
+gcr_track_scan without idle tracking): candidates in [0, seg_len) on
+every track; for PE the pre-first-peak t_lastpeak 0 and the exponential
+clock contracted as fma(1 - a, avg, a * delta) (XLA's CPU build of that
+scan), for GCR no mid-scan idle. They return each track's admitted peaks
+beside the outputs above (the outputs are then those of that scan, which
+nothing reads):
+  rec_f float32 [B, P, T, K, 2]  the peak time, then PE the clock window
+                                 after it, GCR the pulse adjustment
+  rec_i int32   [B, P, T, K, 2]  top (1) or bottom, then PE is_data |
+                                 bitval << 1, GCR the zeros inferred
+                                 before the peak
+  rec_n int32   [B, P, T]        admitted peaks (entries past it are 0)
+
 ``gcr_fused_scan`` does the same for GCR (csrc/gcr_fused.cu, plain version
 ``gcr_fused_scan_plain`` built from decode/gcr.py), computing what the
 JAX package's _gcr_segment_device computes without -zeros: per-track
@@ -72,7 +87,11 @@ of the tape. Outputs (``WwOut``):
   trk_i  int32 [T, 4]              WT_* per-track integers
   trk_f  f32   [T]                 h_sum, the pulse heights' sum
   scal   int32 [6]                 WS_* scalars
-``ww_fused_state`` reads them out into run_pass_single's fields.
+``ww_fused_state`` reads them out into run_pass_single's fields. With
+``records=True`` it also returns the -trace records: tr_t f32 [T, K] and
+tr_top int8 [T, K] (each track's admitted peaks, trk_i's WT_NADM of them,
+the last in K - 1 past K) and char_t f32 [maxchars] (each data
+character's clock-end time).
 """
 
 from __future__ import annotations
@@ -282,32 +301,35 @@ def _check_pe(volts, seg_lens, leads, Ws, rise_floor, maxb, K, max_steps):
 
 def _idle_scan(name, plain, launch, volts, seg_lens, leads, pa, *, Ws,
                rise_floor, min_floor, stat_lb, stat_bw, spb, maxb, K,
-               max_steps):
+               max_steps, trace_scan):
     """pe_fused_scan's and gcr_fused_scan's body (their arguments are the
     same): _dispatch with the arguments normalized."""
     args = dict(Ws=tuple(int(w) for w in Ws), rise_floor=rise_floor,
                 min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw,
                 spb=float(spb), maxb=int(maxb), K=int(K),
-                max_steps=int(max_steps))
+                max_steps=int(max_steps), trace_scan=bool(trace_scan))
     return _dispatch(name, plain, launch, lambda: _check_pe(
         volts, seg_lens, leads, args["Ws"], rise_floor, maxb, K, max_steps),
         volts, seg_lens, leads, pa, args)
 
 
-def _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor, min_floor):
+def _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor, min_floor,
+                    stagger=True):
     """The union candidacy masked per window width W to each track's own
     [lead + t + W - 1, seg_len): the reference's moving window refills
-    sample by sample after each track's staggered start. Returns
-    {W: nxt [B, T, S+1]}."""
+    sample by sample after each track's staggered start (without stagger,
+    the -trace scan's, to [0, seg_len)). Returns {W: nxt [B, T, S+1]}."""
     B, T, S = volts.shape
     nxt_union = _union_jump_table(volts, Ws, rise_floor, min_floor)
     trk = torch.arange(T, device=volts.device)
     return {W: _mask_jump_table(nxt_union, seg_lens,
-                                leads.long().view(B, 1) + trk + W - 1, S)
+                                leads.long().view(B, 1) + trk + W - 1
+                                if stagger else torch.zeros_like(leads), S)
             for W in sorted(set(Ws))}
 
 
-def _track_lanes(volts, seg_lens, leads, Ws, rise_floor, min_floor):
+def _track_lanes(volts, seg_lens, leads, Ws, rise_floor, min_floor,
+                 stagger=True):
     """What the per-track scans of PE and GCR share: per-width jump
     tables and window features, and every (segment, parmset, track) lane
     in (b, p, t) order. Returns (feat [G*B*T, S, 10], nxt [G*B*T, S+1],
@@ -320,7 +342,7 @@ def _track_lanes(volts, seg_lens, leads, Ws, rise_floor, min_floor):
     wset = sorted(set(Ws))
     G = len(wset)
     tables = _pe_jump_tables(volts, seg_lens, leads, Ws, rise_floor,
-                             min_floor)
+                             min_floor, stagger)
     nxt = torch.stack([tables[W] for W in wset]).reshape(G * B * T, S + 1)
     feat = torch.stack([trackscan.precompute_window_features(volts, W)
                         .transpose(-1, -2) for W in wset])   # [G,B,T,S,10]
@@ -344,31 +366,47 @@ def _lane_streams(fin, B, P, T):
 
 def pe_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                   rise_floor, min_floor, stat_lb: float, stat_bw: float,
-                  spb: float, maxb: int, max_steps: int):
+                  spb: float, maxb: int, max_steps: int,
+                  trace_scan: bool = False):
     """The PE scan of every (segment, parmset, track) lane
-    (pe.pe_track_scan). Returns (the scans' idle intervals, counts and
-    record streams with lane axes [B*P, T, ...], the smallest width's
-    jump table [B, T, S+1])."""
+    (pe.pe_track_scan; with trace_scan the -trace scan and its debug
+    streams). Returns (the scans' idle intervals, counts and record
+    streams with lane axes [B*P, T, ...], the smallest width's jump table
+    [B, T, S+1])."""
     dev = volts.device
     B, T, S = volts.shape
     feat, nxt, src, pl, lead_l, first = _track_lanes(
-        volts, seg_lens, leads, Ws, rise_floor, min_floor)
+        volts, seg_lens, leads, Ws, rise_floor, min_floor,
+        stagger=not trace_scan)
     fin = pe_mod.pe_track_scan(
         feat, src, nxt, src, torch.as_tensor(Ws, dtype=I32, device=dev)[pl],
         S, max_steps, pa.pkww_rise[pl], pa.min_peak[pl], pa.agc_alpha[pl],
         pa.agc_window[pl], pa.clk_window[pl], pa.clk_alpha[pl],
         pa.clk_factor[pl], pa.pulse_adj[pl], spb, maxb, stat_lb, stat_bw,
-        t_lp_virtual=lead_l.to(F32), s_first_check=lead_l + 1,
-        clk_ring=max(int(pa.clk_window.max()), 1),
-        agc_ring=max(int(pa.agc_window.max()), 1))
+        t_lp_virtual=(torch.zeros_like(lead_l) if trace_scan
+                      else lead_l).to(F32),
+        s_first_check=lead_l + 1, clk_ring=max(int(pa.clk_window.max()), 1),
+        agc_ring=max(int(pa.agc_window.max()), 1), debug=trace_scan)
     return _lane_streams(fin, B, len(Ws), T), first
+
+
+def _records(peaks, B, P, T, f2, i2):
+    """rec_f, rec_i and rec_n from a debug_peaks dict compacted to K
+    entries per track ([B*P*T, K] fields) and the second columns of rec_f
+    (f2) and rec_i (i2)."""
+    def lanes(x):
+        return x.reshape((B, P, T) + x.shape[1:])
+    return dict(
+        rec_f=lanes(torch.stack([peaks["tr_t"], f2], dim=-1)),
+        rec_i=lanes(torch.stack([peaks["tr_top"].to(I32), i2], dim=-1)),
+        rec_n=lanes(peaks["n_admitted"]))
 
 
 @torch.inference_mode()
 def pe_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                         rise_floor, min_floor, stat_lb: float,
                         stat_bw: float, spb: float, maxb: int, K: int,
-                        max_steps: int):
+                        max_steps: int, trace_scan: bool = False):
     """The plain PyTorch version of the PE kernel (same arguments and
     outputs as pe_fused_scan): the per-lane PE scans (pe_scan_lanes) ->
     tau -> the replay truncated at tau -> the first candidates after
@@ -380,7 +418,7 @@ def pe_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
     fin, first = pe_scan_lanes(
         volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
-        maxb=maxb, max_steps=max_steps)
+        maxb=maxb, max_steps=max_steps, trace_scan=trace_scan)
     tau, gaveup = pe_mod.lane_tau(fin["ie_e"], fin["ie_w"], fin["n_ie"],
                                   fin["ie_trail"])
     tr = pe_mod.pe_apply_tau(fin, maxb, tau)
@@ -400,12 +438,19 @@ def pe_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
     lane_i = torch.stack([tau_b, gaveup.view(B, P).long(),
                           cand_at(tau_b + 1), cand_at(tau_b - max(Ws))],
                          dim=-1)
-    return dict(bits=tr["bits"].reshape(B, P, T, maxb),
-                faked=tr["faked"].reshape(B, P, T, maxb),
-                hist=tr["hist"].reshape(B, P, T, 50),
-                trk_i=trk_i.reshape(B, P, T, N_PI).to(I32),
-                trk_f=trk_f.reshape(B, P, T, N_TF),
-                lane_i=lane_i.to(I32))
+    out = dict(bits=tr["bits"].reshape(B, P, T, maxb),
+               faked=tr["faked"].reshape(B, P, T, maxb),
+               hist=tr["hist"].reshape(B, P, T, 50),
+               trk_i=trk_i.reshape(B, P, T, N_PI).to(I32),
+               trk_f=trk_f.reshape(B, P, T, N_TF),
+               lane_i=lane_i.to(I32))
+    if trace_scan:
+        pk = pe_mod.debug_peaks({k: v.flatten(0, 1) for k, v in fin.items()
+                                 if k.startswith("_st_")}, K)
+        out.update(_records(pk, B, P, T, pk["tr_clkw"],
+                            pk["tr_isdata"].to(I32)
+                            | (pk["tr_bitval"].to(I32) << 1)))
+    return out
 
 
 pe_fused_scan_plain.calls = 0
@@ -413,19 +458,22 @@ pe_fused_scan_plain.calls = 0
 
 def pe_fused_scan(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                   rise_floor, min_floor, stat_lb: float, stat_bw: float,
-                  spb: float, maxb: int, K: int, max_steps: int):
+                  spb: float, maxb: int, K: int, max_steps: int,
+                  trace_scan: bool = False):
     """volts: [B, T, S] f32; seg_lens, leads: [B] int (track t's
     candidates live in [lead + t + W - 1, seg_len)); pa: the P active
     parmsets, Ws their window widths; rise_floor/min_floor: [T]
     loose-candidate floors; stat_lb/stat_bw: peak-statistics bins in
     samples; maxb: bit buffer length; K: record buffer entries per track
     (>= max_steps); max_steps: admission step budget per track
-    (scan_step_budget). Returns PeOut (see module docstring)."""
+    (scan_step_budget); trace_scan: run the -trace scan in place of the
+    decode's and return its records (module docstring); the other outputs
+    are then that scan's. Returns PeOut (see module docstring)."""
     out, launched = _idle_scan(
         "pe_fused_scan", pe_fused_scan_plain, kernels.pe_fused, volts,
         seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
-        maxb=maxb, K=K, max_steps=max_steps)
+        maxb=maxb, K=K, max_steps=max_steps, trace_scan=trace_scan)
     pe_fused_scan.launches += launched
     return out
 
@@ -455,13 +503,16 @@ def pe_fused_state(out) -> dict:
 
 def gcr_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                    rise_floor, min_floor, stat_lb: float, stat_bw: float,
-                   spb: float, maxb: int, max_steps: int):
+                   spb: float, maxb: int, max_steps: int,
+                   trace_scan: bool = False):
     """The GCR scan of every (segment, parmset, track) lane
-    (gcr.gcr_track_scan). Returns what pe_scan_lanes returns."""
+    (gcr.gcr_track_scan; with trace_scan the -trace scan and its debug
+    streams). Returns what pe_scan_lanes returns."""
     dev = volts.device
     B, T, S = volts.shape
     feat, nxt, src, pl, lead_l, first = _track_lanes(
-        volts, seg_lens, leads, Ws, rise_floor, min_floor)
+        volts, seg_lens, leads, Ws, rise_floor, min_floor,
+        stagger=not trace_scan)
     fin = gcr_mod.gcr_track_scan(
         feat, src, nxt, src, torch.as_tensor(Ws, dtype=I32, device=dev)[pl],
         S, max_steps, pa.pkww_rise[pl], pa.min_peak[pl], pa.agc_alpha[pl],
@@ -469,7 +520,7 @@ def gcr_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
         pa.z1pt[pl], pa.z2pt[pl], pa.pulse_adj[pl], spb, maxb, stat_lb,
         stat_bw, s_first_check=lead_l + 1,
         clk_ring=max(int(pa.clk_window.max()), 1),
-        agc_ring=max(int(pa.agc_window.max()), 1))
+        agc_ring=max(int(pa.agc_window.max()), 1), debug=trace_scan)
     return _lane_streams(fin, B, len(Ws), T), first
 
 
@@ -477,7 +528,7 @@ def gcr_scan_lanes(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
 def gcr_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                          rise_floor, min_floor, stat_lb: float,
                          stat_bw: float, spb: float, maxb: int, K: int,
-                         max_steps: int):
+                         max_steps: int, trace_scan: bool = False):
     """The plain PyTorch version of the GCR kernel (same arguments and
     outputs as gcr_fused_scan): the per-lane GCR scans (gcr_scan_lanes) ->
     tau (an overflowing interval stream gives none) -> the replay
@@ -489,7 +540,7 @@ def gcr_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
     fin, first = gcr_scan_lanes(
         volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
-        maxb=maxb, max_steps=max_steps)
+        maxb=maxb, max_steps=max_steps, trace_scan=trace_scan)
     tau, _ = pe_mod.lane_tau(fin["ie_e"], fin["ie_w"], fin["n_ie"],
                              fin["ie_trail"])
     tr = gcr_mod.gcr_apply_tau(fin, maxb, tau)
@@ -500,11 +551,18 @@ def gcr_fused_scan_plain(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                          tr["incomplete"].to(I32), tr["n_total"]], dim=-1)
     trk_f = torch.stack([tr["t_firstbit"], tr["t_lastbit"],
                          tr["max_agc_gain"], tr["min_agc_gain"]], dim=-1)
-    return dict(bits=tr["bits"].reshape(B, P, T, maxb),
-                hist=tr["hist"].reshape(B, P, T, 50),
-                trk_i=trk_i.reshape(B, P, T, N_GI).to(I32),
-                trk_f=trk_f.reshape(B, P, T, N_TF),
-                lane_i=torch.stack([tau_b, cand_after], dim=-1).to(I32))
+    out = dict(bits=tr["bits"].reshape(B, P, T, maxb),
+               hist=tr["hist"].reshape(B, P, T, 50),
+               trk_i=trk_i.reshape(B, P, T, N_GI).to(I32),
+               trk_f=trk_f.reshape(B, P, T, N_TF),
+               lane_i=torch.stack([tau_b, cand_after], dim=-1).to(I32))
+    if trace_scan:
+        pk = gcr_mod.debug_peaks({k: v.flatten(0, 1)
+                                  for k, v in fin.items()
+                                  if k.startswith("_st_")}, K)
+        out.update(_records(pk, B, P, T, pk["tr_padj"],
+                            pk["tr_nzeros"].to(I32)))
+    return out
 
 
 gcr_fused_scan_plain.calls = 0
@@ -512,15 +570,17 @@ gcr_fused_scan_plain.calls = 0
 
 def gcr_fused_scan(volts, seg_lens, leads, pa: cm.ParmArrays, *, Ws,
                    rise_floor, min_floor, stat_lb: float, stat_bw: float,
-                   spb: float, maxb: int, K: int, max_steps: int):
+                   spb: float, maxb: int, K: int, max_steps: int,
+                   trace_scan: bool = False):
     """Arguments as pe_fused_scan's (track t's candidates live in
-    [lead + t + W - 1, seg_len); K >= max_steps). Returns GcrOut (see
-    module docstring)."""
+    [lead + t + W - 1, seg_len); K >= max_steps; trace_scan replaces the
+    decode's scan by the -trace scan). Returns GcrOut (see module
+    docstring)."""
     out, launched = _idle_scan(
         "gcr_fused_scan", gcr_fused_scan_plain, kernels.gcr_fused, volts,
         seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, stat_lb=stat_lb, stat_bw=stat_bw, spb=spb,
-        maxb=maxb, K=K, max_steps=max_steps)
+        maxb=maxb, K=K, max_steps=max_steps, trace_scan=trace_scan)
     gcr_fused_scan.launches += launched
     return out
 
@@ -574,7 +634,8 @@ def ww_fused_scan_plain(volts, *, W, rise_floor, min_floor, v_avg_height,
                         parms, spb: float, stat_lb: float, stat_bw: float,
                         K: int, maxchars: int, fluxdir: int, roles,
                         maxblocks: int = ww_mod.MAXBLOCKS,
-                        span: int = ww_mod.REBASE_SPAN):
+                        span: int = ww_mod.REBASE_SPAN,
+                        records: bool = False):
     """The plain PyTorch version of the WW kernel (same arguments and
     outputs as ww_fused_scan): jump tables and window features ->
     ww_track_scan -> merge_transitions -> ww_global_scan, as the JAX
@@ -609,7 +670,8 @@ def ww_fused_scan_plain(volts, *, W, rise_floor, min_floor, v_avg_height,
         mg["trk"], mg["t_peak"], mg["s_det"], mg["is_top"], mg["valid"],
         parms.clk_window, parms.clk_alpha, spb, stat_lb, stat_bw,
         T=T, maxchars=maxchars, maxblocks=maxblocks, fluxdir_req=fluxdir,
-        m_frac=mg["t_frac"], span=span, **dict(zip(ww_mod.ROLES, roles)))
+        m_frac=mg["t_frac"], span=span, debug_times=records,
+        **dict(zip(ww_mod.ROLES, roles)))
     blk_i = torch.stack([res["b_start"], res["b_end"], res["b_type"],
                          res["b_t_base"], res["b_missing1"],
                          res["b_missingclk"]], dim=-1)
@@ -618,11 +680,16 @@ def ww_fused_scan_plain(volts, *, W, rise_floor, min_floor, v_avg_height,
     scal = torch.stack([res["datacount"], res["nblocks"], res["flux"],
                         res["num_flux_changes"], res["base"],
                         res["n_events"]])
-    return dict(chars=res["chars"], blk_i=blk_i.to(I32),
-                blk_f=torch.stack([res["b_t_end"], res["b_bitspace"]],
-                                  dim=-1),
-                hist=res["hist"], trk_i=trk_i.to(I32), trk_f=fin["h_sum"],
-                scal=scal.to(I32))
+    out = dict(chars=res["chars"], blk_i=blk_i.to(I32),
+               blk_f=torch.stack([res["b_t_end"], res["b_bitspace"]],
+                                 dim=-1),
+               hist=res["hist"], trk_i=trk_i.to(I32), trk_f=fin["h_sum"],
+               scal=scal.to(I32))
+    if records:
+        out.update(tr_t=torch.where(keep, fin["tr_t"], 0.0),
+                   tr_top=(keep & fin["tr_top"]).to(torch.int8),
+                   char_t=res["char_t"])
+    return out
 
 
 ww_fused_scan_plain.calls = 0
@@ -632,21 +699,22 @@ def ww_fused_scan(volts, *, W, rise_floor, min_floor, v_avg_height, parms,
                   spb: float, stat_lb: float, stat_bw: float, K: int,
                   maxchars: int, fluxdir: int, roles,
                   maxblocks: int = ww_mod.MAXBLOCKS,
-                  span: int = ww_mod.REBASE_SPAN):
+                  span: int = ww_mod.REBASE_SPAN, records: bool = False):
     """volts: [T, S] f32, the whole prepared tape; W: the window width;
     rise_floor/min_floor: [T] loose-candidate floors; v_avg_height: [T]
     nominal pulse heights; parms: the parmset (formats.parms.Parms);
     stat_lb/stat_bw: skew-histogram bins in samples; K: transition buffer
     entries per track; maxchars/maxblocks: character and block record
     capacity; fluxdir: ww.FLUX_*; roles: the track of each of ww.ROLES
-    (-1 = none); span: the rolling base's span. Returns WwOut (see module
-    docstring)."""
+    (-1 = none); span: the rolling base's span; records: the -trace
+    records too. Returns WwOut (see module docstring)."""
     args = dict(W=int(W), rise_floor=rise_floor, min_floor=min_floor,
                 v_avg_height=v_avg_height, parms=parms, spb=float(spb),
                 stat_lb=float(stat_lb), stat_bw=float(stat_bw), K=int(K),
                 maxchars=int(maxchars),
                 fluxdir=int(fluxdir), roles=tuple(int(r) for r in roles),
-                maxblocks=int(maxblocks), span=int(span))
+                maxblocks=int(maxblocks), span=int(span),
+                records=bool(records))
     if volts.device.type == "cpu":
         return ww_fused_scan_plain(volts, **args)
     if volts.device.type != "cuda":

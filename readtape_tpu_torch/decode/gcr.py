@@ -51,6 +51,10 @@ _PEAK = float(np.float32(ZEROCROSS_PEAK))
 # per-step records gcr_track_scan streams out (step axis last; "wr" has a
 # trailing axis of the step's 3 write indices)
 STREAMS = ("adm", "s_det", "wr", "hb", "t_fb", "t_lb", "agc_mx", "agc_mn")
+# and with debug=True the -trace records (the JAX package's debug_peaks):
+# the peak time, top or bottom, the zeros inferred before it, the pulse
+# adjustment after it
+DEBUG_STREAMS = ("t_pk", "top", "nzeros", "padj")
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +178,7 @@ def gcr_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                    rise_parm, min_parm, agc_alpha, agc_window, clk_window,
                    clk_alpha, z1pt, z2pt, pulse_adj_parm, spb: float,
                    maxb: int, stat_lb: float, stat_bw: float, s_first_check,
-                   clk_ring: int, agc_ring: int):
+                   clk_ring: int, agc_ring: int, debug: bool = False):
     """GCR admission scan for N (segment x parmset x track) lanes at once:
     admission with the NRZI AGC policy, then the bit machine. Inputs as
     pe.pe_track_scan's (feat [M, S, 10] with lane rows src, masked jump
@@ -187,7 +191,12 @@ def gcr_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
     Returns the final state with the per-step records (STREAMS, [N,
     steps], "wr" [N, steps, 3]) and the idle intervals: ie_e/ie_w [N,
     IDLE_CAP] (entry sample, waking detection), n_ie, and the trailing
-    entry ie_trail (BIG_TAU unless the track still holds an open block)."""
+    entry ie_trail (BIG_TAU unless the track still holds an open block).
+
+    debug=True is the JAX package's -trace scan (gcr_track_scan without
+    idle tracking, debug_peaks=True): datablock never drops (the
+    intervals are still recorded), and the DEBUG_STREAMS stream out too
+    (debug_peaks compacts them)."""
     N = src.shape[0]
     dev = feat.device
     lb = torch.tensor(stat_lb, dtype=F32, device=dev)
@@ -218,7 +227,8 @@ def gcr_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                                       st["clkavg"]["t_bitspaceavg"],
                                       st["s_lastdet"])
         went_idle = admit & st["datablock"] & (entry <= s32 - 1)
-        st3["datablock"] = st["datablock"] & ~went_idle
+        if not debug:
+            st3["datablock"] = st["datablock"] & ~went_idle
         st3["s_lastdet"] = torch.where(admit, s32, st["s_lastdet"])
         st3["had_data"] = st["had_data"] | admit
         st4, wr = gcr_bit_step(st3, admit, t_peak, z1pt, z2pt,
@@ -228,6 +238,10 @@ def gcr_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                    t_fb=st4["t_firstbit"], t_lb=st4["t_lastbit"],
                    agc_mx=st4["max_agc_gain"], agc_mn=st4["min_agc_gain"],
                    ie_valid=went_idle, ie_e=entry)
+        if debug:
+            rec.update(t_pk=t_peak, top=admit_top, padj=st4["t_pulse_adj"],
+                       nzeros=(st4["datacount"] - st["datacount"] - 1)
+                       .to(torch.int8))
         return st4, rec
 
     def ev_fn(st, s):
@@ -251,10 +265,24 @@ def gcr_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                                   final["s_lastdet"])
     # a dead or never-written track never goes idle (decoder.c:879)
     final["ie_trail"] = torch.where(final["datablock"], trail, BIG_TAU)
-    for k in STREAMS:
+    for k in STREAMS + (DEBUG_STREAMS if debug else ()):
         final["_st_" + k] = outs[k]
     final["_st_wr"] = outs["wr"].transpose(-1, -2)
     return final
+
+
+def debug_peaks(fin, cap: int):
+    """gcr_track_scan(debug=True)'s admitted peaks compacted to cap entries
+    per lane (compact_outputs' overflow rule), as the JAX package's
+    gcr_track_scan(debug_peaks=True) returns them: tr_s, tr_t, tr_top,
+    tr_nzeros, tr_padj and the uncapped n_admitted."""
+    adm = fin["_st_adm"]
+    out = trackscan.compact_outputs(
+        adm, cap, tr_s=(fin["_st_s_det"], trackscan.BIG_S),
+        tr_t=(fin["_st_t_pk"], 0.0), tr_top=(fin["_st_top"], False),
+        tr_nzeros=(fin["_st_nzeros"], 0), tr_padj=(fin["_st_padj"], 0.0))
+    out["n_admitted"] = adm.sum(dim=-1).to(I32)
+    return out
 
 
 def gcr_apply_tau(fin, maxb: int, tau):

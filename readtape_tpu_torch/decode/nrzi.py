@@ -148,7 +148,7 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
                    stat_leftbin: float, stat_binwidth: float,
                    clk_ring: int = cm.CLKRATE_WINDOW,
                    clk_avg_fma: bool = False, correct_debug: bool = False,
-                   adj_init=None):
+                   adj_init=None, debug: bool = False):
     """N lanes at once. trans_*: [N, T, K] admitted transitions per track
     (s_det ascending; entries past each lane's count hold BIG_S / 0.0 /
     1.0); counts [N, T]; the clock knobs are [N]. Runs at most max_slots
@@ -159,8 +159,14 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
     accumulators (decoder.c:169-173), per track the incremental mean of
     (peak time - bit spacing) over the recorded in-range peaks, seeded
     with the running values; they come back as adj_n / adj_mean, with the
-    clock's final t_bitspaceavg [N]. Returns the per-track bit buffers
-    [N, T, maxb] int8 and the block-result fields."""
+    clock's final t_bitspaceavg [N]. debug (with -correct off): the -trace
+    records, dbg_zc and dbg_avgpos [N, max_slots] f32 (each live slot's
+    boundary min(s_z, S), its adjusted clock position where it had
+    transitions, else 0; 0 past nslots) and dbg_col_slot [N, T, maxb]
+    int32, the slot of the last write to each column (-1: none): the JAX
+    package's debug=True fields, dbg_live being slot < nslots. Returns
+    the per-track bit buffers [N, T, maxb] int8 and the block-result
+    fields."""
     N, T, K = trans_s.shape
     dev = trans_s.device
     ar = torch.arange(N, device=dev)
@@ -203,11 +209,19 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
         adj_n = adj_init[0].to(F32).clone()
         adj_mean = adj_init[1].to(F32).clone()
 
+    if debug:
+        assert not (do_correct or correct_debug), "-trace runs -correct off"
+        dbg_zc = torch.zeros((N, max_slots), dtype=F32, device=dev)
+        dbg_avgpos = torch.zeros((N, max_slots), dtype=F32, device=dev)
+        col_slot = torch.full((N, T, maxb + 1), -1, dtype=I32, device=dev)
+
     def at(buf, k):
         return buf.gather(2, k.unsqueeze(-1)).squeeze(-1)
 
     def write(idx, val):
         bits.scatter_(2, idx.unsqueeze(-1), val)
+        if debug:
+            col_slot.scatter_(2, idx.unsqueeze(-1), k_slot)
 
     for k_slot in range(max_slots):
         if k_slot % CHECK_EVERY == 0 and bool(done.all()):
@@ -381,6 +395,10 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
             faked = faked | torch.where(
                 do_fix, (1 << (T - 1 - badtrk)).to(I32), 0)
 
+        if debug:
+            dbg_zc[:, k_slot] = torch.where(
+                live, torch.clamp_max(s_z, S).to(F32), 0.0)
+            dbg_avgpos[:, k_slot] = torch.where(live & have, adjusted, 0.0)
         ended = post2 >= 8
         end_s = torch.where(live & ended,
                             torch.clamp_max(s_z, S).to(I32), end_s)
@@ -396,6 +414,9 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
     if adj:
         out.update(adj_n=adj_n, adj_mean=adj_mean,
                    t_bitspaceavg=clk["t_bitspaceavg"])
+    if debug:
+        out.update(dbg_zc=dbg_zc, dbg_avgpos=dbg_avgpos,
+                   dbg_col_slot=col_slot[:, :, :maxb])
     return out
 
 

@@ -34,6 +34,9 @@ BIG_TAU = 2 ** 30
 # per-step records pe_track_scan streams out (step axis last)
 STREAMS = ("adm", "s_det", "widx", "bitval", "run_start", "run_len",
            "run_bit", "run_valid", "hb", "t_fb", "t_lb", "agc_mx", "agc_mn")
+# and with debug=True the -trace records (the JAX package's debug_peaks):
+# the peak time, top or bottom, data or clock, the clock window after it
+DEBUG_STREAMS = ("t_pk", "top", "isdata", "clkw")
 
 
 def idle_entry_sample(t_lp, thr, s_floor):
@@ -53,7 +56,8 @@ def pe_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                   rise_parm, min_parm, agc_alpha, agc_window, clk_window,
                   clk_alpha, clk_factor, pulse_adj_parm, spb: float,
                   maxb: int, stat_lb: float, stat_bw: float, t_lp_virtual,
-                  s_first_check, clk_ring: int, agc_ring: int):
+                  s_first_check, clk_ring: int, agc_ring: int,
+                  debug: bool = False):
     """PE admission scan for N (segment x parmset x track) lanes at once,
     over precomputed window features: feat [M, S, 10] with lane rows src
     [N], masked jump tables nxt [M2, S+1] with lane rows nsrc [N]; W, the
@@ -61,7 +65,10 @@ def pe_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
     s_first_check are [N]. Returns the final state with the per-step
     records (STREAMS, each [N, steps]) and the track's idle intervals:
     ie_e/ie_w [N, IDLE_CAP] (entry sample, waking detection), n_ie and
-    the trailing entry ie_trail after the last admission."""
+    the trailing entry ie_trail after the last admission. debug: the JAX
+    package's -trace scan, whose exponential clock XLA contracts as
+    fma(1 - a, avg, a * delta), with the DEBUG_STREAMS too (debug_peaks
+    compacts them)."""
     N = src.shape[0]
     dev = feat.device
     spb32 = torch.tensor(float(np.float32(spb)), dtype=F32, device=dev)
@@ -95,6 +102,7 @@ def pe_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
         bit1_up = st["bit1_up"]
         clknext = st["clknext"]
         numfake, run_valid, widx, stat_hb = zero_i, no_b, no_w, no_hb
+        is_data = no_b
 
         # preamble (decode_pe.c:127-155)
         if bool(in_pre.any()):
@@ -155,9 +163,12 @@ def pe_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                 # pe_addbit (decode_pe.c:104-125)
                 t_lb_seed = torch.where(t_lastbit == 0.0, t_peak - spb32,
                                         t_lastbit)
+                # XLA's CPU build contracts the -trace scan's exponential
+                # clock the other way (common.adjust_clock's avg_fma)
                 clk_new = cm.adjust_clock(clk, t_peak - t_lb_seed,
                                           clk_window, clk_alpha, spb,
-                                          win=clk_win, exp=clk_exp)
+                                          win=clk_win, exp=clk_exp,
+                                          avg_fma=debug)
                 clk = {k: trackscan._sel(is_data, clk_new[k], clk[k])
                        for k in clk}
                 out["clkavg"] = clk
@@ -205,6 +216,9 @@ def pe_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
                    t_fb=out["t_firstbit"], t_lb=out["t_lastbit"],
                    agc_mx=out["max_agc_gain"], agc_mn=out["min_agc_gain"],
                    ie_valid=admit & (entry <= s32 - 1), ie_e=entry)
+        if debug:
+            rec.update(t_pk=t_peak, top=admit_top, isdata=is_data,
+                       clkw=out["t_clkwindow"])
         return out, rec
 
     def ev_fn(st, s):
@@ -235,9 +249,25 @@ def pe_track_scan(feat, src, nxt, nsrc, W, S: int, max_steps: int,
     final["ie_trail"] = idle_entry_sample(
         final["t_lastpeak"], final["clkavg"]["t_bitspaceavg"] * idle_f,
         final["s_lastdet"])
-    for k in STREAMS:
+    for k in STREAMS + (DEBUG_STREAMS if debug else ()):
         final["_st_" + k] = outs[k]
     return final
+
+
+def debug_peaks(fin, cap: int):
+    """pe_track_scan(debug=True)'s admitted peaks compacted to cap entries
+    per lane (compact_outputs' overflow rule), as the JAX package's
+    pe_track_scan(debug_peaks=True) returns them: tr_s, tr_t, tr_top,
+    tr_isdata, tr_clkw, tr_bitval and the uncapped n_admitted."""
+    adm = fin["_st_adm"]
+    out = trackscan.compact_outputs(
+        adm, cap, tr_s=(fin["_st_s_det"], trackscan.BIG_S),
+        tr_t=(fin["_st_t_pk"], 0.0), tr_top=(fin["_st_top"], False),
+        tr_isdata=(fin["_st_isdata"], False),
+        tr_clkw=(fin["_st_clkw"], 0.0),
+        tr_bitval=(fin["_st_bitval"], 0))
+    out["n_admitted"] = adm.sum(dim=-1).to(I32)
+    return out
 
 
 def pe_idle_tau(e, w, valid):

@@ -35,6 +35,11 @@ B6's skew-deviation accumulators from try to try and nudging the skew
 after every data block; -correctdbg decodes every segment with all
 parmsets, B6 running the DEBUG build's -correct.
 
+-trace's debug spreadsheet takes its event lanes from
+``TapeDecoder.trace_lanes`` (NRZI, PE, GCR) and ``ww_trace_lanes``: one
+window, parmset 0, the kernels in their record modes (B5b then B6, B2,
+B3, B4), as the JAX package's functions of those names compute them.
+
 A tape of unknown density (bpi <= 0; NRZI and PE, as the JAX command line
 detects it) first goes through ``TapeDecoder.detect_density``. With a
 ``log``, GCR's -parmscan grid (``gcr_parmscan``) runs over the leading
@@ -569,6 +574,16 @@ def _resident_tape(samples: np.ndarray, maxvolts: float, device, step: int):
     return tape, h_est, act
 
 
+def _capped(n, cap: int, rows):
+    """Per-track admission records rows [T, K] (numpy, the first n[t] of
+    each row valid, K >= n) as compact_outputs leaves them in cap entries:
+    the first cap - 1 and, past cap, the last one. Returns a list of T
+    arrays."""
+    return [r[:n_] if n_ <= cap else np.concatenate([r[:cap - 1],
+                                                      r[n_ - 1:n_]])
+            for r, n_ in zip(rows, n)]
+
+
 class TapeDecoder:
     """Holds the device-resident tape and runs decode passes over it.
 
@@ -755,6 +770,169 @@ class TapeDecoder:
         adj_init, correctdbg)."""
         return _fetch(self.dispatch_segment_batch(spans, bucket, nparms,
                                                   **kw))
+
+    # ---- debug trace (trace.c equivalent; runtime option) ----
+    def trace_lanes(self, a: int, b: int):
+        """Decode samples [a, b) with parmset 0 and return (volts [b-a, T]
+        numpy, lanes dict) for the <base>.trace.csv debug spreadsheet --
+        the reference's event lanes (trace.c:46-92), mode-filtered: the
+        JAX package's TapeDecoder.trace_lanes, with its own arguments (one
+        window of S = bucket_length(b - a), the loose jump table, step
+        budget max(512, S // 4)). Its scans are the kernels' record modes
+        on the card (B2 for PE, B3 for GCR, B5b then B6 for NRZI), their
+        plain versions on the CPU."""
+        opts = self.opts
+        T, dev = opts.ntrks, self.device
+        S = seg.bucket_length(b - a)
+        v = self._tape_padded(b)[:, a:b]
+        v = torch.nn.functional.pad(v, (0, S - v.shape[1]))
+        vf = _prep_volts(v, opts.maxvolts, -1.0 if opts.invert else 1.0,
+                         torch.as_tensor(self.skew, dtype=I32, device=dev),
+                         differentiate=opts.differentiate,
+                         spb_int=int(opts.spb)).contiguous()
+        p0 = opts.parmsets[0]
+        pa0 = self.pa.select([0])
+        W = cm.pkww_width_for(p0.pkww_bitfrac, opts.bpi, opts.ips,
+                              opts.deltat)
+        scale = min(1.0, self.h_est / cm.PKWW_PEAKHEIGHT)
+        rise_floor = torch.full((T,), p0.pkww_rise * scale / 2 * 0.8,
+                                dtype=F32, device=dev)
+        min_floor = torch.full((T,), p0.min_peak * scale / 2 * 0.8,
+                               dtype=F32, device=dev)
+        spb = opts.spb
+        steps = fused_mod.scan_step_budget(max(512, S // 4))
+        Kd = max(512, S // 6)
+        maxb = int(S / spb * 1.3) + 64
+        lb, bw = _peakstat_bins(opts.mode, 1.0 / (opts.bpi * opts.ips))
+        stat = dict(stat_lb=float(np.float32(lb / opts.deltat)),
+                    stat_bw=float(np.float32(bw / opts.deltat)))
+        t0 = opts.t0_seconds + a * opts.deltat
+        dt = opts.deltat
+
+        def tsec(x):
+            return t0 + float(x) * dt
+
+        def peak_lane(n, tr_t, tr_top):
+            return [[(tsec(x), bool(u)) for x, u in zip(tr_t[trk][:n[trk]],
+                                                        tr_top[trk][:n[trk]])]
+                    for trk in range(T)]
+
+        lanes = {}
+        if opts.mode in (tb.MODE_PE, tb.MODE_GCR):
+            scan = (fused_mod.pe_fused_scan if opts.mode == tb.MODE_PE
+                    else fused_mod.gcr_fused_scan)
+            out = scan(vf[None], torch.full((1,), S, dtype=I32, device=dev),
+                       torch.zeros(1, dtype=I32, device=dev), pa0, Ws=(W,),
+                       rise_floor=rise_floor, min_floor=min_floor, spb=spb,
+                       maxb=maxb, K=steps, max_steps=steps, trace_scan=True,
+                       **stat)
+            n = out["rec_n"][0, 0].cpu().numpy()
+            rf = out["rec_f"][0, 0].cpu().numpy()
+            ri = out["rec_i"][0, 0].cpu().numpy()
+            # the JAX scan's records compacted to maxb entries per track
+            tt, x2, top, i2 = (_capped(n, maxb, c) for c in (
+                rf[..., 0], rf[..., 1], ri[..., 0] != 0, ri[..., 1]))
+            peaks = peak_lane(n, tt, top)
+        if opts.mode == tb.MODE_PE:
+            clkedg, datedg, clkwin, clkdet, data = [], [], [], [], []
+            for trk in range(T):
+                isd = i2[trk] & 1
+                bv = (i2[trk] >> 1).astype(np.int8)
+                datedg.append([(tsec(x), 1) for x, d in zip(tt[trk], isd)
+                               if d])
+                clkedg.append([(tsec(x), 1) for x, d in zip(tt[trk], isd)
+                               if not d])
+                cw = []
+                for x, d, w in zip(tt[trk], isd, x2[trk]):
+                    if d:
+                        cw.append((tsec(x), 1))
+                        cw.append((tsec(x + w), 0))
+                clkwin.append(cw)
+                clkdet.append([(tsec(tt[trk][0]), 1), (tsec(tt[trk][-1]), 0)]
+                              if n[trk] else [])
+                data.append([(tsec(x), int(bb))
+                             for x, d, bb in zip(tt[trk], isd, bv) if d])
+            lanes = dict(peak=peaks, clkedg=clkedg, datedg=datedg,
+                         clkwin=clkwin, clkdet=clkdet, data=data)
+        elif opts.mode == tb.MODE_GCR:
+            zerpos, adjpos, data = [], [], []
+            for trk in range(T):
+                t_, nz = tt[trk], i2[trk].astype(np.int8)
+                zp, dd = [], []
+                for i in range(1, len(t_)):
+                    k = int(nz[i])
+                    for z in range(max(k, 0)):
+                        tz = t_[i - 1] + (t_[i] - t_[i - 1]) * \
+                            (z + 1) / (k + 1)
+                        zp.append((tsec(tz), 1))
+                        dd.append((tsec(tz), 0))
+                    dd.append((tsec(t_[i]), 1))
+                zerpos.append(zp)
+                data.append(dd)
+                adjpos.append([(tsec(x), 1) for x, adj in zip(t_, x2[trk])
+                               if abs(adj) > 1e-6])
+            lanes = dict(peak=peaks, zerpos=zerpos, adjpos=adjpos,
+                         data=data)
+        elif opts.mode == tb.MODE_NRZI:
+            # per-track admission (B5b), then the slot machine (B6) with
+            # its per-slot and per-column records, -correct off
+            nxt = trackscan.loose_jump_table(vf, W, rise_floor, min_floor)
+            fin = scan_mod.nrzi_track_scan_tracks(
+                scan_mod.window_features(vf[None], (W,)), nxt[None], pa0,
+                Ws=(W,), K=Kd, max_steps=steps)
+            n = fin["n_admitted"][0, 0].cpu().numpy()
+            lanes["peak"] = peak_lane(n, fin["tr_t"][0, 0].cpu().numpy(),
+                                      fin["tr_top"][0, 0].cpu().numpy())
+            # XLA's CPU build contracts the JAX trace's one-lane clock as
+            # fma(1 - a, avg, a * delta) (decode/slot.py)
+            out = slot_mod.nrzi_slot_scan(
+                fin, pa0, S=S, spb=spb, expected_parity=opts.expected_parity,
+                do_correct=False, maxb=maxb,
+                max_slots=int(S / spb * 1.25) + 48, clk_avg_fma=True,
+                records=True, **stat)
+            bits = out["bits"][0, 0].cpu().numpy()
+            dcs = out["trk_i"][0, 0, :, slot_mod.TI_DC].cpu().numpy()
+            nslot = int(out["lane_i"][0, 0, slot_mod.LI_NSLOT])
+            slot_f = out["slot_f"][0, 0].cpu().numpy()
+            col_slot = out["col_slot"][0, 0].cpu().numpy()      # [T, maxb]
+            zc = slot_f[:nslot, slot_mod.SL_ZC]
+            ap = slot_f[:nslot, slot_mod.SL_AVGPOS]
+            lanes["zerchk"] = [(tsec(x), 1) for x in zc]
+            lanes["avgpos"] = [(tsec(x), 1) for x in ap if x > 0]
+            # data lane + parity errors per completed column
+            frames = np.zeros(maxb, np.int64)
+            for trk in range(T):
+                frames |= bits[trk].astype(np.int64) << (T - 1 - trk)
+            slot_t = np.zeros(slot_f.shape[0] + 1)
+            slot_t[:slot_f.shape[0]] = slot_f[:, slot_mod.SL_ZC]
+            data = []
+            for trk in range(T):
+                dd = []
+                for c in range(int(dcs[trk])):
+                    sl = col_slot[trk, c]
+                    if sl >= 0:
+                        dd.append((tsec(slot_t[sl]), int(bits[trk][c])))
+                data.append(dd)
+            lanes["data"] = data
+            par = np.zeros(maxb, np.int64)
+            x = frames.copy()
+            while x.any():
+                par ^= x & 1
+                x >>= 1
+            perr = []
+            for c in range(int(dcs.min())):
+                if par[c] != opts.expected_parity:
+                    sl = col_slot[:, c].max()
+                    if sl >= 0:
+                        perr.append((tsec(slot_t[sl]), 1))
+            lanes["parerr"] = perr
+        volts = vf.T[:b - a].cpu().numpy()
+        return volts, lanes
+
+    def trace_window(self, a: int, b: int):
+        """(volts, peak lanes) of trace_lanes."""
+        volts, lanes = self.trace_lanes(a, b)
+        return volts, lanes.get("peak")
 
     # ---- deskew calibration (decoder.c:243-281) ----
     def calibrate_deskew(self, segments, max_blocks=100, min_transitions=1000):
@@ -1471,6 +1649,77 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
 # ---------------------------------------------------------------------------
 # Whirlwind
 # ---------------------------------------------------------------------------
+
+def ww_trace_lanes(samples, opts: DecodeOptions, a: int, b: int, *,
+                   device="cuda"):
+    """Whirlwind -trace extraction: per-track peak events plus the track-0
+    data lane (TRACE(data, clkendtime, UPTICK*(1 + 2 bits)),
+    decode_ww.c:90), for samples [a, b) with parmset 0. Returns (volts
+    [b-a, T] numpy, lanes) like TapeDecoder.trace_lanes: the JAX package's
+    ww_trace_lanes, with the height estimate of the window alone, over B4
+    in its record mode on the card (its plain version on the CPU). Like
+    the decode, the admission runs to the window's end: the JAX function
+    stops each track after int(S / spb * 3.2) + 64 steps."""
+    type_to_trk, head_to_trk, ntrks = ww_mod.parse_ww_order(opts.ww_order)
+    used = [h for h, t in enumerate(head_to_trk) if t >= 0]
+    samples = samples[:, used]
+    perm = [head_to_trk[h] for h in used]
+    cols = np.zeros(ntrks, np.int64)
+    for pos, trkn in enumerate(perm):
+        cols[trkn] = pos
+    samples = np.ascontiguousarray(samples[a:b][:, cols])
+    dev = _device(device, samples)
+    T = ntrks
+    S = seg.bucket_length(b - a)
+    v = torch.from_numpy(samples).to(dev).T.contiguous()        # [T, b-a]
+    h_est, _ = seg.device_activity(v.to(F32), opts.maxvolts, 1)
+    v = torch.nn.functional.pad(v, (0, S - v.shape[1]))
+    skew = np.zeros(T, np.int32)
+    if opts.skew is not None:
+        skew[:len(opts.skew)] = opts.skew
+    spb = opts.spb
+    p0 = opts.parmsets[0]
+    vf = _prep_volts(v, opts.maxvolts, -1.0 if opts.invert else 1.0,
+                     torch.as_tensor(skew, dtype=I32, device=dev),
+                     differentiate=opts.differentiate,
+                     spb_int=int(spb)).contiguous()
+    scale = min(1.0, h_est / cm.PKWW_PEAKHEIGHT)
+    lb, bw = _peakstat_bins(opts.mode, 1.0 / (opts.bpi * opts.ips))
+    out = fused_mod.ww_fused_scan(
+        vf, W=cm.pkww_width_for(p0.pkww_bitfrac, opts.bpi, opts.ips,
+                                opts.deltat),
+        rise_floor=torch.full((T,), p0.pkww_rise * scale / cm.AGC_MAX_VALUE
+                              * 0.8, dtype=F32, device=dev),
+        min_floor=torch.full((T,), p0.min_peak * scale / cm.AGC_MAX_VALUE
+                             * 0.8, dtype=F32, device=dev),
+        v_avg_height=torch.full((T,), cm.PKWW_PEAKHEIGHT, dtype=F32,
+                                device=dev),
+        parms=p0, spb=spb, stat_lb=float(np.float32(lb / opts.deltat)),
+        stat_bw=float(np.float32(bw / opts.deltat)),
+        K=int(S / spb * 2.5) + 64, maxchars=int(S / spb) + 256,
+        fluxdir=ww_mod.FLUX_DIRS[opts.fluxdir],
+        roles=[type_to_trk[k] for k in range(len(ww_mod.ROLES))],
+        maxblocks=4096, records=True)
+    t0 = opts.t0_seconds + a * opts.deltat
+    dt = opts.deltat
+
+    def tsec(x):
+        return t0 + float(x) * dt
+
+    n = out["trk_i"][:, fused_mod.WT_NADM].cpu().numpy()
+    tr_t = out["tr_t"].cpu().numpy()
+    tr_top = out["tr_top"].cpu().numpy()
+    peaks = [[(tsec(x), bool(u)) for x, u in zip(tr_t[trk][:n[trk]],
+                                                 tr_top[trk][:n[trk]])]
+             for trk in range(T)]
+    nchars = int(out["scal"][fused_mod.WS_DATACOUNT])
+    chars = out["chars"].cpu().numpy()
+    char_t = out["char_t"].cpu().numpy()
+    data = [[] for _ in range(T)]
+    data[0] = [(tsec(char_t[i]), int(chars[i])) for i in range(nchars)]
+    volts = vf.T[:b - a].cpu().numpy()
+    return volts, dict(peak=peaks, data=data)
+
 
 def _decode_tape_ww(samples, opts: DecodeOptions, device: torch.device):
     """Whirlwind: the whole tape decodes in one pass (blocks can abut;

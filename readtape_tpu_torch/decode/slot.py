@@ -31,6 +31,11 @@ FusedOut, for B segments x P parmsets:
 and with adj_init=(n0, mean0), each f32 [B, P, T], the seeds:
   adj   f32   [B, P, T, 2]   ADJ_N, ADJ_MEAN: the accumulators at the end
   bitspace f32 [B, P]        the clock's t_bitspaceavg at the end
+and with records=True (-correct off), the -trace records:
+  slot_f   f32   [B, P, max_slots, 2]  SL_ZC, SL_AVGPOS per live slot
+                                       (lane_i's LI_NSLOT of them), 0 after
+  col_slot int32 [B, P, T, maxb]       the slot of the last write to each
+                                       column, -1 if none
 """
 
 from __future__ import annotations
@@ -49,16 +54,17 @@ N_TF = 4
 (LI_MISSMID, LI_CORR, LI_FAKED, LI_CONSOVF, LI_ENDS, LI_NSLOT) = range(6)
 N_LI = 6
 (ADJ_N, ADJ_MEAN) = range(2)
+(SL_ZC, SL_AVGPOS) = range(2)
 
 
 def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                expected_parity: int, do_correct: bool, maxb: int,
                max_slots: int, stat_lb: float, stat_bw: float,
                clk_avg_fma: bool = False, correct_debug: bool = False,
-               adj_init=None):
+               adj_init=None, records: bool = False):
     """nrzi.nrzi_slot_scan over every (b, p) lane of the admission
     outputs fin ([B, P, T, K] buffers, [B, P, T] counts and per-track
-    fields); returns FusedOut."""
+    fields); returns FusedOut (with records, its -trace records)."""
     B, P, T, K = fin["tr_s"].shape
     dev = fin["tr_s"].device
 
@@ -76,7 +82,8 @@ def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
         clk_ring=max(int(pa.clk_window.max()), 1), clk_avg_fma=clk_avg_fma,
         correct_debug=correct_debug,
         adj_init=None if adj_init is None else tuple(lanes(x)
-                                                     for x in adj_init))
+                                                     for x in adj_init),
+        debug=records)
     trk_i = torch.stack([st["dc"], st["kvis"], lanes(fin["n_admitted"]),
                          st["trksums"], lanes(fin["incomplete"]).to(I32)],
                         dim=-1)
@@ -96,10 +103,15 @@ def slot_lanes(fin, pa: cm.ParmArrays, *, S: int, spb: float,
         out["adj"] = torch.stack([st["adj_n"], st["adj_mean"]],
                                  dim=-1).reshape(B, P, T, 2)
         out["bitspace"] = st["t_bitspaceavg"].reshape(B, P)
+    if records:
+        out["slot_f"] = torch.stack([st["dbg_zc"], st["dbg_avgpos"]],
+                                    dim=-1).reshape(B, P, max_slots, 2)
+        out["col_slot"] = st["dbg_col_slot"].reshape(B, P, T, maxb)
     return out
 
 
-def _check(fin, pa, S, maxb, max_slots, adj_init=None):
+def _check(fin, pa, S, maxb, max_slots, adj_init=None, records=False,
+           correct=False):
     B, P, T, K = fin["tr_s"].shape
     for k, dt in (("tr_s", I32), ("tr_t", F32), ("tr_agc", F32)):
         if fin[k].shape != (B, P, T, K) or fin[k].dtype != dt:
@@ -115,6 +127,8 @@ def _check(fin, pa, S, maxb, max_slots, adj_init=None):
             len(adj_init) != 2 or any(x.shape != (B, P, T) or x.dtype != F32
                                       for x in adj_init)):
         raise ValueError("adj_init must be two float32 [B, P, T] seeds")
+    if records and correct:
+        raise ValueError("the -trace records run with -correct off")
 
 
 @torch.inference_mode()
@@ -123,7 +137,8 @@ def nrzi_slot_scan_plain(fin, pa: cm.ParmArrays, **kw):
     nrzi_slot_scan)."""
     nrzi_slot_scan_plain.calls += 1
     _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"],
-           kw.get("adj_init"))
+           kw.get("adj_init"), kw.get("records", False),
+           kw.get("do_correct") or kw.get("correct_debug"))
     return slot_lanes(fin, pa, **kw)
 
 
@@ -134,25 +149,28 @@ def nrzi_slot_scan(fin, pa: cm.ParmArrays, *, S: int, spb: float,
                    expected_parity: int, do_correct: bool, maxb: int,
                    max_slots: int, stat_lb: float, stat_bw: float,
                    clk_avg_fma: bool = False, correct_debug: bool = False,
-                   adj_init=None):
+                   adj_init=None, records: bool = False):
     """fin: decode/scan.py's outputs for B segments x P parmsets; pa: the
     P parmsets; S: the segments' bucket; spb: samples per bit; maxb: bit
     buffer length; max_slots: slot cap per lane; stat_lb/stat_bw:
     peak-statistics bins in samples; clk_avg_fma: the clock's other
     contraction (module docstring); correct_debug: the DEBUG build's
     -correct instead of do_correct's; adj_init: the -adjskew seeds (n0,
-    mean0), f32 [B, P, T] each. Returns FusedOut."""
+    mean0), f32 [B, P, T] each; records: the -trace records too (module
+    docstring; -correct off). Returns FusedOut."""
     kw = dict(S=int(S), spb=float(spb), expected_parity=int(expected_parity),
               do_correct=bool(do_correct), maxb=int(maxb),
               max_slots=int(max_slots), stat_lb=float(stat_lb),
               stat_bw=float(stat_bw), clk_avg_fma=bool(clk_avg_fma),
-              correct_debug=bool(correct_debug), adj_init=adj_init)
+              correct_debug=bool(correct_debug), adj_init=adj_init,
+              records=bool(records))
     dev = fin["tr_s"].device
     if dev.type == "cpu":
         return nrzi_slot_scan_plain(fin, pa, **kw)
     if dev.type != "cuda":
         raise ValueError(f"nrzi_slot_scan: no kernel for {dev}")
-    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"], adj_init)
+    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"], adj_init,
+           kw["records"], kw["do_correct"] or kw["correct_debug"])
     if int(pa.clk_window.max()) > kernels.NRZI_MAX_CLK_RING:
         raise ValueError("clk_window beyond the kernel's ring")
     out = kernels.nrzi_slot(fin, pa, **kw)

@@ -154,7 +154,7 @@ class _Machine:
     may back several fields; integers and flags are host values."""
 
     def __init__(self, T, spb32, clk_window, clk_alpha, maxblocks,
-                 maxchars):
+                 maxchars, debug_times=False):
         self.T, self.spb, self.cw, self.ca = T, spb32, clk_window, clk_alpha
         self.maxblocks, self.maxchars = maxblocks, maxchars
         zero = torch.zeros((), dtype=F32, device=spb32.device)
@@ -172,6 +172,8 @@ class _Machine:
         self.miss1 = self.missclk = 0
         self.base = 0
         self.chars = np.zeros(maxchars, np.int8)
+        # each data character's clock-end time (-trace), or None
+        self.char_t = [zero] * maxchars if debug_times else None
         self.blk = {k: [0] * maxblocks for k in (
             "b_start", "b_end", "b_type", "b_t_base", "b_missing1",
             "b_missingclk")}
@@ -253,6 +255,8 @@ class _Machine:
         lsb = int(r_pl == 1 or r_al == 1)
         miss = int((r_pm | r_am) == 3) + int((r_pl | r_al) == 3)
         self.chars[min(self.datacount, self.maxchars - 1)] = (msb << 1) | lsb
+        if self.char_t is not None:
+            self.char_t[min(self.datacount, self.maxchars - 1)] = clkend
         self.datacount = min(self.datacount + 1, self.maxchars)
         self.miss1 += miss
 
@@ -262,7 +266,8 @@ def ww_global_scan(m_trk, m_t, m_s, m_is_top, m_valid, clk_window, clk_alpha,
                    spb, stat_leftbin=0.0, stat_binwidth=1.0, *, pri_clk,
                    pri_lsb, pri_msb, alt_clk, alt_lsb, alt_msb, T: int,
                    maxchars: int, maxblocks: int, fluxdir_req: int,
-                   m_frac=None, span: int = REBASE_SPAN):
+                   m_frac=None, span: int = REBASE_SPAN,
+                   debug_times: bool = False):
     """The merged-stream state machine (decode_ww.c:51-271) and its
     trailing flush, over the merged events ([M] tensors on one device).
 
@@ -273,7 +278,9 @@ def ww_global_scan(m_trk, m_t, m_s, m_is_top, m_valid, clk_window, clk_alpha,
     The [maxblocks] and [maxchars] writes clamp to the last index once
     full. Returns the final state: chars, datacount, nblocks, the b_*
     block records, hist [T, 50], trksums [T], flux, num_flux_changes and
-    base, as tensors on the events' device."""
+    base, as tensors on the events' device; with debug_times also char_t
+    [maxchars] f32, each data character's clock-end time in the carried
+    (relative) time base (the -trace data lane, decode_ww.c:90)."""
     dev = m_t.device
     roles = dict(pri_clk=pri_clk, pri_lsb=pri_lsb, pri_msb=pri_msb,
                  alt_clk=alt_clk, alt_lsb=alt_lsb, alt_msb=alt_msb)
@@ -284,7 +291,7 @@ def ww_global_scan(m_trk, m_t, m_s, m_is_top, m_valid, clk_window, clk_alpha,
         return torch.tensor(float(np.float32(x)), dtype=F32, device=dev)
     spb32, lb, bw = f32(spb), f32(stat_leftbin), f32(stat_binwidth)
     m = _Machine(T, spb32, int(clk_window), f32(clk_alpha), maxblocks,
-                 maxchars)
+                 maxchars, debug_times)
     m.flux = FLUX_NEG if fluxdir_req == FLUX_AUTO else fluxdir_req
     m.flux_set, m.nflux = False, 0
 
@@ -405,6 +412,8 @@ def ww_global_scan(m_trk, m_t, m_s, m_is_top, m_valid, clk_window, clk_alpha,
                hist=i32(m.hist), trksums=i32(m.trksums), flux=i32(m.flux),
                num_flux_changes=i32(m.nflux), base=i32(m.base),
                n_events=i32(sum(valid_l)))
+    if debug_times:
+        out["char_t"] = torch.stack(m.char_t)
     return out
 
 

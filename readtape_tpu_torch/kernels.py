@@ -62,7 +62,8 @@ class NrziSlotArgs(ctypes.Structure):
         "tr_s", "tr_t", "tr_agc", "n_admitted", "max_agc_gain",
         "min_agc_gain", "incomplete", "p_clk_window", "p_clk_alpha",
         "p_pulse_adj", "p_midbit", "bits", "hist", "trk_i", "trk_f",
-        "lane_i", "stamps", "adj0", "adj", "bitspace")] + [
+        "lane_i", "stamps", "adj0", "adj", "bitspace", "dbg_slot",
+        "col_slot")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "K", "maxb", "max_slots", "do_correct",
             "exp_par", "clk_avg_fma")] + [
@@ -76,7 +77,7 @@ class PeArgs(ctypes.Structure):
         "p_rise", "p_minp", "p_agc_alpha", "p_clk_alpha", "p_clk_factor",
         "p_pulse_adj", "wset", "rise_floor", "min_floor", "cand", "rec_i",
         "rec_f", "ie", "scan", "bits", "faked", "hist", "trk_i", "trk_f",
-        "lane_i", "stamps")] + [
+        "lane_i", "stamps", "dbg_f", "dbg_i")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "G", "K", "maxb", "max_steps", "wmax")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
@@ -89,7 +90,7 @@ class GcrArgs(ctypes.Structure):
         "p_rise", "p_minp", "p_agc_alpha", "p_clk_alpha", "p_z1pt",
         "p_z2pt", "p_pulse_adj", "wset", "rise_floor", "min_floor", "cand",
         "rec_i", "rec_f", "ie", "scan", "bits", "hist", "trk_i", "trk_f",
-        "lane_i", "stamps")] + [
+        "lane_i", "stamps", "dbg_f", "dbg_i")] + [
         (n, ctypes.c_int32) for n in (
             "B", "P", "T", "S", "G", "K", "maxb", "max_steps", "wmax")] + [
         (n, ctypes.c_float) for n in ("spb", "stat_lb", "stat_bw")]
@@ -100,7 +101,7 @@ class WwArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "volts", "rise_floor", "min_floor", "vah", "cand", "tr_s", "tr_frac",
         "tr_top", "ev_s", "ev_frac", "ev_tt", "chars", "blk_i", "blk_f",
-        "hist", "trk_i", "trk_f", "scal", "stamps")] + [
+        "hist", "trk_i", "trk_f", "scal", "stamps", "tr_t", "char_t")] + [
         (n, ctypes.c_int32) for n in (
             "T", "S", "W", "K", "maxchars", "maxblocks", "agc_window",
             "clk_window", "fluxdir", "span")] + [
@@ -376,11 +377,13 @@ def nrzi_scan_tracks(feat, nxt, pa, **kw):
 
 def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
                       do_correct, maxb, max_slots, stat_lb, stat_bw,
-                      clk_avg_fma=False, correct_debug=False, adj_init=None):
+                      clk_avg_fma=False, correct_debug=False, adj_init=None,
+                      records=False):
     """The NrziSlotArgs block and zeroed outputs of one nrzi_slot launch
     (_prepare's return). fin: nrzi_scan's outputs (tr_s is fin's, first so
     that _launch finds the device). Outputs as decode.slot.nrzi_slot_scan
-    (FusedOut, and with adj_init "adj" and "bitspace")."""
+    (FusedOut, with adj_init "adj" and "bitspace", with records "slot_f"
+    and "col_slot")."""
     dev = tr_s.device
     B, P, T, K = tr_s.shape
     ins = {k: fin[k].contiguous() for k in (
@@ -407,6 +410,13 @@ def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
                         exp_par=int(expected_parity),
                         clk_avg_fma=int(bool(clk_avg_fma)), spb=float(spb),
                         stat_lb=float(stat_lb), stat_bw=float(stat_bw))
+    if records:
+        out["slot_f"] = torch.zeros((B, P, max_slots, 2), dtype=F32,
+                                    device=dev)
+        out["col_slot"] = torch.full((B, P, T, maxb), -1, dtype=I32,
+                                     device=dev)
+        args.dbg_slot = out["slot_f"].data_ptr()
+        args.col_slot = out["col_slot"].data_ptr()
     return args, out, ins
 
 
@@ -419,16 +429,19 @@ def nrzi_slot(fin, pa, **kw):
 
 def _idle_prepare(struct, knobs, n_rec_i, out, volts, seg_lens, leads, pa,
                   *, Ws, rise_floor, min_floor, stat_lb, stat_bw, spb, maxb,
-                  K, max_steps):
+                  K, max_steps, trace_scan=False):
     """_prepare for the PE and GCR kernels, which share their scratch
     layout: candidacy words, n_rec_i integer and PE_N_PRF float columns
     per record, the idle intervals and the per-track scan results. out:
-    the kernel's outputs beyond bits and hist, shapes after [B, P]."""
+    the kernel's outputs beyond bits and hist, shapes after [B, P]. With
+    trace_scan, the record mode's rows (dbg_f, dbg_i: decode.fused's rec_f,
+    rec_i, zeroed) and the scan results (rec_n is their PS_NADM column)
+    are outputs too."""
     B, T, S = volts.shape
     N, P = B * len(Ws), len(Ws)
     outs = dict(bits=((B, P, T, maxb), I8), hist=((B, P, T, 50), I32))
     outs.update({k: ((B, P) + tail, dt) for k, (tail, dt) in out.items()})
-    return _prepare(
+    args, outs, keep = _prepare(
         struct, volts, seg_lens, leads, pa, Ws=Ws, rise_floor=rise_floor,
         min_floor=min_floor, knobs=knobs,
         scratch=dict(cand=((N, T, (S + 31) // 32), I32),
@@ -438,6 +451,14 @@ def _idle_prepare(struct, knobs, n_rec_i, out, volts, seg_lens, leads, pa,
                      scan=((N, T, PE_N_PS), I32)),
         out=outs, K=K, maxb=maxb, max_steps=max_steps, spb=float(spb),
         stat_lb=float(stat_lb), stat_bw=float(stat_bw))
+    if trace_scan:
+        dev = volts.device
+        outs["rec_f"] = torch.zeros((B, P, T, K, 2), dtype=F32, device=dev)
+        outs["rec_i"] = torch.zeros((B, P, T, K, 2), dtype=I32, device=dev)
+        args.dbg_f = outs["rec_f"].data_ptr()
+        args.dbg_i = outs["rec_i"].data_ptr()
+        outs["rec_n"] = keep[1]["scan"].view(B, P, T, PE_N_PS)[..., 0]
+    return args, outs, keep
 
 
 def pe_prepare(volts, seg_lens, leads, pa, **kw):
@@ -543,9 +564,11 @@ def gcr_fused(volts, seg_lens, leads, pa, **kw):
 
 def ww_prepare(volts, *, W, rise_floor, min_floor, v_avg_height, parms, spb,
                stat_lb, stat_bw, K, maxchars, fluxdir, roles, maxblocks,
-               span):
+               span, records=False):
     """The WwArgs block, zeroed outputs and scratch of one ww_fused launch
-    (_prepare's return). Arguments as decode.fused.ww_fused_scan."""
+    (_prepare's return). Arguments as decode.fused.ww_fused_scan; with
+    records, tr_t, tr_top (the scratch records, zeroed) and char_t are
+    outputs too."""
     dev = volts.device
     T, S = volts.shape
 
@@ -568,6 +591,11 @@ def ww_prepare(volts, *, W, rise_floor, min_floor, v_avg_height, parms, spb,
                 blk_f=((maxblocks, 2), F32), hist=((T, 50), I32),
                 trk_i=((T, 4), I32), trk_f=((T,), F32),
                 scal=((6,), I32)).items()}
+    if records:
+        scratch["tr_top"].zero_()
+        out.update(tr_t=torch.zeros((T, K), dtype=F32, device=dev),
+                   tr_top=scratch["tr_top"],
+                   char_t=torch.zeros((maxchars,), dtype=F32, device=dev))
     ptrs = {k: v.data_ptr() for d in (ins, scratch, out) for k, v in d.items()}
     args = WwArgs(**ptrs, T=T, S=S, W=W, K=K, maxchars=maxchars,
                   maxblocks=maxblocks,

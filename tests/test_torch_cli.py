@@ -409,23 +409,32 @@ def test_no_card_no_output(tmp_path):
     assert os.listdir(tmp_path) == ["t.tbin"]
 
 
+def test_mesh_with_more_than_one_card_raises_before_reading(tmp_path,
+                                                           monkeypatch):
+    """-mesh with more than one card visible (more than one GPU is not
+    ported yet) raises NotImplementedError before any file is read or
+    written; the card count is faked, since the check comes first."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="-mesh"):
+        tcli.main(["-nrzi", "-mesh", "missing"])
+    assert os.listdir(tmp_path) == []
+
+
 @pytest.mark.parametrize("opt,name", [("-adjskew", "-adjskew"),
                                       ("-correctdbg", "-correctdbg"),
                                       ("-trace", "-trace")])
 def test_unported_options_raise_before_reading(opt, name, tmp_path,
                                                monkeypatch):
-    """-trace, not ported yet, raises NotImplementedError before any file
-    is read or written. -adjskew and -correctdbg, ported since, run: on
+    """-adjskew, -correctdbg and -trace, each once refused here, run: on
     the clean labelled tape they write the .tap of a run without them,
-    -adjskew logs its per-track deviation lines and -correctdbg runs the
-    slot machine's DEBUG-build -correct (tests/test_torch_adjskew.py and
-    test_torch_correctdbg.py hold them to the JAX package)."""
+    -adjskew logs its per-track deviation lines, -correctdbg runs the
+    slot machine's DEBUG-build -correct and -trace writes the first 10,000
+    samples' <base>.trace.csv (tests/test_torch_adjskew.py,
+    test_torch_correctdbg.py and test_torch_trace.py hold them to the JAX
+    package)."""
     monkeypatch.chdir(tmp_path)
-    if opt == "-trace":
-        with pytest.raises(NotImplementedError, match=name):
-            tcli.main(["-nrzi", opt, "missing"], device="cpu")
-        assert os.listdir(tmp_path) == []
-        return
     hdr, samples = _nrzi_tape()
     tb.write_tbin("t.tbin", hdr, samples)
     debug = []
@@ -445,5 +454,10 @@ def test_unported_options_raise_before_reading(opt, name, tmp_path,
     log = (tmp_path / "b_t.log").read_text()
     if opt == "-adjskew":
         assert log.count("deviation is") == 9 * 4     # 4 data blocks
+    elif opt == "-trace":
+        assert 'created trace file "b_t.trace.csv" (10000 lines)' in log
+        with open("b_t.trace.csv") as f:
+            assert sum(1 for _ in f) == 10001
+        assert not os.path.exists("a_t.trace.csv")
     else:
         assert debug and all(debug)

@@ -3,8 +3,9 @@ Each CUDA kernel must equal its plain version on the card (the -zeros
 kernels Z1 and Z2 too, and B6 in the modes of -adjskew and -correctdbg),
 an NRZI (fused and tiered, and under -adjskew and -correctdbg), PE, GCR
 or Whirlwind decode on the card must equal the plain decode on the CPU
-block for block, and the Whirlwind bench tape must decode on the card to
-its ground truth. Imports no JAX and nothing of
+block for block, the Whirlwind bench tape must decode on the card to
+its ground truth, and -trace's lanes from the kernels' record modes on
+the card must equal the plain versions' on the CPU. Imports no JAX and nothing of
 the JAX package (the port carries its own synthesizer and formats), so
 the card's machine runs it without the JAX package's test
 configuration:
@@ -271,3 +272,43 @@ def test_gcr_zeros_kernel_equals_plain(card):
     want = tz.gcr_zeros_scan_plain(trans, pa, **kw)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("mode", ["nrzi", "pe", "gcr", "ww"])
+def test_trace_on_card_equals_cpu(card, mode):
+    """-trace's lanes from the kernels' record modes on the card (B5b and
+    B6, B2, B3, B4) equal the plain versions' on the CPU, and the card's
+    run launched each kernel once and no plain version."""
+    m = {"nrzi": tb.MODE_NRZI, "pe": tb.MODE_PE, "gcr": tb.MODE_GCR,
+         "ww": tb.MODE_WW}[mode]
+    rng = np.random.default_rng(15)
+    if m == tb.MODE_WW:
+        data = [int(w) for w in rng.integers(0, 65536, 24)]
+    else:
+        data = rng.integers(0, 256, 60, dtype=np.uint8).tobytes()
+    hdr, samples = synthesize_tape(default_spec(m), [("block", data)])
+    bpi = {tb.MODE_NRZI: 800, tb.MODE_PE: 1600, tb.MODE_GCR: 9042,
+           tb.MODE_WW: 100}[m]
+    opts = chip_smoke.tape_options(hdr, m, bpi, ips=hdr.ips)
+    dt = hdr.tdelta_ns * 1e-9
+    a, b = ((int(0.0035 / dt), int(0.0095 / dt)) if m != tb.MODE_NRZI
+            else (0, 10000))
+    b = min(b, len(samples))
+    kern = {"nrzi": ("nrzi_track_scan_tracks", "nrzi_slot_scan"),
+            "pe": ("pe_fused_scan",), "gcr": ("gcr_fused_scan",),
+            "ww": ("ww_fused_scan",)}[mode]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        chip_smoke.reset_counts()
+        if m == tb.MODE_WW:
+            got[dev] = tpl.ww_trace_lanes(samples, opts, a, b, device=dev)
+        else:
+            got[dev] = tpl.TapeDecoder(samples, opts,
+                                       device=dev).trace_lanes(a, b)
+        if dev == "cuda":
+            c = chip_smoke.counts()
+            assert all(c[k] == (1, 0) for k in kern), c
+            assert not any(n for _, n in c.values()), c
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    assert got["cuda"][1] == got["cpu"][1]
+    assert sum(len(x) for x in got["cpu"][1]["peak"]) > 100

@@ -33,8 +33,27 @@ _HOST_SRC = r"""
 #include <vector>
 #include "gcr_core.h"
 
+// track t's walk chunk by chunk, over feature rows computed per chunk
+template <class Walk>
+static void walk_track(const GcrArgs* a, int lane, int t, const float* v,
+                       const uint32_t* tw, int W, int C, std::vector<NrziFeat>& rows,
+                       const NrziFeat& poison, float* heights, float* ring) {
+  const int S = a->S;
+  Walk w;
+  gcr_walk_init(w, *a, lane, t, heights, ring);
+  for (int c0 = 0; c0 < S; c0 += C) {
+    const int c1 = c0 + C < S ? c0 + C : S;
+    for (int i = 0; i < C; ++i) rows[i] = poison;
+    nrzi_feature_rows(v, 0, S, W, tw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
+    if (!nrzi_walk_chunk(w, tw + (c0 >> 5), rows.data(), c0, c1, S, a->max_steps))
+      break;
+  }
+  gcr_walk_finish(w, *a, lane, t);
+}
+
 // the kernel's phase order, phase A in chunks of C samples
-extern "C" void gcr_host_run(const GcrArgs* a, int C) {
+template <bool REC>
+static void host_run(const GcrArgs* a, int C) {
   const int nw = pe_nwords(*a), S = a->S;
   std::vector<NrziFeat> rows(C);
   NrziFeat poison;
@@ -50,31 +69,27 @@ extern "C" void gcr_host_run(const GcrArgs* a, int C) {
     for (int i = 0; i < a->T * nw; ++i) {
       uint32_t word = 0;
       for (int l = 0; l < 32; ++l)
-        if (pe_cand_bit(*a, lane, i / nw, ((i % nw) << 5) + l)) word |= 1u << l;
+        if (pe_cand_bit<REC>(*a, lane, i / nw, ((i % nw) << 5) + l)) word |= 1u << l;
       cw[i] = word;
     }
     for (int t = 0; t < a->T; ++t) {
       const float* v = a->volts + ((int64_t)b * a->T + t) * S;
       const uint32_t* tw = cw + (int64_t)t * nw;
-      GcrWalk w;
-      gcr_walk_init(w, *a, lane, t, heights, ring);
-      for (int c0 = 0; c0 < S; c0 += C) {
-        const int c1 = c0 + C < S ? c0 + C : S;
-        for (int i = 0; i < C; ++i) rows[i] = poison;
-        nrzi_feature_rows(v, 0, S, W, tw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
-        if (!nrzi_walk_chunk(w, tw + (c0 >> 5), rows.data(), c0, c1, S, a->max_steps))
-          break;
-      }
-      gcr_walk_finish(w, *a, lane, t);
+      walk_track<GcrWalkT<REC>>(a, lane, t, v, tw, W, C, rows, poison, heights, ring);
     }
     bool overflow, deep;
     pe_lane_flags(*a, lane, overflow, deep);
     const int tau = overflow ? PE_BIG_TAU : pe_tau_part(*a, lane, 0, 1);
     int after = a->S;
     for (int t = 0; t < a->T; ++t)
-      after = pe_imin(after, gcr_apply_track(*a, lane, t, tau));
+      after = pe_imin(after, gcr_apply_track<REC>(*a, lane, t, tau));
     gcr_write_lane(*a, lane, tau, overflow, after);
   }
+}
+
+// the record mode's instantiation, or the decode's (as the kernel picks)
+extern "C" void gcr_host_run(const GcrArgs* a, int C) {
+  if (a->dbg_f) host_run<true>(a, C); else host_run<false>(a, C);
 }
 """
 
@@ -162,3 +177,25 @@ def test_host_walk_in_small_chunks_matches_plain(host_lib, case,
                                                  monkeypatch):
     """At a chunk of 64 samples: more walks cross a chunk's edge."""
     _check_host_run(host_lib, case, 64, monkeypatch)
+
+
+@pytest.mark.parametrize("chunk", [256, 64])
+def test_host_record_mode_matches_plain(host_lib, chunk):
+    """The record mode (-trace's scan: every track's candidates from 0,
+    no mid-scan idle) on the segments at one parmset: its per-admission
+    rows (rec_f, rec_i, rec_n) and every other output equal the plain
+    version's with trace_scan=True."""
+    volts, seg_lens, leads, pa, kw = chip_smoke.gcr_kernel_inputs(
+        16384, seed=5, nparms=1, device="cpu")
+    kw = dict(kw, trace_scan=True)
+    want = tfu.gcr_fused_scan_plain(volts, seg_lens, leads, pa, **kw)
+    args, got, keep = kernels.gcr_prepare(volts, seg_lens, leads, pa, **kw)
+    host_lib.gcr_host_run(ctypes.byref(args), chunk)
+    del keep
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    assert int(want["rec_n"].sum()) > 1000
+    assert (want["rec_i"][..., 1] > 0).any()
+    assert (want["rec_f"][..., 1] != 0).any()

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of readtape_tpu_torch (decode/zeros.py
-and formats/csvfmt.py included), and not chip_smoke.py or the card's A/B
+"""The port stands alone: no module of readtape_tpu_torch (decode/zeros.py,
+formats/csvfmt.py and out/trace.py included), and not chip_smoke.py or the card's A/B
 timing scripts (scripts/*_ab.py), imports jax or anything of the JAX
 package (readtape_tpu).
 The port's own copies of the JAX-free modules (formats, synth) agree with
@@ -69,7 +69,8 @@ def test_importing_the_port_loads_no_jax():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
     assert {"readtape_tpu_torch.decode.zeros",
-            "readtape_tpu_torch.formats.csvfmt"} <= set(mods)
+            "readtape_tpu_torch.formats.csvfmt",
+            "readtape_tpu_torch.out.trace"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"

@@ -151,3 +151,31 @@ def test_host_slot_lane_new_modes_match_plain(tiered_host_lib,  # noqa: F811
         # the DEBUG check flips mid-block or at every tied slot, never
         # the first frame's bit the release check flips
         assert ((corrected > 0) == (name != "correct")).all()
+
+
+@pytest.mark.parametrize("name", ["1blk", "middrop", "tie"])
+def test_host_slot_lane_records_match_plain(tiered_host_lib,  # noqa: F811
+                                            name):
+    """B6's record mode (-trace's, -correct off): each live slot's
+    boundary and adjusted clock position, and the slot of the last write
+    to each (track, column), equal the plain version's, and so does
+    every other output."""
+    fin, pa, kw, trans, _ = slot_case("1blk" if name == "middrop" else name)
+    if name == "middrop":
+        fin, _ = drop_mid_bit(fin, trans, kw["spb"])
+    kw = dict(kw, do_correct=False, records=True)
+    want = tsl.nrzi_slot_scan_plain(fin, pa, **kw)
+    args, got, keep = kernels.nrzi_slot_prepare(fin["tr_s"], fin, pa, **kw)
+    tiered_host_lib.slot_host_run(ctypes.byref(args))
+    del keep
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    nslot = want["lane_i"][..., tsl.LI_NSLOT]
+    assert int(nslot.min()) > 50
+    assert (want["slot_f"][..., tsl.SL_AVGPOS] > 0).any()
+    # every track's last column write is the lane's last live slot's
+    col_slot = want["col_slot"]
+    assert (col_slot >= 0).any()
+    assert (col_slot.amax(dim=-1) == nslot.unsqueeze(-1) - 1).all()

@@ -32,8 +32,27 @@ _DRIVER = r"""
 #include <vector>
 #include "pe_core.h"
 
+// track t's walk chunk by chunk, over feature rows computed per chunk
+template <class Walk>
+static void walk_track(const PeArgs* a, int lane, int t, const float* v,
+                       const uint32_t* tw, int W, int C, std::vector<NrziFeat>& rows,
+                       const NrziFeat& poison, float* heights, float* ring) {
+  const int S = a->S;
+  Walk w;
+  pe_walk_init(w, *a, lane, t, heights, ring);
+  for (int c0 = 0; c0 < S; c0 += C) {
+    const int c1 = c0 + C < S ? c0 + C : S;
+    for (int i = 0; i < C; ++i) rows[i] = poison;
+    nrzi_feature_rows(v, 0, S, W, tw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
+    if (!nrzi_walk_chunk(w, tw + (c0 >> 5), rows.data(), c0, c1, S, a->max_steps))
+      break;
+  }
+  pe_walk_finish(w, *a, lane, t);
+}
+
 // the kernel's phase order, phase A in chunks of C samples
-extern "C" void pe_host_run(const PeArgs* a, int C) {
+template <bool REC>
+static void host_run(const PeArgs* a, int C) {
   const int nw = pe_nwords(*a), S = a->S;
   std::vector<NrziFeat> rows(C);
   NrziFeat poison;
@@ -49,22 +68,13 @@ extern "C" void pe_host_run(const PeArgs* a, int C) {
     for (int i = 0; i < a->T * nw; ++i) {
       uint32_t word = 0;
       for (int l = 0; l < 32; ++l)
-        if (pe_cand_bit(*a, lane, i / nw, ((i % nw) << 5) + l)) word |= 1u << l;
+        if (pe_cand_bit<REC>(*a, lane, i / nw, ((i % nw) << 5) + l)) word |= 1u << l;
       cw[i] = word;
     }
     for (int t = 0; t < a->T; ++t) {
       const float* v = a->volts + ((int64_t)b * a->T + t) * S;
       const uint32_t* tw = cw + (int64_t)t * nw;
-      PeWalk w;
-      pe_walk_init(w, *a, lane, t, heights, ring);
-      for (int c0 = 0; c0 < S; c0 += C) {
-        const int c1 = c0 + C < S ? c0 + C : S;
-        for (int i = 0; i < C; ++i) rows[i] = poison;
-        nrzi_feature_rows(v, 0, S, W, tw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
-        if (!nrzi_walk_chunk(w, tw + (c0 >> 5), rows.data(), c0, c1, S, a->max_steps))
-          break;
-      }
-      pe_walk_finish(w, *a, lane, t);
+      walk_track<PeWalkT<REC>>(a, lane, t, v, tw, W, C, rows, poison, heights, ring);
     }
     bool overflow, deep;
     pe_lane_flags(*a, lane, overflow, deep);
@@ -72,12 +82,17 @@ extern "C" void pe_host_run(const PeArgs* a, int C) {
     int after = a->S, race = a->S;
     for (int t = 0; t < a->T; ++t) {
       int x, y;
-      pe_apply_track(*a, lane, t, tau, x, y);
+      pe_apply_track<REC>(*a, lane, t, tau, x, y);
       after = pe_imin(after, x);
       race = pe_imin(race, y);
     }
     pe_write_lane(*a, lane, tau, overflow, deep, after, race);
   }
+}
+
+// the record mode's instantiation, or the decode's (as the kernel picks)
+extern "C" void pe_host_run(const PeArgs* a, int C) {
+  if (a->dbg_f) host_run<true>(a, C); else host_run<false>(a, C);
 }
 """
 
@@ -196,3 +211,28 @@ def test_host_state_machine_matches_plain(host_lib, case, chunk,
     assert fired > 0, "no lane reached its all-idle point"
     if case == "segments":
         assert int(want["faked"].sum()) > 0, "no fake bits"
+
+
+@pytest.mark.parametrize("chunk", [256, 64])
+def test_host_record_mode_matches_plain(host_lib, chunk):
+    """The record mode (-trace's scan: every track's candidates from 0,
+    t_lastpeak 0 before the first peak, the other contraction of the
+    exponential clock) on the segments at one parmset: its per-admission
+    rows (rec_f, rec_i, rec_n) and every other output equal the plain
+    version's with trace_scan=True."""
+    volts, seg_lens, leads, pa, kw = chip_smoke.pe_kernel_inputs(
+        16384, seed=5, nparms=1, device="cpu")
+    kw = dict(kw, trace_scan=True)
+    want = tfu.pe_fused_scan_plain(volts, seg_lens, leads, pa, **kw)
+    args, got, keep = kernels.pe_prepare(volts, seg_lens, leads, pa, **kw)
+    host_lib.pe_host_run(ctypes.byref(args), chunk)
+    del keep
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    n = want["rec_n"]
+    assert int(n.sum()) > 1000
+    flags = want["rec_i"][..., 1]
+    assert (flags & 1).any() and (flags & 2).any()
+    assert (want["rec_f"][..., 1] != 0).any()

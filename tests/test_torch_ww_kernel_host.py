@@ -47,6 +47,24 @@ extern "C" void ww_host_rank(const WwArgs* a) {
     for (int k = 0; k < ww_nrec(*a, t); ++k) ww_scatter_one(*a, t, k);
 }
 
+// track t's walk chunk by chunk, over feature rows computed per chunk
+template <bool REC>
+static void walk_track(const WwArgs* a, int t, int C, std::vector<NrziFeat>& rows,
+                       const NrziFeat& poison, float* heights) {
+  const int nw = ww_nwords(*a), S = a->S;
+  const float* v = a->volts + (int64_t)t * S;
+  const uint32_t* cw = a->cand + (int64_t)t * nw;
+  WwWalkT<REC> w;
+  ww_walk_init(w, *a, t, heights);
+  for (int c0 = 0; c0 < S; c0 += C) {
+    const int c1 = c0 + C < S ? c0 + C : S;
+    for (int i = 0; i < C; ++i) rows[i] = poison;
+    nrzi_feature_rows(v, 0, S, a->W, cw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
+    ww_walk_chunk(w, cw + (c0 >> 5), rows.data(), c0, c1, S);
+  }
+  ww_walk_finish(w, *a, t);
+}
+
 // the kernel's phase order, the admission in chunks of C samples
 extern "C" void ww_host_run(const WwArgs* a, int C) {
   const int nw = ww_nwords(*a), S = a->S;
@@ -58,25 +76,25 @@ extern "C" void ww_host_run(const WwArgs* a, int C) {
   poison.prevmax = poison.nextmax = poison.prevmin = poison.nextmin = NAN;
   poison.ltop = poison.lbot = -1000000;
   float heights[WW_AGC_RING];
+  // the record mode's walk and machine, or the decode's (the kernels'
+  // instantiations)
   for (int t = 0; t < a->T; ++t) {
-    const float* v = a->volts + (int64_t)t * S;
-    const uint32_t* cw = a->cand + (int64_t)t * nw;
-    WwWalk w;
-    ww_walk_init(w, *a, t, heights);
-    for (int c0 = 0; c0 < S; c0 += C) {
-      const int c1 = c0 + C < S ? c0 + C : S;
-      for (int i = 0; i < C; ++i) rows[i] = poison;
-      nrzi_feature_rows(v, 0, S, a->W, cw + (c0 >> 5), c0, c1, rows.data(), 0, 1);
-      ww_walk_chunk(w, cw + (c0 >> 5), rows.data(), c0, c1, S);
-    }
-    ww_walk_finish(w, *a, t);
+    if (a->tr_t)
+      walk_track<true>(a, t, C, rows, poison, heights);
+    else
+      walk_track<false>(a, t, C, rows, poison, heights);
   }
   ww_host_rank(a);
   WwMachineMem mem;
   WwMachine m;
   ww_machine_init(m, *a, &mem);
   const int n = ww_nevents(*a);
-  for (int j = 0; j < n; ++j) ww_event(m, *a, a->ev_s[j], a->ev_frac[j], a->ev_tt[j]);
+  for (int j = 0; j < n; ++j) {
+    if (a->tr_t)
+      ww_event<true>(m, *a, a->ev_s[j], a->ev_frac[j], a->ev_tt[j]);
+    else
+      ww_event<false>(m, *a, a->ev_s[j], a->ev_frac[j], a->ev_tt[j]);
+  }
   ww_machine_finish(m, *a);
 }
 """
@@ -247,3 +265,29 @@ def test_host_rank_pass_matches_tway_merge(host_lib, name):
     assert (bufs["ev_s"][n:] == -1).all()
     if name == "equal_s":
         assert np.sum(np.diff(bufs["ev_s"][:n]) == 0) > 50
+
+
+@pytest.mark.parametrize("case", ["noisy_auto", "rebase"])
+def test_host_record_mode_matches_plain(host_lib, case, monkeypatch):
+    """B4's record mode: each record's peak time and each character's
+    clock-end time (in the rolling base's time, which moves on "rebase")
+    equal the plain version's, and so does every other output."""
+    calls = list(_plain_calls(case, monkeypatch))
+    monkeypatch.undo()          # the plain version itself, not the recorder
+    for a, kw, _ in calls:
+        kw = dict(kw, records=True)
+        want = tfu.ww_fused_scan_plain(*a, **kw)
+        args, got, keep = kernels.ww_prepare(*a, **kw)
+        host_lib.ww_host_run(ctypes.byref(args), 2048)
+        del keep
+        assert set(got) >= set(want) and {"tr_t", "char_t"} <= set(want)
+        n = np.minimum(want["trk_i"][:, tfu.WT_NADM].numpy(), kw["K"])
+        keep_k = np.arange(kw["K"]) < n[:, None]
+        for k in want:
+            g, w = got[k].numpy(), want[k].numpy()
+            if k in ("tr_t", "tr_top"):      # the host leaves the rest 0
+                g = np.where(keep_k, g, 0)
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        nchars = int(want["scal"][tfu.WS_DATACOUNT])
+        # past a rebase a time may fall just below its new base
+        assert nchars > 100 and (want["char_t"][:nchars] != 0).all()
