@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths, -zeros and
 float (CSV) tapes included, its command line (-parmscan included), NRZI
--adjskew and -correctdbg, and -trace, on one NVIDIA GPU and check them.
+-adjskew and -correctdbg, -trace, and the host tools csvtbin and dumptap,
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -135,9 +136,21 @@ non-zero:
               byte equal to the one the same step writes on the CPU
               over the window (the plain versions; no CPU decode of the
               tape)
+ 10. tools    the host tools, through the port alone: the NRZI bench
+              recipe cut to 20 blocks written as a CSV of volts, turned
+              into a .tbin by csvtbin (the native scanfast scanner, which
+              must have built) and decoded by the command line on the
+              card (B1 launched; every block against the ground truth,
+              both tapemarks); 9trk_GCR/example3's CSV through csvtbin
+              and the command line with -differentiate -zeros on the card
+              (Z1, Z2) and on the CPU, the two .tap equal byte for byte;
+              dumptap -hex -ebcdic on the first .tap (a line per record
+              and per tapemark, as in the .tap); csvtbin -read of the
+              .tbin (a row per sample); csvtbin's and the CLI's walls
 
-Then one JSON line describing the kernels, the card's name and power
-limit as nvidia-smi reports them, and a last JSON line {"ok": true, ...}.
+Each phase prints the seconds it took. Then one JSON line describing the
+kernels, the card's name and power limit as nvidia-smi reports them, and a
+last JSON line {"ok": true, ...}.
 
     python3 chip_smoke.py breakdown
 
@@ -168,6 +181,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2366,6 +2380,167 @@ def phase_trace(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the host tools, csvtbin and dumptap
+# ---------------------------------------------------------------------------
+
+CSVTBIN_NRZI = ["-ntrks=9", "-nrzi", "-bpi=800", "-ips=50"]
+CSVTBIN_GCR = ["-ntrks=9", "-gcr", "-bpi=9042", "-ips=25"]
+TOOLS_BLOCKS = 20          # of the NRZI bench recipe: ~0.55 M samples
+
+
+def run_tool(main, argv):
+    """A host tool's main(argv), its stdout kept off this script's output;
+    raises unless it exits 0. Returns the stdout."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv)}: exit code {rc}")
+    return buf.getvalue()
+
+
+def dump_entries(path):
+    """A dumptap listing's entries: ("mark",) per tapemark line, (flag,
+    length) per record's first line."""
+    out = []
+    with open(path) as f:
+        for ln in f:
+            m = re.match(r"([ !]) *(\d+): ", ln)
+            if m:
+                out.append((m.group(1), int(m.group(2))))
+            elif ln == ".tap tape mark\n":
+                out.append(("mark",))
+    return out
+
+
+def phase_tools(card, nblocks=TOOLS_BLOCKS):
+    """An archivist's workflow through the port alone. (a) The NRZI bench
+    recipe cut to `nblocks` blocks, written as a CSV of volts with the
+    port's write_csv, goes through csvtbin (CSVTBIN_NRZI) into a .tbin,
+    which the command line decodes on the card with CLI_ARGS, the launch
+    counts set to 0 just before and read just after: every data block
+    equals the ground truth and both tapemarks are there. (b) The
+    9trk_GCR/example3 CSV goes through csvtbin (CSVTBIN_GCR) and the
+    command line decodes the .tbin with the example's arguments
+    (-differentiate -zeros: Z1 and Z2) on the card and on the CPU, each in
+    a directory of its own: the two .tap files are equal byte for byte.
+    (c) dumptap -hex -ebcdic lists (a)'s .tap: a line per record, with
+    its length and no error flag, and a line per tapemark, in the .tap's
+    order. (d) csvtbin -read regenerates (a)'s CSV from the .tbin, a row
+    per sample. csvtbin must run the native scanfast scanner (g++ builds
+    it; the Python replica would take hours on this CSV). Returns
+    {kernel: launches} of (a) and (b)'s card decodes."""
+    import numpy as np
+    from readtape_tpu_torch import csvtbin, dumptap, native
+    from readtape_tpu_torch.formats import csvfmt, simh
+    from readtape_tpu_torch.formats import tbin as tb
+    if not native.available():
+        raise AssertionError("the native CSV scanner did not build (g++ "
+                             "over native/readtape_io.cpp)")
+    scans = []
+    scan = native.csv_scan_native
+
+    def counted(path, scanfast=False):
+        scans.append(scanfast)
+        return scan(path, scanfast)
+    blocks, hdr, samples = bench_tape(nblocks=nblocks)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "bench")
+        csvfmt.write_csv(base + ".csv", 0.0, hdr.tdelta_ns * 1e-9,
+                         samples.astype(np.float64)
+                         * (hdr.maxvolts / 32767.0))
+        csv_mb = os.path.getsize(base + ".csv") / 1e6
+        native.csv_scan_native = counted
+        try:
+            t0 = time.perf_counter()
+            said = run_tool(csvtbin.main, CSVTBIN_NRZI + [base + ".csv",
+                                                          base + ".tbin"])
+            t_csvtbin = time.perf_counter() - t0
+        finally:
+            native.csv_scan_native = scan
+        if scans != [True]:
+            raise AssertionError(f"csvtbin's scanner calls {scans}: not the "
+                                 f"native scanfast scanner once")
+        thdr, tsamples = tb.read_tbin(base + ".tbin")
+        if tsamples.shape != samples.shape or thdr.mode != tb.MODE_NRZI:
+            raise AssertionError(f"csvtbin wrote {tsamples.shape}, mode "
+                                 f"{thdr.mode}; {samples.shape} expected")
+        print(f"  (a) csvtbin {' '.join(CSVTBIN_NRZI)}: {csv_mb:.1f} MB CSV, "
+              f"{tsamples.shape[0]:,} rows x 9 tracks, native scanfast "
+              f"scanner (g++), {t_csvtbin:.3f} s wall; "
+              f"{said.strip().splitlines()[-1].replace(tmp + os.sep, '')} "
+              f"({card})", flush=True)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        run_cli(CLI_ARGS + [base + ".tbin"], DEVICE)
+        wall = time.perf_counter() - t0
+        launches = check_launches("csvtbin NRZI CLI", ["nrzi_fused_scan"])
+        data, marks = tap_contents(base + ".tap")
+        if data != blocks or marks != 2:
+            raise AssertionError(f"csvtbin NRZI CLI: {len(data)} .tap "
+                                 f"blocks, {marks} tapemarks; not the "
+                                 f"ground truth")
+        print(f"  (a) the CLI on its .tbin ({' '.join(CLI_ARGS)}): "
+              f"{len(data)} .tap blocks equal to the ground truth, 2 "
+              f"tapemarks, launches {launches}: CLI wall {wall:.3f} s "
+              f"({card})", flush=True)
+
+        name = "9trk_GCR/example3"
+        taps = {}
+        for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+            d = os.path.join(tmp, where)
+            os.makedirs(d)
+            ex = write_example(name, d)
+            run_tool(csvtbin.main, CSVTBIN_GCR + [ex + ".csv", ex + ".tbin"])
+            reset_counts()
+            run_cli(EXAMPLES[name]["args"] + [ex + ".tbin"], dev)
+            if where == "card":
+                launches.update(check_launches(name, [
+                    "zerocross_transitions", "gcr_zeros_scan"]))
+            with open(ex + ".tap", "rb") as f:
+                taps[where] = f.read()
+        if taps["card"] != taps["cpu"]:
+            raise AssertionError(f"{name} via csvtbin: the card's .tap "
+                                 f"differs from the CPU's")
+        recs = [r.kind[0] for r in simh.read_tap(ex + ".tap")]
+        print(f"  (b) {name}'s CSV through csvtbin "
+              f"{' '.join(CSVTBIN_GCR)}, then the CLI "
+              f"({' '.join(EXAMPLES[name]['args'])}): card .tap == cpu .tap, "
+              f"{len(taps['card']):,} bytes ({''.join(recs)}), launches "
+              f"{launches}", flush=True)
+
+        t0 = time.perf_counter()
+        said = run_tool(dumptap.main, ["-hex", "-ebcdic", base])
+        t_dump = time.perf_counter() - t0
+        want = [("mark",) if r.kind == "tapemark" else
+                ("!" if r.error else " ", len(r.data))
+                for r in simh.read_tap(base + ".tap")
+                if r.kind in ("data", "tapemark")]
+        got = dump_entries(base + ".hex.EBCDIC.txt")
+        if got != want or len(want) != nblocks + 2 or \
+                {e[0] for e in got} != {" ", "mark"}:
+            raise AssertionError(f"dumptap: {len(got)} entries, "
+                                 f"{len(want)} in the .tap")
+        print(f"  (c) dumptap -hex -ebcdic: {len(got) - 2} record lines of "
+              f"{len(blocks[0])} bytes, no error flag, 2 tapemark "
+              f"lines, in the .tap's order; {t_dump:.3f} s; "
+              f"{said.strip().replace(tmp + os.sep, '')}", flush=True)
+
+        t0 = time.perf_counter()
+        run_tool(csvtbin.main, ["-read", base + ".tbin", base + ".read.csv"])
+        t_read = time.perf_counter() - t0
+        with open(base + ".read.csv", "rb") as f:
+            rows = sum(1 for _ in f) - 2
+        if rows != tsamples.shape[0]:
+            raise AssertionError(f"csvtbin -read: {rows} rows, "
+                                 f"{tsamples.shape[0]} samples")
+        print(f"  (d) csvtbin -read: {rows:,} rows, one per sample; "
+              f"{t_read:.3f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # breakdown: where a bench decode's wall goes
 # ---------------------------------------------------------------------------
 
@@ -2884,6 +3059,11 @@ def main():
              f"{e}")
     if "jax" in sys.modules:
         fail("device", "jax was imported")
+    t_last = [time.perf_counter()]
+
+    def lap():
+        t, t_last[0] = t_last[0], time.perf_counter()
+        return t_last[0] - t
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     if sys.argv[1:] == ["breakdown"]:
@@ -2891,12 +3071,14 @@ def main():
         return 0
     print(f"phase 1 device: ok, {kind}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {card}", flush=True)
+    print(f"  phase 1 took {lap():.1f} s", flush=True)
 
     try:
         _, secs, log = kernels.build()
     except RuntimeError as e:
         fail("build", str(e))
     print(f"phase 2 build: ok in {secs:.1f} s", flush=True)
+    print(f"  phase 2 took {lap():.1f} s", flush=True)
     for ln in ptxas_lines(log):
         print(f"  {ln}", flush=True)
 
@@ -2906,6 +3088,7 @@ def main():
         fail("kernel", str(e))
     print(f"phase 3 kernel: ok, all {len(KERNELS)} kernels equal to plain "
           f"({card})", flush=True)
+    print(f"  phase 3 took {lap():.1f} s", flush=True)
 
     try:
         runs = phase_main(card)
@@ -2915,6 +3098,7 @@ def main():
         f"{k} {w:.3f} s, {m:.3f} Msamples/s, {n} launches"
         if w is not None else f"{k} {n} launches"
         for k, (n, w, m) in runs.items()) + f" ({card})", flush=True)
+    print(f"  phase 4 took {lap():.1f} s", flush=True)
 
     try:
         phase_golden()
@@ -2923,6 +3107,7 @@ def main():
     print(f"phase 5 golden: ok, {len(GOLDEN_CASES)} NRZI, PE, GCR and "
           f"Whirlwind .tap hashes match through the port's command line, "
           f"the NRZI ones also through the tiered kernels", flush=True)
+    print(f"  phase 5 took {lap():.1f} s", flush=True)
 
     try:
         n = phase_cli(card)
@@ -2930,6 +3115,7 @@ def main():
         fail("cli", str(e))
     print(f"phase 6 cli: ok, the NRZI bench through the command line, "
           f"launches {n} ({card})", flush=True)
+    print(f"  phase 6 took {lap():.1f} s", flush=True)
 
     try:
         times["gcr parmscan"], n = phase_parmscan(card)
@@ -2937,6 +3123,7 @@ def main():
         fail("parmscan", str(e))
     print(f"phase 7 parmscan: ok, B3 at B=1 P=64 equal to plain, the "
           f"5,280-combo grid in {n} launches ({card})", flush=True)
+    print(f"  phase 7 took {lap():.1f} s", flush=True)
     try:
         runs.update(phase_options(card))
     except AssertionError as e:
@@ -2944,6 +3131,7 @@ def main():
     print(f"phase 8 options: ok, -adjskew and -correctdbg card == cpu on "
           f"their recipes, the bench tape under each to its ground truth "
           f"({card})", flush=True)
+    print(f"  phase 8 took {lap():.1f} s", flush=True)
     try:
         runs.update(phase_trace(card))
     except AssertionError as e:
@@ -2951,9 +3139,18 @@ def main():
     print(f"phase 9 trace: ok, -trace on the four bench tapes through the "
           f"command line, each .trace.csv equal to the CPU's ({card})",
           flush=True)
+    print(f"  phase 9 took {lap():.1f} s", flush=True)
+    try:
+        n = phase_tools(card)
+    except AssertionError as e:
+        fail("tools", str(e))
+    print(f"phase 10 tools: ok, a CSV capture through csvtbin, decoded on "
+          f"the card and dumped by dumptap, through the port alone, "
+          f"launches {n} ({card})", flush=True)
+    print(f"  phase 10 took {lap():.1f} s", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
-        fail("trace", "jax or the JAX package was imported")
+        fail("tools", "jax or the JAX package was imported")
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),

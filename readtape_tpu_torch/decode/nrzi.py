@@ -141,6 +141,18 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
 # the global bit-slot scan
 # ---------------------------------------------------------------------------
 
+def last_complete_byte(cand: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """The DEBUG build's last_complete_byte (decode_nrzi.c:258,262) of each
+    lane: the track loop leaves the index of the HIGHEST track with a peak
+    in the zerocheck window. cand [N, T] bool (a peak in the window), idx
+    [N, T] each track's index; -1 where no track has a peak."""
+    T = cand.shape[-1]
+    hi_trk = (T - 1) - torch.argmax(cand.flip(-1).to(I32), dim=-1)
+    return torch.where(cand.any(dim=-1), idx.gather(
+        1, hi_trk.unsqueeze(-1)).squeeze(-1), -1)
+
+
 def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
                    clk_window, clk_alpha, pulse_adj, midbit,
                    expected_parity: int, do_correct: bool,
@@ -351,16 +363,11 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
         t_lc2 = torch.where(have, adjusted, t_lc + b)
 
         if correct_debug:
-            # the DEBUG build's last_complete_byte (decode_nrzi.c:258,262):
-            # the index the highest track with a peak in the window leaves,
-            # datacount-1 after a dup deletion when its last peak is in,
-            # else datacount-2
-            cand = last_in | prev_in
+            # each track's index: datacount-1 after a dup deletion when
+            # its last peak is in the window, else datacount-2
             dcp = torch.where(dup, dc - 1, dc)
-            idx_t = torch.where(last_in, dcp - 1, dcp - 2)
-            hi_trk = (T - 1) - torch.argmax(cand.flip(-1).to(I32), dim=-1)
-            lcb = torch.where(cand.any(dim=-1), idx_t.gather(
-                1, hi_trk.unsqueeze(-1)).squeeze(-1), -1)
+            lcb = last_complete_byte(last_in | prev_in,
+                                     torch.where(last_in, dcp - 1, dcp - 2))
 
         dc = torch.where(lv, d, dc)
         t_firstbit = torch.where(lv, tfb, t_firstbit)

@@ -1,24 +1,27 @@
 """CSV waveform tapes (Saleae logic-analyzer export) -- the port's copy of
-readtape_tpu/formats/csvfmt.py, in numpy alone.
+readtape_tpu/formats/csvfmt.py.
 
 Layout (readtape.c:1608-1632): two title lines, then rows of
 "time, v_track0, v_track1, ...". The track count is the comma count of the
 second title line; the sample interval is the mean spacing of the first
 10,000 timestamps (Saleae rounds timestamps to 0.1 us).
 
-The JAX package parses with its native scanner (native/readtape_io.cpp
-``csv_scan``) where it is built. So does this copy, in numpy: every field
-is read the scanner's way -- integer digits folded as n = n * 10 + d,
+``read_csv`` parses with the native scanner (native/readtape_io.cpp
+``csv_scan``, built by ``readtape_tpu_torch.native``) where it is built,
+as the JAX ``read_csv`` does. Without it, a numpy reader reads every
+field the scanner's way -- integer digits folded as n = n * 10 + d,
 fraction digits added as d / div with div growing by * 10, an exponent
 as a power of ten built by repeated * 10, all in float64 -- and the
-voltages are then rounded to float32. That reading can differ from a
-correctly rounded decimal parse in the last bit of a float64, so the
-copy does not use numpy's own parser.
+voltages are then rounded to float32, so both give the same values. That
+reading can differ from a correctly rounded decimal parse in the last
+bit of a float64, so the numpy reader does not use numpy's own parser.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 
 def _scan_fields(tok: np.ndarray) -> np.ndarray:
@@ -65,7 +68,15 @@ def _scan_fields(tok: np.ndarray) -> np.ndarray:
 
 def read_csv(path: str):
     """Returns (first_time_seconds, sample_deltat_seconds, volts [N,
-    ntrks] float32)."""
+    ntrks] float32): the native scanner's, else read_csv_numpy's."""
+    try:
+        return native.csv_scan_native(path)
+    except RuntimeError:
+        return read_csv_numpy(path)
+
+
+def read_csv_numpy(path: str):
+    """read_csv in numpy alone, with the native scanner's digits."""
     with open(path, "rb") as f:
         f.readline()                       # title line 1
         ntrks = f.readline().count(b",")   # title line 2: commas => tracks

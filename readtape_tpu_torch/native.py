@@ -1,11 +1,17 @@
-"""The native host scan (``tape_scan`` of native/readtape_io.cpp) for the
-port's segmentation, through ctypes.
+"""The native host helpers of native/readtape_io.cpp for the port, through
+ctypes: the CSV scanners (``csv_scan``, ``csv_scan_scanfast``,
+``csv_deltat``, ``csv_free``) and the host activity scan (``tape_scan``).
 
 At first use ``g++`` compiles native/readtape_io.cpp into
-``build/torch_native/<hash of the source>/`` next to the package (never
-into ``native/``). Without ``g++``, or if the build fails, ``tape_scan``
-returns None and ``segment.host_activity`` runs its numpy sweep instead;
-both give the same activity mask and height estimate.
+``build/torch_native/<hash of the source and flags>/`` next to the
+package (never into ``native/``). The flags keep g++ from contracting
+a multiply and an add into one fused multiply-add, since the scanfast
+parser must round each step in float32 as the reference does. Without
+``g++``, or if the build fails, ``tape_scan`` returns None and
+``segment.host_activity`` runs its numpy sweep instead, and
+``csv_scan_native`` raises, so that ``formats.csvfmt.read_csv`` and
+``csvtbin`` use their numpy and Python readers; each pair gives the same
+values.
 """
 
 from __future__ import annotations
@@ -22,7 +28,15 @@ import numpy as np
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_PKG), "native", "readtape_io.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_native")
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+CXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
+
+
+class _CsvScan(ctypes.Structure):
+    _fields_ = [("first_time", ctypes.c_double),
+                ("deltat", ctypes.c_double),
+                ("nrows", ctypes.c_int64),
+                ("ncols", ctypes.c_int32),
+                ("volts", ctypes.POINTER(ctypes.c_float))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,11 +63,46 @@ def _load():
         ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int32)]
     lib.tape_scan.restype = None
+    for name in ("csv_scan", "csv_scan_scanfast"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(_CsvScan)]
+        fn.restype = ctypes.c_int
+    lib.csv_deltat.argtypes = [ctypes.c_char_p,
+                               ctypes.POINTER(ctypes.c_double)]
+    lib.csv_deltat.restype = ctypes.c_int
+    lib.csv_free.argtypes = [ctypes.POINTER(_CsvScan)]
+    lib.csv_free.restype = None
     return lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def csv_scan_native(path: str, scanfast: bool = False):
+    """Returns (first_time, deltat, volts [N, T] float32) of a CSV capture
+    (two title lines, then "time, v0, v1, ..." rows). Raises if the
+    native library is unavailable or the parse fails. scanfast=True reads
+    the voltages with the float32 digit fold of the reference's
+    scanfast_float (csvtbin.c:403-417), else each field is parsed in
+    float64 and rounded to float32."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native IO library unavailable")
+    scan = _CsvScan()
+    fn = lib.csv_scan_scanfast if scanfast else lib.csv_scan
+    rc = fn(os.fsencode(path), ctypes.byref(scan))
+    if rc != 0:
+        raise RuntimeError(f"csv_scan failed ({rc}) for {path}")
+    try:
+        buf = np.ctypeslib.as_array(scan.volts, shape=(scan.nrows,
+                                                       scan.ncols))
+        volts = np.array(buf, dtype=np.float32)     # copy before the free
+    finally:
+        lib.csv_free(ctypes.byref(scan))
+    dt = ctypes.c_double()
+    lib.csv_deltat(os.fsencode(path), ctypes.byref(dt))
+    return float(scan.first_time), float(dt.value), volts
 
 
 def tape_scan(samples: np.ndarray, step: int):

@@ -14,6 +14,19 @@ buffers in place.
   back, the DEBUG one does not) and on the one-block buffers with a
   transition dropped mid-block and its track's gain raised (the DEBUG
   check flips it back, the release one does not);
+- the column the DEBUG check reads: last_complete_byte is the index left
+  by the HIGHEST track with a peak in the zerocheck window. On the tapes
+  above every track appends one bit a slot, so every such track leaves
+  the same index. So on the one-block buffers the highest track (the
+  parity track) gets a triple peak in frame 40: the dup deletion removes
+  one of its three appended bits, and from there on that track is a bit
+  ahead of the others, and its index one more than theirs. Track 3's
+  gain is raised so that a wrong parity flips a bit. B6's plain version
+  and its host build (g++, as tests/test_torch_kernel_host.py drives
+  it) equal the JAX replay there; the lowest candidate track's index
+  differs from the highest's on many slots (asserted), and the plain
+  version with the lowest track's index (the mutation) no longer equals
+  the JAX replay;
 - decode_tape on tests/test_cli_oracle.py's -correctdbg recipe (0.04 V
   noise, 8% amplitude jitter, three 150-byte blocks, seed 67), and on a
   tape where -correctdbg and -correct differ: the same recipe without
@@ -39,6 +52,7 @@ The JAX reference decodes run once per module (a fixture). Tolerance:
 none.
 """
 
+import ctypes
 import dataclasses
 import functools
 
@@ -53,13 +67,16 @@ from readtape_tpu.decode import nrzi as jnrzi
 from readtape_tpu.decode import pipeline as jpl
 from readtape_tpu.formats import tbin as tb
 from readtape_tpu.synth import default_spec, synthesize_tape
+from readtape_tpu_torch import kernels
 from readtape_tpu_torch.decode import fused as tfu
+from readtape_tpu_torch.decode import nrzi as tnrzi
 from readtape_tpu_torch.decode import pipeline as tpl
 from readtape_tpu_torch.decode import slot as tsl
 
 from test_torch_adjskew import _gcr_tape, _zeros_tape
 from test_torch_cli import _run_both, _same_outputs
 from test_torch_pipeline import COUNTERS, opts_for
+from test_torch_scan import tiered_host_lib  # noqa: F401
 from test_torch_slot import STATE, slot_case
 
 torch.set_num_threads(2)
@@ -147,6 +164,81 @@ def test_slot_debug_correct_matches_jax_replay(name):
         assert (st["faked_tracks"] > 0).all()
     if name == "correct":     # the release check flips it, the DEBUG not
         assert (corr == 0).all() and (release > 0).all()
+
+
+def triple_peak(fin, trans, spb, frame=40, trk=8, gain_trk=3):
+    """slot_case's buffers with, for every parmset, two more transitions of
+    track `trk` 0.1 and 0.2 bit cells after its first one from frame
+    `frame` on (three peaks in one window), and track `gain_trk`'s AGC
+    gain at 5.0, more than twice the AGC's cap of 2 that bounds the
+    others'."""
+    trans = [{k: v.copy() for k, v in tr.items()} for tr in trans]
+    for tr in trans:
+        s, t, agc, n = tr["tr_s"], tr["tr_t"], tr["tr_agc"], tr["counts"]
+        t0 = t[np.argmin(s[:, 0]), 0]
+        j = next(j for j in range(n[trk])
+                 if t[trk, j] > t0 + (frame - 0.5) * spb)
+        assert n[trk] + 2 <= s.shape[1]
+        for buf in (s, t, agc):
+            buf[trk, j + 3:] = buf[trk, j + 1:-2].copy()
+        for i in (1, 2):
+            s[trk, j + i] = s[trk, j] + i
+            t[trk, j + i] = t[trk, j] + np.float32(0.1 * i * spb)
+            agc[trk, j + i] = agc[trk, j]
+        n[trk] += 2
+        agc[gain_trk, :n[gain_trk]] = 5.0
+    return _restack(fin, trans), trans
+
+
+def lowest_complete_byte(cand, idx):
+    """The mutation: the index of the LOWEST track with a peak in the
+    window."""
+    lo = torch.argmax(cand.to(torch.int32), dim=-1)
+    return torch.where(cand.any(dim=-1),
+                       idx.gather(1, lo.unsqueeze(-1)).squeeze(-1), -1)
+
+
+def test_debug_column_is_the_highest_tracks(tiered_host_lib,  # noqa: F811
+                                            monkeypatch):
+    fin, pa, kw, trans, sets = slot_case("1blk")
+    fin, trans = triple_peak(fin, trans, kw["spb"])
+    kw = dict(kw, do_correct=False, correct_debug=True)
+    seen = []
+
+    def spy(cand, idx):
+        seen.append((cand.clone(), idx.clone()))
+        return tnrzi_lcb(cand, idx)
+    tnrzi_lcb = tnrzi.last_complete_byte
+    monkeypatch.setattr(tnrzi, "last_complete_byte", spy)
+    st = tfu.fused_state(tsl.nrzi_slot_scan(fin, pa, **kw))
+    monkeypatch.undo()
+    st = {k: x.numpy() for k, x in st.items()}
+    refs = [jax_debug_slot(tr, p, kw) for p, tr in zip(sets, trans)]
+    for pi, r in enumerate(refs):
+        for k in STATE:
+            np.testing.assert_array_equal(st[k][0, pi], r[k],
+                                          err_msg=f"parmset {pi} {k}")
+        # the parity track ends a bit ahead of the others
+        assert (r["dc"][-1] == r["dc"][:-1] + 1).all()
+    assert (st["corrected_bits"] > 0).all()
+    # the two choices of column differ on many (slot, lane)s
+    differ = sum(int((tnrzi_lcb(c, i) != lowest_complete_byte(c, i)).sum())
+                 for c, i in seen)
+    assert differ > 20
+    # B6's host build (the kernel's DEBUG mode) equals the plain version
+    want = tsl.nrzi_slot_scan_plain(fin, pa, **kw)
+    args, got, keep = kernels.nrzi_slot_prepare(fin["tr_s"], fin, pa, **kw)
+    assert args.do_correct == kernels.NRZI_CORRECT_DEBUG
+    tiered_host_lib.slot_host_run(ctypes.byref(args))
+    del keep
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(),
+                                      err_msg=k)
+    # the LOWEST-track mutation no longer equals the JAX replay
+    monkeypatch.setattr(tnrzi, "last_complete_byte", lowest_complete_byte)
+    mut = tfu.fused_state(tsl.nrzi_slot_scan(fin, pa, **kw))
+    for pi, r in enumerate(refs):
+        assert int(mut["corrected_bits"][0, pi]) != int(r["corrected_bits"])
 
 
 def oracle_tape():

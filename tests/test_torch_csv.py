@@ -1,9 +1,10 @@
 """Float (CSV) tapes in the port against the JAX package, on the CPU:
 
-- the port's read_csv and write_csv (readtape_tpu_torch.formats.csvfmt,
-  numpy only) against readtape_tpu.formats.csvfmt: the same
-  (first time, deltat, volts) bit for bit from one file, and the same
-  file from one array;
+- the port's read_csv and write_csv (readtape_tpu_torch.formats.csvfmt;
+  read_csv through the native scanner where g++ built it, its numpy
+  reader is held in tests/test_torch_csvtbin.py) against
+  readtape_tpu.formats.csvfmt: the same (first time, deltat, volts) bit
+  for bit from one file, and the same file from one array;
 - segment.device_activity against the JAX TapeDecoder's device pass
   (segment.tape_activity, jitted): the height estimate and the per-chunk
   activity mask, exact;

@@ -1,5 +1,6 @@
 """The port stands alone: no module of readtape_tpu_torch (decode/zeros.py,
-formats/csvfmt.py and out/trace.py included), and not chip_smoke.py or the card's A/B
+formats/csvfmt.py, out/trace.py, native.py and the host tools csvtbin.py
+and dumptap.py included), and not chip_smoke.py or the card's A/B
 timing scripts (scripts/*_ab.py), imports jax or anything of the JAX
 package (readtape_tpu).
 The port's own copies of the JAX-free modules (formats, synth) agree with
@@ -70,7 +71,9 @@ def test_importing_the_port_loads_no_jax():
             for m in mods]
     assert {"readtape_tpu_torch.decode.zeros",
             "readtape_tpu_torch.formats.csvfmt",
-            "readtape_tpu_torch.out.trace"} <= set(mods)
+            "readtape_tpu_torch.out.trace", "readtape_tpu_torch.native",
+            "readtape_tpu_torch.csvtbin",
+            "readtape_tpu_torch.dumptap"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
