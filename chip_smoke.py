@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's NRZI, PE, GCR and Whirlwind paths, -zeros and
 float (CSV) tapes included, its command line (-parmscan included), NRZI
--adjskew and -correctdbg, -trace, and the host tools csvtbin and dumptap,
-on one NVIDIA GPU and check them.
+-adjskew and -correctdbg, -trace, the host tools csvtbin and dumptap, and
+the decode mesh (-mesh), on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,9 +13,11 @@ non-zero:
               power limit
   2. build    nvcc builds readtape_tpu_torch/csrc into build/torch_kernels
               (one compiler process per source, all started together)
-  3. kernel   each CUDA kernel against its plain PyTorch version on the
-              card: nrzi_fused_scan on synthesized 9-track segments (B=4,
-              8 parmsets, S=16384, one noisy), with -correct, on 7-track
+  3. kernel   each CUDA kernel on the card against its plain PyTorch
+              version run on a host copy of the same inputs (two to three
+              times faster than on the card): nrzi_fused_scan on
+              synthesized 9-track segments (B=4, 8 parmsets, S=16384, one
+              noisy), with -correct, on 7-track
               segments and on the first batch that phase 4's NRZI decode
               hands it; the tiered NRZI kernels on the same segments:
               nrzi_track_scan (B5a, the 8 parmsets' three window widths;
@@ -39,9 +41,9 @@ non-zero:
               160,000 samples, one weak track, -fluxdir=auto) as
               decode_tape hands it, and again with a rolling-base span
               of 2^14 samples so that the base moves, and on the Whirlwind
-              bench tape as decode_tape hands it, there against the plain
-              version run on a host copy of the same inputs (on the card
-              its ~300,000 events would take many minutes); the -zeros
+              bench tape as decode_tape hands it, timed there and held to
+              the plain version on the first 786,432 samples of the same
+              inputs (4 blocks); the -zeros
               kernels: zerocross_transitions (Z1) plain and
               differentiated and gcr_zeros_scan (Z2) on synthesized
               9-track GCR segments (B=4, S=16384), Z1 at the first launch
@@ -147,6 +149,20 @@ non-zero:
               dumptap -hex -ebcdic on the first .tap (a line per record
               and per tapemark, as in the .tap); csvtbin -read of the
               .tbin (a row per sample); csvtbin's and the CLI's walls
+ 11. mesh     decode_tape under make_decode_mesh([card] * 4, parm_axis=2),
+              a (data 2, parm 2) grid naming the card four times, each
+              entry a shard that runs after the others on the card, warm,
+              the launch counts set to 0 just before and read just after,
+              each launch's B and P printed, the wall beside the
+              one-device wall: the NRZI bench tape (the data axis: B1 at
+              B=64, 64, 17, 17 for the batches of 128 and 34), the noisy
+              PE short-gap tape (the 8-parmset retry over the parm axis
+              too: B2 at P=4) and gcr_parmscan on phase 7's tape cut to
+              128 combos (B3 at B=1 padded to 2, P=32); blocks (for
+              -parmscan the log lines) equal to the one-device run's,
+              and the NRZI blocks to the ground truth. With more than one
+              card, the NRZI bench tape also over make_decode_mesh() of
+              every card; with one, a line says that part was not run
 
 Each phase prints the seconds it took. Then one JSON line describing the
 kernels, the card's name and power limit as nvidia-smi reports them, and a
@@ -949,6 +965,21 @@ def check_equal(name, got, want):
     return err
 
 
+def plain_on_host(plain, *args, **kw):
+    """(plain(*args, **kw) run on host copies of its tensor arguments,
+    its outputs moved back to the card; its ms). The plain versions take
+    a host round trip per step on the card and run two to three times
+    faster on the host, with the same results: their f32 operations
+    round alike on both devices (common.fma, common.fdiv; PERF.md, PR
+    17)."""
+    from readtape_tpu_torch.parallel.mesh import tree_map
+    t0 = time.perf_counter()
+    out = plain(*tree_map(lambda t: t.cpu(), args),
+                **tree_map(lambda t: t.cpu(), kw))
+    ms = (time.perf_counter() - t0) * 1e3
+    return tree_map(lambda t: t.to(DEVICE), out), ms
+
+
 def chain_note(n, what, ms):
     """The longest dependent chain of a launch (n links: admissions,
     slots, steps or events) and the kernel's time per link, for phase
@@ -958,7 +989,8 @@ def chain_note(n, what, ms):
 
 def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw, reps=10):
     """One launch of `kernel` (a decode.fused wrapper's name) against its
-    plain version on the same card inputs, then the mean of reps
+    plain version on a host copy of the same inputs (plain_on_host), then
+    the mean of reps
     launches. Returns a dict with the max abs f32 error, kernel ms, plain
     ms and the bound."""
     import torch
@@ -967,10 +999,7 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw, reps=10):
     plain = getattr(tfu, kernel + "_plain")
     got = kern(volts, seg_lens, leads, pa, **kw)
     sync()
-    t0 = time.perf_counter()
-    want = plain(volts, seg_lens, leads, pa, **kw)
-    sync()
-    t_plain = (time.perf_counter() - t0) * 1e3
+    want, t_plain = plain_on_host(plain, volts, seg_lens, leads, pa, **kw)
     err = check_equal(name, got, want)
     ti = want["trk_i"]
     dc, nadm = {"nrzi_fused_scan": (tfu.TI_DC, tfu.TI_NADM),
@@ -991,9 +1020,9 @@ def compare_kernel(name, kernel, volts, seg_lens, leads, pa, kw, reps=10):
     b_ms, b_by = bound(name, volts, want, kernel_ops(volts, kw, n_adm))
     B, T, S = volts.shape
     print(f"  {name} (B={B} P={len(kw['Ws'])} T={T} S={S}): kernel "
-          f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), {chain_note(chain, what, t_kern)}, equal (max f32 "
-          f"err {err})", flush=True)
+          f"{t_kern:.3f} ms, plain on the host {t_plain:.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {chain_note(chain, what, t_kern)}, "
+          f"equal (max f32 err {err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
                 bound_by=b_by, out=want)
 
@@ -1011,29 +1040,30 @@ def ww_ops(volts, out, W):
     return 2 * T * S * W + 60 * n_adm + 100 * n_ev
 
 
-def compare_ww(name, volts, kw, plain_device=DEVICE, min_blocks=3, reps=3):
+def compare_ww(name, volts, kw, min_blocks=3, reps=3, timed=None):
     """One ww_fused_scan launch on the card against ww_fused_scan_plain
-    on the same inputs, copied to `plain_device` first: every output
-    equal, integers, characters and floats (F32_TOL); at least
-    min_blocks blocks and 1000 characters. Returns compare_kernel's
-    dict."""
-    import torch
+    on host copies of the same inputs: every output equal, integers,
+    characters and floats (F32_TOL); at least min_blocks blocks and 1000
+    characters. timed: other volts (the whole tape, of which `volts` is a
+    prefix) at which the kernel is timed and its bound and chain counted
+    instead. Returns compare_kernel's dict."""
     from readtape_tpu_torch.decode import fused as tfu
     got = tfu.ww_fused_scan(volts, **kw)
     sync()
-    got = {k: v.to(plain_device) for k, v in got.items()}
-    p_volts = volts.to(plain_device)
-    p_kw = {k: v.to(plain_device) if torch.is_tensor(v) else v
-            for k, v in kw.items()}
-    t0 = time.perf_counter()
-    want = tfu.ww_fused_scan_plain(p_volts, **p_kw)
-    sync()
-    t_plain = (time.perf_counter() - t0) * 1e3
+    want, t_plain = plain_on_host(tfu.ww_fused_scan_plain, volts, **kw)
     err = check_equal(name, got, want)
     sc = want["scal"]
     if int(sc[tfu.WS_NBLOCKS]) < min_blocks or \
             int(sc[tfu.WS_DATACOUNT]) < 1000:
         raise AssertionError(f"{name}: the tape decoded too little")
+    note = ""
+    if timed is not None:
+        note = (f" (held to the plain version on the first "
+                f"{volts.shape[1]:,} samples, {int(sc[tfu.WS_NBLOCKS])} "
+                f"blocks)")
+        volts = timed
+        want = tfu.ww_fused_scan(volts, **kw)
+        sc = want["scal"]
     t_kern = time_launches(lambda: tfu.ww_fused_scan(volts, **kw), reps)
     b_ms, b_by = bound(name, volts, want, ww_ops(volts, want, kw["W"]))
     T, S = volts.shape
@@ -1041,8 +1071,8 @@ def compare_ww(name, volts, kw, plain_device=DEVICE, min_blocks=3, reps=3):
     chain = (int(want["trk_i"][:, tfu.WT_STEPS].max())
              + int(sc[tfu.WS_NEVENTS]))
     print(f"  {name} (T={T} S={S} span={kw['span']}): kernel {t_kern:.3f} "
-          f"ms, plain on {plain_device} {t_plain:.1f} ms, bound {b_ms:.4f} "
-          f"ms ({b_by}), {int(sc[tfu.WS_NEVENTS])} events, base "
+          f"ms, plain on the host {t_plain:.1f} ms{note}, bound "
+          f"{b_ms:.4f} ms ({b_by}), {int(sc[tfu.WS_NEVENTS])} events, base "
           f"{int(sc[tfu.WS_BASE])}, "
           f"{chain_note(chain, 'steps + events', t_kern)}, equal (max f32 "
           f"err {err})", flush=True)
@@ -1050,15 +1080,16 @@ def compare_ww(name, volts, kw, plain_device=DEVICE, min_blocks=3, reps=3):
                 bound_by=b_by, out=want)
 
 
+WW_PREFIX = 786_432        # 30% of the WW bench tape's window: 4 blocks
+
+
 def phase_ww_kernel():
     """B4: kernel vs plain on ww_tape, once as the decode gives it
-    (-fluxdir=auto) and once with a rolling-base span of 2^14 samples,
-    the plain version on the card; then on the bench tape as decode_tape
-    hands it (the main path's shape), with the plain version on a host
-    copy of the same inputs: it makes a host round trip per event, and on
-    the card its ~300,000 events would take about 7 minutes, on the host
-    about 1.5. Its f32 operations round alike on both devices (common.fma
-    and common.fdiv)."""
+    (-fluxdir=auto) and once with a rolling-base span of 2^14 samples;
+    then on the bench tape as decode_tape hands it (the main path's
+    shape), timed there, and held to the plain version on the first
+    WW_PREFIX samples of the same inputs: the whole tape's ~300,000
+    events take the plain version about 2 minutes on the host."""
     from readtape_tpu_torch import kernels
     from readtape_tpu_torch.decode import fused as tfu
     res = {}
@@ -1075,7 +1106,8 @@ def phase_ww_kernel():
     _, hdr, samples = ww_bench_tape()
     (volts,), kw = first_call(kernels, "ww_fused", samples, ww_options(hdr))
     t0 = time.perf_counter()
-    res["ww main"] = compare_ww("ww main", volts, kw, plain_device="cpu")
+    res["ww main"] = compare_ww("ww main", volts[:, :WW_PREFIX].contiguous(),
+                                kw, timed=volts)
     print(f"  ww main: the comparison took {time.perf_counter() - t0:.1f} s",
           flush=True)
     return res
@@ -1122,17 +1154,14 @@ def p15_inputs(volts, seg_lens, leads, pa, kw):
 
 def compare_scan(name, kernel, feat, nxt, pa, kw, reps=10):
     """One launch of B5a or B5b (`kernel`) against its plain version on
-    the same card inputs; compare_kernel's dict, with the kernel's
-    outputs as "out". The bound counts each admission's feature row and
-    jump-table entry read once (rejected steps are not counted) and every
-    output written once; ~60 f32 operations per admission."""
+    host copies of the same inputs; compare_kernel's dict, with the
+    kernel's outputs as "out". The bound counts each admission's feature
+    row and jump-table entry read once (rejected steps are not counted)
+    and every output written once; ~60 f32 operations per admission."""
     fn, plain = wrapper(kernel)
     got = fn(feat, nxt, pa, **kw)
     sync()
-    t0 = time.perf_counter()
-    want = plain(feat, nxt, pa, **kw)
-    sync()
-    t_plain = (time.perf_counter() - t0) * 1e3
+    want, t_plain = plain_on_host(plain, feat, nxt, pa, **kw)
     err = check_equal(name, got, want)
     n_adm = int(want["n_admitted"].sum())
     if int(want["n_admitted"].max()) < 150:
@@ -1143,8 +1172,8 @@ def compare_scan(name, kernel, feat, nxt, pa, kw, reps=10):
     G, B, T, S, _ = feat.shape
     chain = int(want["n_admitted"].max())
     print(f"  {name} (B={B} P={len(kw['Ws'])} G={G} T={T} S={S}): kernel "
-          f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), {n_adm} admissions, "
+          f"{t_kern:.3f} ms, plain on the host {t_plain:.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {n_adm} admissions, "
           f"{chain_note(chain, 'admissions', t_kern)}, equal (max f32 err "
           f"{err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
@@ -1152,20 +1181,18 @@ def compare_scan(name, kernel, feat, nxt, pa, kw, reps=10):
 
 
 def compare_slot(name, fin, pa, kw, must_correct=None, reps=10):
-    """One launch of B6 against its plain version on the same buffers;
-    compare_kernel's dict. The bound counts each admitted transition's
-    (s, t, agc) read once, -adjskew's seeds read once and every output
-    written once; ~40 f32 operations per track and slot. must_correct:
+    """One launch of B6 against its plain version on host copies of the
+    same buffers; compare_kernel's dict. The bound counts each admitted
+    transition's (s, t, agc) read once, -adjskew's seeds read once and
+    every output written once; ~40 f32 operations per track and slot.
+    must_correct:
     True, -correct must flip a bit somewhere; a [B, P] bool mask, in
     every lane it holds (at least one)."""
     from readtape_tpu_torch.decode import fused as tfu
     from readtape_tpu_torch.decode import slot
     got = slot.nrzi_slot_scan(fin, pa, **kw)
     sync()
-    t0 = time.perf_counter()
-    want = slot.nrzi_slot_scan_plain(fin, pa, **kw)
-    sync()
-    t_plain = (time.perf_counter() - t0) * 1e3
+    want, t_plain = plain_on_host(slot.nrzi_slot_scan_plain, fin, pa, **kw)
     err = check_equal(name, got, want)
     if int(want["trk_i"][..., tfu.TI_DC].max()) < 150:
         raise AssertionError(f"{name}: segments decoded too little")
@@ -1187,7 +1214,7 @@ def compare_slot(name, fin, pa, kw, must_correct=None, reps=10):
                              f"that needs it")
     chain = int(want["lane_i"][..., tfu.LI_NSLOT].max())
     print(f"  {name} (B={B} P={P} T={T} K={K}): kernel {t_kern:.3f} ms, "
-          f"plain {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"plain on the host {t_plain:.1f} ms, bound {b_ms:.4f} ms ({b_by}), "
           f"{n_slots} slots, {corr} corrected, "
           f"{chain_note(chain, 'slots', t_kern)}, equal (max f32 err "
           f"{err})", flush=True)
@@ -1392,19 +1419,17 @@ def phase_tiered_kernel():
 
 
 def compare_zc(name, volts, seg_lens, leads, kw):
-    """One launch of Z1 against its plain version on the same card
-    inputs; compare_kernel's dict, with the kernel's lists as "out". The
-    bound reads the volts once and writes the lists once; ~5 f32
-    operations (abs, compares, max) per sample. The chain: the plain
+    """One launch of Z1 against its plain version on host copies of the
+    same inputs; compare_kernel's dict, with the kernel's lists as
+    "out". The bound reads the volts once and writes the lists once; ~5
+    f32 operations (abs, compares, max) per sample. The chain: the plain
     variant's pass B, one step per significant phase (a lane's longest
     list); the differentiated variant has no serial pass."""
     from readtape_tpu_torch.decode import zeros
     got = zeros.zerocross_transitions(volts, seg_lens, leads, **kw)
     sync()
-    t0 = time.perf_counter()
-    want = zeros.zerocross_transitions_plain(volts, seg_lens, leads, **kw)
-    sync()
-    t_plain = (time.perf_counter() - t0) * 1e3
+    want, t_plain = plain_on_host(zeros.zerocross_transitions_plain, volts,
+                                  seg_lens, leads, **kw)
     err = check_equal(name, got, want)
     if int(want["ok"].sum(dim=-1).max()) < 150:
         raise AssertionError(f"{name}: too few transitions")
@@ -1416,8 +1441,8 @@ def compare_zc(name, volts, seg_lens, leads, kw):
     chain = ("no serial pass" if kw["differentiated"] else chain_note(
         int(want["valid"].sum(dim=-1).max()), "significant phases", t_kern))
     print(f"  {name} (B={B} T={T} S={S} cap={kw['cap']}): kernel "
-          f"{t_kern:.3f} ms, plain {t_plain:.1f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), {int(want['valid'].sum())} transitions, "
+          f"{t_kern:.3f} ms, plain on the host {t_plain:.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), {int(want['valid'].sum())} transitions, "
           f"{int(want['overflow'].sum())} segments over cap, {chain}, "
           f"equal (max f32 err {err})", flush=True)
     return dict(err=err, ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
@@ -1425,18 +1450,16 @@ def compare_zc(name, volts, seg_lens, leads, kw):
 
 
 def compare_zs(name, trans, pa, kw):
-    """One launch of Z2 against its plain version on the same card
-    inputs; compare_kernel's dict. The bound reads each track's valid
+    """One launch of Z2 against its plain version on host copies of the
+    same inputs; compare_kernel's dict. The bound reads each track's valid
     list entries (t, dt, ok, valid) once and writes the bits and
     per-track fields once; ~30 f32 operations per emitted transition.
     The chain is the longest walker's admitted (emitted) transitions."""
     from readtape_tpu_torch.decode import zeros
     got = zeros.gcr_zeros_scan(trans, pa, **kw)
     sync()
-    t0 = time.perf_counter()
-    want = zeros.gcr_zeros_scan_plain(trans, pa, **kw)
-    sync()
-    t_plain = (time.perf_counter() - t0) * 1e3
+    want, t_plain = plain_on_host(zeros.gcr_zeros_scan_plain, trans, pa,
+                                  **kw)
     err = check_equal(name, got, want)
     if int(want["datacount"].max()) < 150:
         raise AssertionError(f"{name}: segments decoded too little")
@@ -1450,7 +1473,7 @@ def compare_zs(name, trans, pa, kw):
     B, P, T = want["datacount"].shape
     chain = int(want["peakcount"].max())
     print(f"  {name} (B={B} P={P} T={T} cap={trans['t'].shape[-1]}): "
-          f"kernel {t_kern:.3f} ms, plain {t_plain:.1f} ms, bound "
+          f"kernel {t_kern:.3f} ms, plain on the host {t_plain:.1f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}), {n_emit} emitted transitions, "
           f"{chain_note(chain, 'admitted transitions', t_kern)}, equal "
           f"(max f32 err "
@@ -1553,8 +1576,7 @@ def phase_trace_kernel():
     on the NRZI bench tape's window and on the flipped-bit tape's first
     10,000 samples (a parity error inside a block), B2 and B3 with their
     per-admission rows on the PE and GCR bench tapes' windows, B4 with
-    its peak and character times on the Whirlwind bench tape's window
-    (its plain version on a host copy)."""
+    its peak and character times on the Whirlwind bench tape's window."""
     from readtape_tpu_torch import kernels
     from readtape_tpu_torch.formats import tbin as tb
     res = {}
@@ -1588,13 +1610,14 @@ def phase_trace_kernel():
     hdr, samples, opts, (a, b) = trace_tape("ww")
     (volts,), kw = call_of(kernels, "ww_fused",
                            lambda: trace_run(opts, samples, a, b))
-    res["ww trace"] = compare_ww("ww trace", volts, kw, plain_device="cpu",
-                                 min_blocks=1, reps=20)
+    res["ww trace"] = compare_ww("ww trace", volts, kw, min_blocks=1,
+                                 reps=20)
     return res
 
 
 def phase_kernel():
-    """Kernel vs plain on the card. Returns {case: compare_kernel dict}."""
+    """Each kernel on the card against its plain version on a host copy
+    of the inputs. Returns {case: compare_kernel dict}."""
     import torch
     from readtape_tpu_torch.decode import fused as tfu
     from readtape_tpu_torch.formats import tbin as tb
@@ -2541,6 +2564,161 @@ def phase_tools(card, nblocks=TOOLS_BLOCKS):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: -mesh
+# ---------------------------------------------------------------------------
+
+MESH_LAUNCHERS = {"nrzi_fused_scan": "nrzi_fused", "pe_fused_scan": "pe_fused",
+                  "gcr_fused_scan": "gcr_fused"}
+
+
+@contextlib.contextmanager
+def launch_shapes(kernel):
+    """The (B, P) of every launch of `kernel` (a MESH_LAUNCHERS key) while
+    the block runs."""
+    from readtape_tpu_torch import kernels
+    name = MESH_LAUNCHERS[kernel]
+    fn, seen = getattr(kernels, name), []
+
+    def record(volts, seg_lens, leads, pa, **kw):
+        seen.append((volts.shape[0], len(kw["Ws"])))
+        return fn(volts, seg_lens, leads, pa, **kw)
+    setattr(kernels, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(kernels, name, fn)
+
+
+def mesh_vs_one(name, kernel, run, mesh, card):
+    """run() on one device and under `mesh`, each warm and timed; under
+    the mesh with the launch counts set to 0 just before and read just
+    after, and each launch's (B, P) recorded. The mesh is cleared after.
+    Returns (one-device result, mesh result, {kernel: launches},
+    [(B, P) per launch])."""
+    from readtape_tpu_torch.parallel import mesh as pmesh
+
+    def timed():
+        run()
+        sync()
+        t0 = time.perf_counter()
+        r = run()
+        sync()
+        return r, time.perf_counter() - t0
+    one, t_one = timed()
+    pmesh.set_decode_mesh(mesh)
+    try:
+        run()
+        sync()
+        reset_counts()
+        with launch_shapes(kernel) as shapes:
+            t0 = time.perf_counter()
+            got = run()
+            sync()
+            wall = time.perf_counter() - t0
+        launches = check_launches(name, [kernel])
+    finally:
+        pmesh.set_decode_mesh(None)
+    grid = "x".join(str(v) for v in mesh.shape.values())
+    print(f"  {name}: {kernel} launched {launches[kernel]} times under the "
+          f"{grid} mesh, (B, P) per launch {shapes}; wall {wall:.3f} s, one "
+          f"device {t_one:.3f} s ({card})", flush=True)
+    return one, got, launches, shapes
+
+
+def same_blocks(name, one, got, blocks=None, marks=None):
+    """Two decode_tape results block for block and in tried, chosen and
+    peak_hist equal; with `blocks`, the data blocks the ground truth and
+    `marks` tapemarks."""
+    import numpy as np
+    sig = [[(b.kind, b.data, b.parmset, b.tries, b.errcount, b.warncount)
+            for b in r[0]] for r in (one, got)]
+    if sig[0] != sig[1]:
+        raise AssertionError(f"{name}: the mesh's blocks differ from the "
+                             f"one-device decode's")
+    for k in ("tried", "chosen", "peak_hist"):
+        if not np.array_equal(one[1][k], got[1][k]):
+            raise AssertionError(f"{name}: {k} differs under the mesh")
+    if blocks is not None and (
+            [b.data for b in got[0] if b.kind == "data"] != blocks
+            or got[1]["ntapemarks"] != marks):
+        raise AssertionError(f"{name}: not the ground truth")
+
+
+def phase_mesh(card):
+    """-mesh on one card: make_decode_mesh([card] * 4, parm_axis=2), a
+    (data 2, parm 2) grid naming the card four times, each entry a shard
+    of its own. (a) The NRZI bench tape through B1: the data axis, each
+    batch padded to a multiple of 2 and halved (B=128 -> 2 x 64, B=34 ->
+    2 x 17). (b) The noisy PE short-gap tape: the 8-parmset retry splits
+    over the parm axis as well (B2 at P=4). (c) gcr_parmscan on phase 7's
+    one-block tape, cut to 128 combos: B3 at B=1 padded to 2, P=64 split
+    in 2 x 32. Each against the one-device run: blocks (for -parmscan the
+    log lines) equal, and the ground truth where the tape has one. With
+    more than one card, the NRZI bench tape also over make_decode_mesh()
+    of every card. Returns {kernel: launches under the mesh}."""
+    import torch
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.formats import tbin as tb
+    from readtape_tpu_torch.parallel import mesh as pmesh
+    card_dev = torch.empty(0, device=DEVICE).device
+    mesh = pmesh.make_decode_mesh([card_dev] * 4, parm_axis=2)
+    launches = {}
+    blocks, hdr, samples = bench_tape()
+    opts = tape_options(hdr, tb.MODE_NRZI, 800)
+
+    def nrzi():
+        return tpl.decode_tape(samples, opts, device=DEVICE)
+    one, got, n, shapes = mesh_vs_one("(a) NRZI bench", "nrzi_fused_scan",
+                                      nrzi, mesh, card)
+    same_blocks("(a) NRZI bench", one, got, blocks, 2)
+    if sorted(shapes) != [(17, 1), (17, 1), (64, 1), (64, 1)]:
+        raise AssertionError(f"(a) NRZI bench: launches {shapes}")
+    launches.update(n)
+
+    hdr, samples = pe_short_gap_tape()
+    pe_opts = tape_options(hdr, tb.MODE_PE, 1600)
+    one, got, n, shapes = mesh_vs_one(
+        "(b) PE short gap, 0.06 V noise", "pe_fused_scan",
+        lambda: tpl.decode_tape(samples, pe_opts, device=DEVICE), mesh, card)
+    same_blocks("(b) PE short gap", one, got)
+    if 4 not in {p for _, p in shapes} or {p for _, p in shapes} - {1, 4}:
+        raise AssertionError(f"(b) PE short gap: launches {shapes}; no "
+                             f"parm shard of P=4")
+    launches.update(n)
+
+    block, hdr, samples = parmscan_tape()
+    ps_opts = tape_options(hdr, tb.MODE_GCR, 9042, 25)
+    span = tpl.TapeDecoder(samples, ps_opts, device=DEVICE).segments()[0]
+    grid = tpl.parmscan_grid()[:128]
+
+    def scan():
+        lines = []
+        tpl.gcr_parmscan(tpl.TapeDecoder(samples, ps_opts, device=DEVICE),
+                         span, lines.append, combos=grid)
+        return lines
+    one, got, n, shapes = mesh_vs_one("(c) -parmscan, 128 combos",
+                                      "gcr_fused_scan", scan, mesh, card)
+    if got != one or len(got) != 128:
+        raise AssertionError("(c) -parmscan: the mesh's lines differ")
+    if shapes != [(1, 32)] * 8:
+        raise AssertionError(f"(c) -parmscan: launches {shapes}")
+    launches.update(n)
+
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        blocks, hdr, samples = bench_tape()
+        one, got, n, shapes = mesh_vs_one(
+            f"(d) NRZI bench over all {cards} cards", "nrzi_fused_scan",
+            nrzi, pmesh.make_decode_mesh(), card)
+        same_blocks("(d) NRZI bench, every card", one, got, blocks, 2)
+    else:
+        print("  (d) NRZI bench over every card: not run, "
+              "torch.cuda.device_count() is 1 (the grids above name the "
+              "one card four times)", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # breakdown: where a bench decode's wall goes
 # ---------------------------------------------------------------------------
 
@@ -3148,9 +3326,18 @@ def main():
           f"the card and dumped by dumptap, through the port alone, "
           f"launches {n} ({card})", flush=True)
     print(f"  phase 10 took {lap():.1f} s", flush=True)
+    try:
+        n = phase_mesh(card)
+    except AssertionError as e:
+        fail("mesh", str(e))
+    print(f"phase 11 mesh: ok, the NRZI bench (data axis), the noisy PE "
+          f"short-gap tape (parm axis) and 128 -parmscan combos under a "
+          f"2x2 mesh of the card equal to one device, launches {n} "
+          f"({card})", flush=True)
+    print(f"  phase 11 took {lap():.1f} s", flush=True)
     if any(m == "jax" or m.startswith("jax.") or m == "readtape_tpu"
            or m.startswith("readtape_tpu.") for m in sys.modules):
-        fail("tools", "jax or the JAX package was imported")
+        fail("mesh", "jax or the JAX package was imported")
 
     line = []
     for name, main_case in (("nrzi_fused_scan", "nrzi main"),

@@ -14,9 +14,11 @@ the card; the Python entry ``main(argv, device="cpu")`` runs it on the CPU
 CPU when the card is asked for and missing: the run raises before it
 writes anything.
 
-Not ported yet, and raising NotImplementedError before any file is read:
--mesh with more than one card visible (with one, it is ignored, as the
-JAX command line does).
+-mesh[=DxP] shards the segment batches over the first D x P visible cards
+(all of them for a bare -mesh) as a (data, parm) grid
+(parallel/mesh.py); with one card it is ignored, as the JAX command line
+does. A decode mesh whose devices are not of the decode's type raises
+ValueError before any file is read or written.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ options include:
   -sumt= -sumc= -m -nm -v[n] -q -f
   -adjskew -correctdbg (-correct with the reference DEBUG build's parity
   index) -trace[=a[,b]] (<base>.trace.csv of samples [0, 10000) or seconds
-  a to b, b = a + 0.01 if absent) -mesh[=DxP] (ignored with one card; more
-  than one is not ported yet)
+  a to b, b = a + 0.01 if absent) -mesh[=DxP] (shard segment batches over
+  D x P devices)
 """
 
 
@@ -377,16 +379,28 @@ def main(argv=None, *, device="cuda", kernel_path="fused") -> int:
 
 def process_file(o: Options, basefile: str, ext: str, *, device="cuda",
                  kernel_path="fused") -> bool:
+    mesh_line = None
     if not (o.tapread or ext.lower() == ".tap"):
         # before any file is read or written: no fallback from a missing
-        # card, and nothing done for what the port does not run yet
-        import torch
-
+        # card, and no mesh of devices of another type
         from .decode.pipeline import check_device
+        from .parallel import mesh as pmesh
         dev = check_device(device)
-        cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-        if o.mesh is not None and cards > 1:
-            raise NotImplementedError("-mesh")
+        if o.mesh is not None:
+            devs = pmesh.visible_devices(dev)
+            if len(devs) > 1:
+                parm = o.mesh[1] if o.mesh != (1, 1) else 1
+                n = (o.mesh[0] * o.mesh[1] if o.mesh != (1, 1)
+                     else len(devs))
+                pmesh.set_decode_mesh(pmesh.make_decode_mesh(
+                    devs[:n], parm_axis=parm))
+                mesh_line = (f"  sharding segment batches over {n} devices "
+                             f"(parm axis {parm})")
+            else:
+                mesh_line = "  -mesh ignored: only one device visible"
+        mesh, _ = pmesh.get_decode_mesh()
+        if mesh is not None:
+            mesh.check_type(dev)
     outbase = o.outf or (o.outp + basefile)  # ref concatenates the
     # given path+basename verbatim (readtape.c:1972-1975), so with no
     # -outp/-outf the outputs land next to the input file
@@ -487,8 +501,8 @@ def process_file(o: Options, basefile: str, ext: str, *, device="cuda",
             if o.ntrks <= 0:
                 o.ntrks = len(head_to_trk)
 
-    if o.mesh is not None:
-        log.info("  -mesh ignored: only one device visible")
+    if mesh_line is not None:
+        log.info(mesh_line)
 
     from .decode.pipeline import DecodeOptions, TapeDecoder, decode_tape
     dopts = DecodeOptions(

@@ -90,6 +90,11 @@ class ParmArrays:
             out[f.name] = torch.as_tensor(arr, device=device)
         return ParmArrays(**out)
 
+    def to(self, device) -> "ParmArrays":
+        """A copy on `device` (a decode mesh's shard device)."""
+        return ParmArrays(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
     def select(self, idx) -> "ParmArrays":
         """The parmsets at `idx` (a list of indices), in that order."""
         ix = torch.as_tensor(list(idx), dtype=torch.long,

@@ -40,6 +40,11 @@ parmsets, B6 running the DEBUG build's -correct.
 window, parmset 0, the kernels in their record modes (B5b then B6, B2,
 B3, B4), as the JAX package's functions of those names compute them.
 
+Under a decode mesh (parallel/mesh.py) each segment batch splits over a
+(data, parm) grid of devices, every shard launching the same kernels on
+its own device, and the results join on the host; the mesh changes no
+output.
+
 A tape of unknown density (bpi <= 0; NRZI and PE, as the JAX command line
 detects it) first goes through ``TapeDecoder.detect_density``. With a
 ``log``, GCR's -parmscan grid (``gcr_parmscan``) runs over the leading
@@ -67,6 +72,7 @@ import torch
 
 from ..formats import tbin as tb
 from ..formats.parms import ParmSets, builtin_parmsets
+from ..parallel import mesh as pmesh
 
 from . import common as cm
 from . import fused as fused_mod
@@ -431,9 +437,14 @@ def _nrzi_group_zeros(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     return _nrzi_results(out, T, expected_parity, revparity, maxb)
 
 
-def _fetch(res: dict) -> dict:
+def _fetch(res) -> dict:
     """Device results -> host numpy, in one round trip: every field packs
-    into one int32 and one float32 tensor before the copy."""
+    into one int32 and one float32 tensor before the copy. A mesh's grid
+    of shard results comes back one round trip per shard, joined on the
+    host along P, then B."""
+    if isinstance(res, list):
+        return pmesh.gather([[_fetch(r) for r in row] for row in res],
+                            lambda parts, axis: np.concatenate(parts, axis))
     B, P = res["blktype"].shape[:2]
     ints, flts, layout = [], [], []
     for k in sorted(res):
@@ -591,7 +602,12 @@ class TapeDecoder:
     volts; activity and the height estimate come from the host for int16
     (segment.host_activity), from the device for volts
     (segment.device_activity). kernel_path: "fused" (B1) or, for NRZI,
-    "tiered" (B5 then B6)."""
+    "tiered" (B5 then B6).
+
+    Under a decode mesh (parallel.mesh.get_decode_mesh, read here) the
+    tape is resident on every distinct device of the mesh, and the
+    decoder's own device is the mesh's first: density detection and
+    -trace run there, the activity scan and height estimate once."""
 
     def __init__(self, samples: np.ndarray, opts: DecodeOptions, *,
                  device="cuda", kernel_path: str = "fused"):
@@ -599,7 +615,7 @@ class TapeDecoder:
         if opts.mode == tb.MODE_WW:
             raise ValueError("a Whirlwind tape decodes whole: call "
                              "decode_tape")
-        self.device = _device(device, samples)
+        self.device, self.mesh = _placement(device, samples)
         self.opts = opts
         self.kernel_path = kernel_path
         samples = permute_heads(samples, opts.head_to_trk)
@@ -607,6 +623,11 @@ class TapeDecoder:
         self.tape, self.h_est, self._act = _resident_tape(
             samples, opts.maxvolts, self.device,
             max(1, (self.n_samples * opts.ntrks) // 2_000_000))
+        # the other devices of the mesh: a copy of the tape each, and the
+        # parmsets copied when a shard first needs them (_pa_on)
+        self._tapes = {d: self.tape.to(d) for d in
+                       (self.mesh.distinct()[1:] if self.mesh else [])}
+        self._pas = {}
         self.pa = ParmArrays.from_parmsets(opts.parmsets, self.device)
         self.P = len(opts.parmsets)
         self.skew = np.zeros(opts.ntrks, np.int32)
@@ -665,36 +686,97 @@ class TapeDecoder:
                 self.tape, (0, n_pad - self.tape.shape[1]))
         return self.tape
 
+    def _tape_on(self, dev):
+        """The resident tape on mesh device `dev`, padded as far as the
+        decoder's own."""
+        if dev == self.device:
+            return self.tape
+        t = self._tapes[dev]
+        if t.shape[1] < self.tape.shape[1]:
+            t = self._tapes[dev] = torch.nn.functional.pad(
+                t, (0, self.tape.shape[1] - t.shape[1]))
+        return t
+
+    def _pa_on(self, dev):
+        """self.pa on mesh device `dev` (copied again whenever self.pa is
+        replaced, as gcr_parmscan does)."""
+        if dev == self.device:
+            return self.pa
+        src, pa = self._pas.get(dev, (None, None))
+        if src is not self.pa:
+            pa = self.pa.to(dev)
+            self._pas[dev] = (self.pa, pa)
+        return pa
+
     def dispatch_segment_batch(self, spans, bucket=None, nparms=None,
                                parm_sel=None, adj_init=None,
                                correctdbg=False):
         """Enqueue the decode of a batch of segments (one kernel launch for
-        all of them and the first nparms parmsets); returns device
-        results with leading [B, P] axes, for _fetch to bring to the host.
+        all of them and the first nparms parmsets, per shard under a decode
+        mesh); returns device results with leading [B, P] axes, or under a
+        mesh a grid of them (rows of shards, parallel.mesh.DecodeMesh.cells),
+        for _fetch to bring to the host.
 
         parm_sel: a tuple of parmset indices instead of the nparms prefix.
         NRZI only: adj_init=(n0 [T], mean0 [T]) seeds -adjskew's
         accumulators (results gain adj_n, adj_mean, t_bitspaceavg);
         correctdbg runs -correct as the DEBUG build does. Either takes
         the JAX package's XLA group: the tiered kernels under the XLA
-        scan's admission step budget, whatever the kernel path."""
+        scan's admission step budget, whatever the kernel path.
+
+        Under a mesh the batch pads to a multiple of its data axis by
+        repeating the last span (callers index results by chunk position
+        and never read the pad lanes), each data row decodes a contiguous
+        slice of it, and when every parmset shares one window width the
+        parmsets split over the parm axis as well (not under -zeros or
+        -adjskew), as the JAX package shards its batches."""
         opts = self.opts
         if parm_sel is not None:
             sel = list(parm_sel)
-            active = [opts.parmsets.sets[k] for k in sel]
-            pa = self.pa.select(sel)
         else:
-            nparms = self.P if nparms is None else min(nparms, self.P)
-            active = opts.parmsets.sets[:nparms]
-            pa = (self.pa if nparms == self.P
-                  else self.pa.select(range(nparms)))
+            sel = list(range(self.P if nparms is None
+                             else min(nparms, self.P)))
+        active = [opts.parmsets.sets[k] for k in sel]
+        mesh = self.mesh
+        if mesh is not None:
+            spans = list(spans)
+            spans += [spans[-1]] * (-len(spans) % mesh.shape["data"])
+        S = bucket or seg.bucket_length(max(b - max(a - SEG_WARMUP, 0)
+                                            for a, b in spans))
+        self._tape_padded(max(max(a - SEG_WARMUP, 0) for a, b in spans) + S)
+        Ws = tuple(cm.pkww_width_for(p.pkww_bitfrac, opts.bpi, opts.ips,
+                                     opts.deltat) for p in active)
+        # the peak floors come from every active parmset, on every shard
+        floors = (min(p.pkww_rise for p in active),
+                  min(p.min_peak for p in active))
+        if mesh is None:
+            return self._dispatch_shard(self.device, spans, sel, S, floors,
+                                        adj_init, correctdbg)
+        shard_parm = (mesh.shape["parm"] > 1 and len(set(Ws)) == 1
+                      and len(sel) % mesh.shape["parm"] == 0
+                      and not opts.find_zeros and adj_init is None)
+        grid = [[self._dispatch_shard(dev, spans[bs], sel[ps], S, floors,
+                                      adj_init, correctdbg)
+                 for dev, bs, ps in row]
+                for row in mesh.cells(len(spans), len(sel), shard_parm)]
+        return grid[0][0] if len(grid) == len(grid[0]) == 1 else grid
+
+    def _dispatch_shard(self, dev, spans, sel, S, floors, adj_init,
+                        correctdbg):
+        """dispatch_segment_batch's launches for one shard: the segments
+        `spans` and parmsets `sel` on device `dev`, from the tape and
+        parmsets resident there; S and the peak floors are the whole
+        batch's."""
+        opts = self.opts
+        active = [opts.parmsets.sets[k] for k in sel]
+        pa = self._pa_on(dev)
+        if sel != list(range(self.P)):
+            pa = pa.select(sel)
 
         def a0(a):
             return max(a - SEG_WARMUP, 0)
-        S = bucket or seg.bucket_length(max(b - a0(a) for a, b in spans))
         T = opts.ntrks
-        tape = self._tape_padded(max(a0(a) for a, b in spans) + S)
-        dev = self.device
+        tape = self._tape_on(dev)
         offsets = torch.as_tensor([a0(a) for a, b in spans], device=dev)
         seg_lens = torch.as_tensor([b - a0(a) for a, b in spans],
                                    dtype=I32, device=dev)
@@ -711,8 +793,7 @@ class TapeDecoder:
         max_slots = int(S / spb * 1.25) + 48
 
         scale = min(1.0, self.h_est / cm.PKWW_PEAKHEIGHT)
-        rise_min = min(p.pkww_rise for p in active)
-        minp_min = min(p.min_peak for p in active)
+        rise_min, minp_min = floors
         rise_floor = torch.full(
             (T,), rise_min * scale / cm.AGC_MAX_VALUE * 0.8, dtype=F32,
             device=dev)
@@ -1045,13 +1126,21 @@ def check_device(device) -> torch.device:
     return device
 
 
-def _device(device, samples: np.ndarray) -> torch.device:
-    """The decode's device, after the checks every entry point makes."""
+def _placement(device, samples: np.ndarray):
+    """(the decode's device, the decode mesh or None), after the checks
+    every entry point makes. Under a mesh every device of it must be of
+    `device`'s type (ValueError otherwise: no shard runs elsewhere), and
+    the decode's own device is the mesh's first, where what is not
+    sharded runs (Whirlwind, -trace, density detection)."""
     device = check_device(device)
     if samples.dtype not in (np.int16, np.float32):
         raise ValueError(f"{samples.dtype} samples: int16 samples or "
                          "float32 volts")
-    return device
+    mesh, _ = pmesh.get_decode_mesh()
+    if mesh is None:
+        return device, None
+    mesh.check_type(device)
+    return mesh.first, mesh
 
 
 def decode_tape(samples: np.ndarray, opts: DecodeOptions, log=None, *,
@@ -1069,7 +1158,9 @@ def decode_tape(samples: np.ndarray, opts: DecodeOptions, log=None, *,
     is then (standard, raw estimate)."""
     if opts.mode == tb.MODE_WW:
         check_supported(opts, kernel_path)
-        return _decode_tape_ww(samples, opts, _device(device, samples))
+        # unsharded, on the mesh's first device under a mesh
+        return _decode_tape_ww(samples, opts,
+                               _placement(device, samples)[0])
     dec = (decoder if decoder is not None
            else TapeDecoder(samples, opts, device=device,
                             kernel_path=kernel_path))
@@ -1668,7 +1759,7 @@ def ww_trace_lanes(samples, opts: DecodeOptions, a: int, b: int, *,
     for pos, trkn in enumerate(perm):
         cols[trkn] = pos
     samples = np.ascontiguousarray(samples[a:b][:, cols])
-    dev = _device(device, samples)
+    dev = _placement(device, samples)[0]
     T = ntrks
     S = seg.bucket_length(b - a)
     v = torch.from_numpy(samples).to(dev).T.contiguous()        # [T, b-a]

@@ -252,6 +252,17 @@ def load():
     return lib
 
 
+def _require_on(dev, tensors: dict):
+    """Raise ValueError naming each tensor of `tensors` (argument field ->
+    value) that is not on the launch's device: its pointer would be read
+    as another device's memory. Values that are not tensors pass."""
+    bad = [k for k, v in tensors.items()
+           if torch.is_tensor(v) and v.device != dev]
+    if bad:
+        raise ValueError(f"{', '.join(bad)}: not on the launch's device "
+                         f"{dev}")
+
+
 def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
              min_floor, knobs, scratch, out, **scalars):
     """Allocate one launch's scratch and outputs on volts' device and fill
@@ -263,6 +274,10 @@ def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
     dev = volts.device
     B, T, S = volts.shape
     wset = sorted(set(Ws))
+    knobs = {f: getattr(pa, n) for f, n in dict(_KNOBS, **knobs).items()}
+    _require_on(dev, dict(seg_len=seg_lens, lead=leads,
+                          rise_floor=rise_floor, min_floor=min_floor,
+                          **knobs))
 
     def put(x, dt):
         return torch.as_tensor(x, dtype=dt, device=dev).contiguous()
@@ -270,8 +285,7 @@ def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
                lead=put(leads, I32), p_w=put(list(Ws), I32),
                wset=put(wset, I32), rise_floor=put(rise_floor, F32),
                min_floor=put(min_floor, F32))
-    for field, name in dict(_KNOBS, **knobs).items():
-        x = getattr(pa, name)
+    for field, x in knobs.items():
         ins[field] = put(x, x.dtype)
     scratch = {k: torch.empty(shape, dtype=dt, device=dev)
                for k, (shape, dt) in scratch.items()}
@@ -328,8 +342,10 @@ def nrzi_fused(volts, seg_lens, leads, pa, **kw):
 
 def _knob_tensors(pa, dev, **fields):
     """The parmset knobs a kernel reads (argument field -> ParmArrays
-    field), each a contiguous tensor on dev."""
-    return {f: getattr(pa, n).to(dev).contiguous() for f, n in fields.items()}
+    field), each a contiguous tensor on dev (ValueError if one is not)."""
+    knobs = {f: getattr(pa, n) for f, n in fields.items()}
+    _require_on(dev, knobs)
+    return {f: x.contiguous() for f, x in knobs.items()}
 
 
 def nrzi_scan_prepare(feat, nxt, pa, *, Ws, K, max_steps):
@@ -340,6 +356,7 @@ def nrzi_scan_prepare(feat, nxt, pa, *, Ws, K, max_steps):
     G, B, T, S, _ = feat.shape
     P = len(Ws)
     wset = sorted(set(Ws))
+    _require_on(dev, dict(nxt=nxt))
     ins = dict(feat=feat.contiguous(), nxt=nxt.to(I32).contiguous(),
                grp=torch.as_tensor([wset.index(w) for w in Ws], dtype=I32,
                                    device=dev),
@@ -386,9 +403,13 @@ def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
     and "col_slot")."""
     dev = tr_s.device
     B, P, T, K = tr_s.shape
-    ins = {k: fin[k].contiguous() for k in (
+    ins = {k: fin[k] for k in (
         "tr_s", "tr_t", "tr_agc", "n_admitted", "max_agc_gain",
         "min_agc_gain", "incomplete")}
+    _require_on(dev, ins)
+    for x in adj_init or ():
+        _require_on(dev, dict(adj0=x))
+    ins = {k: v.contiguous() for k, v in ins.items()}
     ins.update(_knob_tensors(pa, dev, p_clk_window="clk_window",
                              p_clk_alpha="clk_alpha",
                              p_pulse_adj="pulse_adj", p_midbit="midbit"))
@@ -398,7 +419,7 @@ def nrzi_slot_prepare(tr_s, fin, pa, *, S, spb, expected_parity,
                trk_f=torch.empty((B, P, T, 4), dtype=F32, device=dev),
                lane_i=torch.empty((B, P, 6), dtype=I32, device=dev))
     if adj_init is not None:
-        ins["adj0"] = torch.stack([x.to(dev, F32) for x in adj_init],
+        ins["adj0"] = torch.stack([x.to(F32) for x in adj_init],
                                   dim=-1).contiguous()
         out["adj"] = torch.empty((B, P, T, 2), dtype=F32, device=dev)
         out["bitspace"] = torch.empty((B, P), dtype=F32, device=dev)
@@ -571,6 +592,8 @@ def ww_prepare(volts, *, W, rise_floor, min_floor, v_avg_height, parms, spb,
     outputs too."""
     dev = volts.device
     T, S = volts.shape
+    _require_on(dev, dict(rise_floor=rise_floor, min_floor=min_floor,
+                          vah=v_avg_height))
 
     def put(x):
         return torch.as_tensor(x, dtype=F32, device=dev).contiguous()
@@ -641,9 +664,10 @@ def zerocross_prepare(volts, seg_lens, leads, *, cap, differentiated):
     with n_found [B, T] in place of overflow."""
     dev = volts.device
     B, T, S = volts.shape
+    _require_on(dev, dict(seg_len=seg_lens, lead=leads))
     ins = dict(volts=volts.contiguous(),
-               seg_len=seg_lens.to(device=dev, dtype=I32).contiguous(),
-               lead=leads.to(device=dev, dtype=I32).contiguous())
+               seg_len=seg_lens.to(dtype=I32).contiguous(),
+               lead=leads.to(dtype=I32).contiguous())
     shape = (B, T, cap)
     out = dict(t=torch.empty(shape, dtype=F32, device=dev),
                ok=torch.empty(shape, dtype=torch.bool, device=dev),
@@ -681,7 +705,9 @@ def gcr_zeros_prepare(t, trans, pa, *, spb, maxb):
     ring = max(1, int(pa.clk_window.max()))    # each walker's clock ring
     if ring > NRZI_MAX_CLK_RING:
         raise ValueError("clk_window beyond the kernel's ring")
-    ins = {k: trans[k].contiguous() for k in ("t", "dt", "ok", "valid")}
+    ins = {k: trans[k] for k in ("t", "dt", "ok", "valid")}
+    _require_on(dev, ins)
+    ins = {k: v.contiguous() for k, v in ins.items()}
     ins.update(_knob_tensors(pa, dev, p_clk_window="clk_window",
                              p_clk_alpha="clk_alpha", p_z1pt="z1pt",
                              p_z2pt="z2pt", p_pulse_adj="pulse_adj"))

@@ -409,19 +409,6 @@ def test_no_card_no_output(tmp_path):
     assert os.listdir(tmp_path) == ["t.tbin"]
 
 
-def test_mesh_with_more_than_one_card_raises_before_reading(tmp_path,
-                                                           monkeypatch):
-    """-mesh with more than one card visible (more than one GPU is not
-    ported yet) raises NotImplementedError before any file is read or
-    written; the card count is faked, since the check comes first."""
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="-mesh"):
-        tcli.main(["-nrzi", "-mesh", "missing"])
-    assert os.listdir(tmp_path) == []
-
-
 @pytest.mark.parametrize("opt,name", [("-adjskew", "-adjskew"),
                                       ("-correctdbg", "-correctdbg"),
                                       ("-trace", "-trace")])
