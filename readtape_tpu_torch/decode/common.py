@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import telemetry
+
 F32 = torch.float32
 I32 = torch.int32
 
@@ -97,8 +99,9 @@ class ParmArrays:
 
     def select(self, idx) -> "ParmArrays":
         """The parmsets at `idx` (a list of indices), in that order."""
-        ix = torch.as_tensor(list(idx), dtype=torch.long,
-                             device=self.clk_window.device)
+        with telemetry.wait("parm_select"):
+            ix = torch.as_tensor(list(idx), dtype=torch.long,
+                                 device=self.clk_window.device)
         return ParmArrays(**{f.name: getattr(self, f.name)[ix]
                              for f in dataclasses.fields(self)})
 

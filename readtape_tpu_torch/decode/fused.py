@@ -98,7 +98,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from . import common as cm
 from . import gcr as gcr_mod
 from . import pe as pe_mod
@@ -181,11 +181,15 @@ def _dispatch(name, plain, launch, check, volts, seg_lens, leads, pa, args):
         return plain(volts, seg_lens, leads, pa, **args), False
     if volts.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {volts.device}")
-    check()
-    if int(pa.agc_window.max()) > MAX_AGC_RING or \
-            int(pa.clk_window.max()) > MAX_CLK_RING:
-        raise ValueError("agc_window/clk_window beyond the kernel's rings")
-    return launch(volts, seg_lens, leads, pa, **args), True
+    with telemetry.span("launch." + name):
+        telemetry.count("launches." + name)
+        check()
+        with telemetry.wait("ring_check", 2):
+            rings = int(pa.agc_window.max()), int(pa.clk_window.max())
+        if rings[0] > MAX_AGC_RING or rings[1] > MAX_CLK_RING:
+            raise ValueError("agc_window/clk_window beyond the kernel's "
+                             "rings")
+        return launch(volts, seg_lens, leads, pa, **args), True
 
 
 def _check(volts, seg_lens, leads, Ws, rise_floor, K, maxb, max_slots,
@@ -721,7 +725,9 @@ def ww_fused_scan(volts, *, W, rise_floor, min_floor, v_avg_height, parms,
         raise ValueError(f"ww_fused_scan: no kernel for {volts.device}")
     _check_ww(volts, args["W"], rise_floor, v_avg_height, parms, K, maxchars,
               maxblocks, args["fluxdir"], args["roles"], span)
-    out = kernels.ww_fused(volts, **args)
+    with telemetry.span("launch.ww_fused_scan"):
+        telemetry.count("launches.ww_fused_scan")
+        out = kernels.ww_fused(volts, **args)
     ww_fused_scan.launches += 1
     return out
 

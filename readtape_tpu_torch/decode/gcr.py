@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import common as cm
 from . import gcr_tables as gt
 from . import trackscan
@@ -811,6 +812,7 @@ def gcr_postprocess(bits, maxbits, expected_parity: int, do_correct: bool,
                 corrected_bits=i32(corrected), first_error=i32(first_error))
 
 
+@telemetry.spanned("finish")
 def gcr_finish(st, T: int, expected_parity: int, revparity: int,
                do_correct: bool, maxb: int, do_correct2: bool = False):
     """gcr_end_of_block (decode_gcr.c:682-729), batched over the leading
@@ -829,8 +831,9 @@ def gcr_finish(st, T: int, expected_parity: int, revparity: int,
     avg_sp = seq_sum(spacing) * float(np.float32(1) / np.float32(T))
 
     is_noise = maxbits <= 10
-    live = torch.tensor([1, 0, 1, 0, 0, 1, 1, 1, 1], dtype=torch.bool,
-                        device=dev)
+    with telemetry.wait("const_upload"):
+        live = torch.tensor([1, 0, 1, 0, 0, 1, 1, 1, 1], dtype=torch.bool,
+                            device=dev)
     is_tm = ((~is_noise) &
              torch.where(live, (dc >= 250) & (dc <= 400), True).all(dim=-1) &
              torch.where(~live, pc <= 2, True).all(dim=-1))

@@ -27,6 +27,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import common as cm
 from .common import F32, I32
 
@@ -104,7 +105,8 @@ def xor_fold(vals: torch.Tensor) -> torch.Tensor:
 
 def crc9_of_frames(frames: torch.Tensor, n) -> torch.Tensor:
     """CRC over frames[..., 0:n] (frames: int32 [..., M], n: [...])."""
-    table = torch.as_tensor(_crc_power_table(), device=frames.device)
+    with telemetry.wait("const_upload"):
+        table = torch.as_tensor(_crc_power_table(), device=frames.device)
     C = table.shape[0]
     M = frames.shape[-1]
     n = torch.as_tensor(n, device=frames.device)
@@ -431,6 +433,7 @@ def nrzi_slot_scan(trans_s, trans_t, trans_agc, counts, S: int, spb: float,
 # end-of-block processing (nrzi_end_of_block + nrzi_postprocess)
 # ---------------------------------------------------------------------------
 
+@telemetry.spanned("finish")
 def nrzi_finish(st, ntrks: int, expected_parity: int, revparity: int,
                 maxb: int):
     """Block classification + CRC/LRC/parity checks, batched over the

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import common as cm
 from . import trackscan
 from .common import F32, I32
@@ -412,6 +413,7 @@ def pe_apply_tau(fin, maxb: int, tau):
     return out
 
 
+@telemetry.spanned("finish")
 def pe_finish(st, T: int, expected_parity: int, revparity: int, maxb: int):
     """Block assembly (decode_pe.c:33-102): tapemark test, postamble
     strip, parity count, batched over the leading lane axes of st
@@ -422,8 +424,9 @@ def pe_finish(st, T: int, expected_parity: int, revparity: int, maxb: int):
     pc = st["peakcount"]
 
     if T == 9:
-        live = torch.tensor([1, 0, 1, 0, 0, 1, 1, 1, 1], dtype=torch.bool,
-                            device=dev)
+        with telemetry.wait("const_upload"):
+            live = torch.tensor([1, 0, 1, 0, 0, 1, 1, 1, 1],
+                                dtype=torch.bool, device=dev)
         is_tm = (torch.where(live, (dc <= 2) & (pc > 75), True).all(dim=-1)
                  & torch.where(~live, pc <= 2, True).all(dim=-1))
     else:

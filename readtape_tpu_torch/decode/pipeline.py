@@ -70,6 +70,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..formats import tbin as tb
 from ..formats.parms import ParmSets, builtin_parmsets
 from ..parallel import mesh as pmesh
@@ -209,6 +210,7 @@ def _prep_volts(v_i16, maxvolts, invert_sign, skew_delay, *,
     return torch.gather(v, -1, idx.expand(v.shape))
 
 
+@telemetry.spanned("dispatch.prep")
 def _segment_volts(tape, offsets, S, maxvolts, invert_sign, skew_delay,
                    differentiate, spb_int, skew_on):
     """The batch's segment windows [B, T, S] cut from the resident tape
@@ -437,6 +439,7 @@ def _nrzi_group_zeros(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
     return _nrzi_results(out, T, expected_parity, revparity, maxb)
 
 
+@telemetry.spanned("fetch")
 def _fetch(res) -> dict:
     """Device results -> host numpy, in one round trip: every field packs
     into one int32 and one float32 tensor before the copy. A mesh's grid
@@ -459,8 +462,10 @@ def _fetch(res) -> dict:
             layout.append((k, "i", sum(t.shape[-1] for t in ints),
                            flat.shape[-1], tail, x.dtype))
             ints.append(flat.to(I32))
-    hi = torch.cat(ints, dim=-1).cpu().numpy()
-    hf = torch.cat(flts, dim=-1).cpu().numpy()
+    hi, hf = torch.cat(ints, dim=-1), torch.cat(flts, dim=-1)
+    telemetry.count("d2h_bytes", hi.nbytes + hf.nbytes)
+    with telemetry.wait("fetch", 2):
+        hi, hf = hi.cpu().numpy(), hf.cpu().numpy()
     out = {}
     for k, kind, off, n, tail, dt in layout:
         a = (hi if kind == "i" else hf)[:, :, off:off + n]
@@ -571,17 +576,20 @@ def _resident_tape(samples: np.ndarray, maxvolts: float, device, step: int):
     int16 (segment.host_activity), from the device for float volts
     (segment.device_activity over every step-th sample), as the JAX
     package computes them."""
-    with warnings.catch_warnings():
-        # a read-only memmap of a .tbin file: the tensor is only read
-        # (the transpose copies it)
-        warnings.filterwarnings("ignore", "The given NumPy array is not "
-                                "writable")
-        tape = torch.from_numpy(np.ascontiguousarray(samples))
-    tape = tape.to(device).T.contiguous()
-    if samples.dtype == np.int16:
-        h_est, act = seg.host_activity(samples, maxvolts)
-    else:
-        h_est, act = seg.device_activity(tape, maxvolts, step)
+    with telemetry.span("resident.upload"):
+        with warnings.catch_warnings():
+            # a read-only memmap of a .tbin file: the tensor is only read
+            # (the transpose copies it)
+            warnings.filterwarnings("ignore", "The given NumPy array is "
+                                    "not writable")
+            tape = torch.from_numpy(np.ascontiguousarray(samples))
+        telemetry.count("h2d_bytes", tape.nbytes)
+        tape = tape.to(device).T.contiguous()
+    with telemetry.span("resident.scan"):
+        if samples.dtype == np.int16:
+            h_est, act = seg.host_activity(samples, maxvolts)
+        else:
+            h_est, act = seg.device_activity(tape, maxvolts, step)
     return tape, h_est, act
 
 
@@ -625,10 +633,14 @@ class TapeDecoder:
             max(1, (self.n_samples * opts.ntrks) // 2_000_000))
         # the other devices of the mesh: a copy of the tape each, and the
         # parmsets copied when a shard first needs them (_pa_on)
-        self._tapes = {d: self.tape.to(d) for d in
-                       (self.mesh.distinct()[1:] if self.mesh else [])}
+        self._tapes = {}
+        if self.mesh:
+            with telemetry.span("resident.upload"):
+                self._tapes = {d: self.tape.to(d)
+                               for d in self.mesh.distinct()[1:]}
         self._pas = {}
-        self.pa = ParmArrays.from_parmsets(opts.parmsets, self.device)
+        with telemetry.wait("parms", len(dataclasses.fields(ParmArrays))):
+            self.pa = ParmArrays.from_parmsets(opts.parmsets, self.device)
         self.P = len(opts.parmsets)
         self.skew = np.zeros(opts.ntrks, np.int32)
         if opts.skew is not None:
@@ -667,10 +679,11 @@ class TapeDecoder:
             min_gap_secs = max(20 * spb * opts.deltat, 0.0015)
             post_bits = 13.0
         min_gap_chunks = max(2, int(min_gap_secs / (opts.deltat * seg.CHUNK)))
-        return seg.find_segments(
-            self._act, min_gap_chunks, self.n_samples,
-            pre_margin=int(2 * spb), post_margin=int(post_bits * spb),
-            blank=blank)
+        with telemetry.span("driver.segments"):
+            return seg.find_segments(
+                self._act, min_gap_chunks, self.n_samples,
+                pre_margin=int(2 * spb), post_margin=int(post_bits * spb),
+                blank=blank)
 
     # ---- per-segment decode ----
     def decode_segment(self, a: int, b: int, nparms=None):
@@ -743,23 +756,29 @@ class TapeDecoder:
             spans += [spans[-1]] * (-len(spans) % mesh.shape["data"])
         S = bucket or seg.bucket_length(max(b - max(a - SEG_WARMUP, 0)
                                             for a, b in spans))
-        self._tape_padded(max(max(a - SEG_WARMUP, 0) for a, b in spans) + S)
-        Ws = tuple(cm.pkww_width_for(p.pkww_bitfrac, opts.bpi, opts.ips,
-                                     opts.deltat) for p in active)
-        # the peak floors come from every active parmset, on every shard
-        floors = (min(p.pkww_rise for p in active),
-                  min(p.min_peak for p in active))
-        if mesh is None:
-            return self._dispatch_shard(self.device, spans, sel, S, floors,
-                                        adj_init, correctdbg)
-        shard_parm = (mesh.shape["parm"] > 1 and len(set(Ws)) == 1
-                      and len(sel) % mesh.shape["parm"] == 0
-                      and not opts.find_zeros and adj_init is None)
-        grid = [[self._dispatch_shard(dev, spans[bs], sel[ps], S, floors,
-                                      adj_init, correctdbg)
-                 for dev, bs, ps in row]
-                for row in mesh.cells(len(spans), len(sel), shard_parm)]
-        return grid[0][0] if len(grid) == len(grid[0]) == 1 else grid
+        with telemetry.span("dispatch", B=len(spans), P=len(sel), S=S):
+            self._tape_padded(max(max(a - SEG_WARMUP, 0)
+                                  for a, b in spans) + S)
+            Ws = tuple(cm.pkww_width_for(p.pkww_bitfrac, opts.bpi, opts.ips,
+                                         opts.deltat) for p in active)
+            # the peak floors come from every active parmset, on every
+            # shard
+            floors = (min(p.pkww_rise for p in active),
+                      min(p.min_peak for p in active))
+            if mesh is None:
+                return self._dispatch_shard(self.device, spans, sel, S,
+                                            floors, adj_init, correctdbg)
+            shard_parm = (mesh.shape["parm"] > 1 and len(set(Ws)) == 1
+                          and len(sel) % mesh.shape["parm"] == 0
+                          and not opts.find_zeros and adj_init is None)
+
+            def shard(dev, bs, ps):
+                with telemetry.span("dispatch.shard", device=str(dev)):
+                    return self._dispatch_shard(dev, spans[bs], sel[ps], S,
+                                                floors, adj_init, correctdbg)
+            grid = [[shard(*cell) for cell in row]
+                    for row in mesh.cells(len(spans), len(sel), shard_parm)]
+            return grid[0][0] if len(grid) == len(grid[0]) == 1 else grid
 
     def _dispatch_shard(self, dev, spans, sel, S, floors, adj_init,
                         correctdbg):
@@ -777,11 +796,13 @@ class TapeDecoder:
             return max(a - SEG_WARMUP, 0)
         T = opts.ntrks
         tape = self._tape_on(dev)
-        offsets = torch.as_tensor([a0(a) for a, b in spans], device=dev)
-        seg_lens = torch.as_tensor([b - a0(a) for a, b in spans],
-                                   dtype=I32, device=dev)
-        leads = torch.as_tensor([a - a0(a) for a, b in spans], dtype=I32,
-                                device=dev)
+        with telemetry.wait("batch_args", 4):
+            offsets = torch.as_tensor([a0(a) for a, b in spans], device=dev)
+            seg_lens = torch.as_tensor([b - a0(a) for a, b in spans],
+                                       dtype=I32, device=dev)
+            leads = torch.as_tensor([a - a0(a) for a, b in spans],
+                                    dtype=I32, device=dev)
+            skew = torch.as_tensor(self.skew, dtype=I32, device=dev)
         spb = opts.spb
         Ws = tuple(cm.pkww_width_for(p.pkww_bitfrac, opts.bpi, opts.ips,
                                      opts.deltat) for p in active)
@@ -802,8 +823,7 @@ class TapeDecoder:
             device=dev)
         lb, bw = _peakstat_bins(opts.mode, 1.0 / (opts.bpi * opts.ips))
         head = (tape, offsets, seg_lens, leads, opts.maxvolts,
-                -1.0 if opts.invert else 1.0,
-                torch.as_tensor(self.skew, dtype=I32, device=dev), pa, spb,
+                -1.0 if opts.invert else 1.0, skew, pa, spb,
                 opts.expected_parity, opts.revparity)
         stat = (float(np.float32(lb / opts.deltat)),
                 float(np.float32(bw / opts.deltat)))
@@ -1155,22 +1175,25 @@ def decode_tape(samples: np.ndarray, opts: DecodeOptions, log=None, *,
     "fused" (B1) or "tiered" (B5 + B6) kernels. With opts.bpi <= 0 (NRZI
     and PE) the density is detected first, as the JAX command line does,
     and the tape decodes at the standard density found; stats["density"]
-    is then (standard, raw estimate)."""
-    if opts.mode == tb.MODE_WW:
-        check_supported(opts, kernel_path)
-        # unsharded, on the mesh's first device under a mesh
-        return _decode_tape_ww(samples, opts,
-                               _placement(device, samples)[0])
-    dec = (decoder if decoder is not None
-           else TapeDecoder(samples, opts, device=device,
-                            kernel_path=kernel_path))
-    if opts.bpi > 0:
-        return _decode_tape_blocks(dec, opts, log)
-    density = dec.detect_density(dec.segments())
-    dec.opts = opts = dataclasses.replace(opts, bpi=density[0])
-    blocks, stats = _decode_tape_blocks(dec, opts, log)
-    stats["density"] = density
-    return blocks, stats
+    is then (standard, raw estimate). While telemetry records, the call
+    is one ``capture`` span."""
+    with telemetry.span("capture", samples=int(samples.shape[0]),
+                        mode=int(opts.mode)):
+        if opts.mode == tb.MODE_WW:
+            check_supported(opts, kernel_path)
+            # unsharded, on the mesh's first device under a mesh
+            return _decode_tape_ww(samples, opts,
+                                   _placement(device, samples)[0])
+        dec = (decoder if decoder is not None
+               else TapeDecoder(samples, opts, device=device,
+                                kernel_path=kernel_path))
+        if opts.bpi > 0:
+            return _decode_tape_blocks(dec, opts, log)
+        density = dec.detect_density(dec.segments())
+        dec.opts = opts = dataclasses.replace(opts, bpi=density[0])
+        blocks, stats = _decode_tape_blocks(dec, opts, log)
+        stats["density"] = density
+        return blocks, stats
 
 
 def parmscan_grid():
@@ -1259,7 +1282,8 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
                  peak_bins=_peakstat_bins(opts.mode,
                                           1.0 / (opts.bpi * opts.ips)))
     if opts.deskew and opts.skew is None:
-        dec.calibrate_deskew(segs)
+        with telemetry.span("driver.calibrate"):
+            dec.calibrate_deskew(segs)
         stats["deskew_percent"] = dec.deskew_percent
     stats["skew"] = dec.skew.tolist()
     if opts.parmscan and log and opts.mode != tb.MODE_GCR:
@@ -1340,20 +1364,25 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
             int(res["blktype"][0]), int(res["errcount"][0]),
             int(res["warncount"][0]), mb, opts.mode)
 
+    def stage(idxs, nparms):
+        with telemetry.span("driver.stage", nparms=nparms,
+                            segments=len(idxs)):
+            collect(dispatch(idxs, nparms), results)
+
     def decode_indices(idxs):
         if correctdbg:
             # the JAX package decodes each segment with every parmset
             # under -correctdbg and picks over all of them; a segment's
             # lanes do not depend on the others', so they batch
-            collect(dispatch(idxs, dec.P), results)
+            stage(idxs, dec.P)
             return
         # staged retry, the reference's sequential-try semantics
         # (readtape.c:1755-1795): parmset 0 everywhere, then all parmsets
         # for the blocks that were not a stopping decode
-        collect(dispatch(idxs, 1), results)
+        stage(idxs, 1)
         if opts.multiple_tries and dec.P > 1:
             retry = [i for i in idxs if not stopper(i)]
-            collect(dispatch(retry, dec.P), results)
+            stage(retry, dec.P)
 
     def add_segment(a, b, after):
         """A new segment (a, b) placed right after `after` in tape order;
@@ -1649,10 +1678,21 @@ def _decode_tape_blocks(dec: TapeDecoder, opts: DecodeOptions, log=None):
     else:
         decode_indices(order[:])
     if opts.mode == tb.MODE_PE:
-        pe_walk()
+        with telemetry.span("driver.pe_walk"):
+            pe_walk()
     elif not opts.find_zeros and not adjskew:
-        remainder_rounds(gcr_next if opts.mode == tb.MODE_GCR else nrzi_next)
+        with telemetry.span("driver.remainder"):
+            remainder_rounds(gcr_next if opts.mode == tb.MODE_GCR
+                             else nrzi_next)
+    with telemetry.span("driver.emit"):
+        return _emit_blocks(dec, opts, segs, order, results, stats,
+                            adjskew)
 
+
+def _emit_blocks(dec, opts, segs, order, results, stats, adjskew):
+    """Block emission in tape order: each segment's pick over its tried
+    parmsets, the peak statistics, and the blocks, tapemarks and counts
+    of `stats`. Returns (blocks, stats)."""
     blocks = []
     for i in order:
         a, b = segs[i]

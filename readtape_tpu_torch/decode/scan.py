@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from . import common as cm
 from . import trackscan
 from .common import F32, I32
@@ -98,10 +98,14 @@ def _scan(fn, plain, launch, one_width, feat, nxt, pa, Ws, K, max_steps):
         return plain(feat, nxt, pa, Ws=Ws, K=K, max_steps=steps)
     if feat.device.type != "cuda":
         raise ValueError(f"{fn.__name__}: no kernel for {feat.device}")
-    _check(feat, nxt, pa, Ws, K, steps, one_width)
-    if int(pa.agc_window.max()) > kernels.NRZI_MAX_AGC_RING:
-        raise ValueError("agc_window beyond the kernel's ring")
-    out = launch(feat, nxt, pa, Ws=Ws, K=K, max_steps=steps)
+    with telemetry.span("launch." + fn.__name__):
+        telemetry.count("launches." + fn.__name__)
+        _check(feat, nxt, pa, Ws, K, steps, one_width)
+        with telemetry.wait("ring_check"):
+            ring = int(pa.agc_window.max())
+        if ring > kernels.NRZI_MAX_AGC_RING:
+            raise ValueError("agc_window beyond the kernel's ring")
+        out = launch(feat, nxt, pa, Ws=Ws, K=K, max_steps=steps)
     fn.launches += 1
     return out
 

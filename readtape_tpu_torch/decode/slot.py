@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from . import common as cm
 from . import nrzi as nrzi_mod
 from .common import F32, I32
@@ -169,11 +169,15 @@ def nrzi_slot_scan(fin, pa: cm.ParmArrays, *, S: int, spb: float,
         return nrzi_slot_scan_plain(fin, pa, **kw)
     if dev.type != "cuda":
         raise ValueError(f"nrzi_slot_scan: no kernel for {dev}")
-    _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"], adj_init,
-           kw["records"], kw["do_correct"] or kw["correct_debug"])
-    if int(pa.clk_window.max()) > kernels.NRZI_MAX_CLK_RING:
-        raise ValueError("clk_window beyond the kernel's ring")
-    out = kernels.nrzi_slot(fin, pa, **kw)
+    with telemetry.span("launch.nrzi_slot_scan"):
+        telemetry.count("launches.nrzi_slot_scan")
+        _check(fin, pa, kw["S"], kw["maxb"], kw["max_slots"], adj_init,
+               kw["records"], kw["do_correct"] or kw["correct_debug"])
+        with telemetry.wait("ring_check"):
+            ring = int(pa.clk_window.max())
+        if ring > kernels.NRZI_MAX_CLK_RING:
+            raise ValueError("clk_window beyond the kernel's ring")
+        out = kernels.nrzi_slot(fin, pa, **kw)
     nrzi_slot_scan.launches += 1
     return out
 

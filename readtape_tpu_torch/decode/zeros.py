@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from . import common as cm
 from . import gcr as gcr_mod
 from .common import F32
@@ -66,7 +66,9 @@ def zerocross_transitions(volts, seg_lens, leads, *, cap: int,
     if dev.type != "cuda":
         raise ValueError(f"zerocross_transitions: no kernel for {dev}")
     _check_volts(volts, seg_lens, leads, kw["cap"])
-    out = kernels.zerocross(volts, seg_lens, leads, **kw)
+    with telemetry.span("launch.zerocross_transitions"):
+        telemetry.count("launches.zerocross_transitions")
+        out = kernels.zerocross(volts, seg_lens, leads, **kw)
     zerocross_transitions.launches += 1
     out["overflow"] = (out.pop("n_found") > kw["cap"]).any(dim=-1)
     return out
@@ -108,7 +110,9 @@ def gcr_zeros_scan(trans, pa: cm.ParmArrays, *, spb: float, maxb: int):
     if dev.type != "cuda":
         raise ValueError(f"gcr_zeros_scan: no kernel for {dev}")
     _check_trans(trans, pa, kw["maxb"])
-    out = kernels.gcr_zeros(trans, pa, **kw)
+    with telemetry.span("launch.gcr_zeros_scan"):
+        telemetry.count("launches.gcr_zeros_scan")
+        out = kernels.gcr_zeros(trans, pa, **kw)
     gcr_zeros_scan.launches += 1
     out.update(gcr_mod.zeros_fixed_fields(out["datacount"].shape, dev))
     return out

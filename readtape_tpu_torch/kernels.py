@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from . import telemetry
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -281,9 +283,11 @@ def _prepare(struct, volts, seg_lens, leads, pa, *, Ws, rise_floor,
 
     def put(x, dt):
         return torch.as_tensor(x, dtype=dt, device=dev).contiguous()
+    with telemetry.wait("kernel_args", 2):
+        widths = put(list(Ws), I32), put(wset, I32)
     ins = dict(volts=volts.contiguous(), seg_len=put(seg_lens, I32),
-               lead=put(leads, I32), p_w=put(list(Ws), I32),
-               wset=put(wset, I32), rise_floor=put(rise_floor, F32),
+               lead=put(leads, I32), p_w=widths[0], wset=widths[1],
+               rise_floor=put(rise_floor, F32),
                min_floor=put(min_floor, F32))
     for field, x in knobs.items():
         ins[field] = put(x, x.dtype)
@@ -357,10 +361,12 @@ def nrzi_scan_prepare(feat, nxt, pa, *, Ws, K, max_steps):
     P = len(Ws)
     wset = sorted(set(Ws))
     _require_on(dev, dict(nxt=nxt))
+    with telemetry.wait("kernel_args", 2):
+        grp = torch.as_tensor([wset.index(w) for w in Ws], dtype=I32,
+                              device=dev)
+        p_w = torch.as_tensor(list(Ws), dtype=I32, device=dev)
     ins = dict(feat=feat.contiguous(), nxt=nxt.to(I32).contiguous(),
-               grp=torch.as_tensor([wset.index(w) for w in Ws], dtype=I32,
-                                   device=dev),
-               p_w=torch.as_tensor(list(Ws), dtype=I32, device=dev),
+               grp=grp, p_w=p_w,
                **_knob_tensors(pa, dev, p_agc_window="agc_window",
                                p_rise="pkww_rise", p_minp="min_peak",
                                p_agc_alpha="agc_alpha"))
@@ -702,7 +708,8 @@ def gcr_zeros_prepare(t, trans, pa, *, spb, maxb):
     dev = t.device
     B, T, cap = t.shape
     P = len(pa.z1pt)
-    ring = max(1, int(pa.clk_window.max()))    # each walker's clock ring
+    with telemetry.wait("ring_check"):
+        ring = max(1, int(pa.clk_window.max()))    # each walker's clock ring
     if ring > NRZI_MAX_CLK_RING:
         raise ValueError("clk_window beyond the kernel's ring")
     ins = {k: trans[k] for k in ("t", "dt", "ok", "valid")}
