@@ -67,7 +67,11 @@ non-zero:
               timed (-trace's: the mean of 20 launches), each with its
               bound and its
               serial chain (Z1 plain: the significant phases of pass B;
-              Z2: the admitted transitions; Z1 differentiated: none)
+              Z2: the admitted transitions; Z1 differentiated: none); last,
+              activity_scan (the int16 activity scan) at the benchmark's
+              NRZI and PE capture shapes, timed beside its bound, and
+              segment.tape_activity on the card against host_activity
+              (height estimate and mask equal; both timed)
   4. main     decode_tape on the card at bench scale, each path with the
               launch counts set to 0 just before it and read just after:
               NRZI (160 blocks of 1200 bytes, 2 tapemarks, seed 2026, 8
@@ -238,7 +242,15 @@ KERNELS = {
         module="zeros", source="readtape_tpu_torch/csrc/zeros.cu",
         replaces="readtape_tpu/decode/gcr.py:551 gcr_zeros_track_scan "
                  "(XLA; no TPU kernel)"),
+    # the int16 activity scan: the JAX package runs it on the host
+    "activity_scan": dict(
+        module="segment", source="readtape_tpu_torch/csrc/activity.cu",
+        replaces="readtape_tpu/decode/segment.py:126 host_activity "
+                 "(host; no TPU kernel)"),
 }
+# the benchmark's captures (tapebench/configs): sample rows, tracks
+ACTIVITY_SHAPES = {"activity nrzi": (4_481_584, 9),
+                   "activity pe": (2_331_780, 9)}
 # kernel vs plain: integers and bits equal; floats equal as well, since
 # both round every f32 operation in the same order (the kernels are built
 # with --fmad=false and the plain versions run one PyTorch op at a time)
@@ -1532,6 +1544,71 @@ def phase_zeros_kernel():
     return res
 
 
+def activity_capture(n, t, seed):
+    """An int16 capture of n rows and t tracks: idle-tape noise, a burst
+    of strong signal every 100,000 rows, and both extremes (-32768 and
+    32767) present."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 300.0, (n, t))
+    for r in range(0, n, 100_000):
+        x[r:r + 30_000] *= 25.0
+    x = np.clip(np.rint(x), -32768, 32767).astype(np.int16)
+    x[1, 0], x[n // 2, t - 1] = -32768, 32767
+    return x
+
+
+def phase_activity_kernel(reps=50):
+    """activity_scan against its plain version on a host copy, at the
+    benchmark's capture shapes (ACTIVITY_SHAPES; the subsample step
+    host_activity takes), timed beside its bound; then the whole card
+    scan (segment.tape_activity: the launch, the copy to the host and the
+    host's finish) against the host scan it replaces (host_activity),
+    their results equal."""
+    import numpy as np
+    import torch
+    from readtape_tpu_torch.decode import segment as seg
+    res = {}
+    for seed, (name, (n, t)) in enumerate(ACTIVITY_SHAPES.items()):
+        samples = activity_capture(n, t, seed)
+        step = max(1, samples.size // 2_000_000)
+        tape = torch.from_numpy(samples).to(DEVICE)
+        got = seg.activity_scan(tape, step)
+        sync()
+        want, t_plain = plain_on_host(seg.activity_scan_plain, tape, step)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"{name}: differs at {bad} (the histogram "
+                                 f"starts at {n // 16})")
+        t_kern = time_launches(lambda: seg.activity_scan(tape, step), reps)
+        b_ms, b_by = bound_of(nbytes([tape, want]), 0)
+        walls = {}
+        for label, fn in (("card", lambda: seg.tape_activity(tape, 1.0,
+                                                             step)),
+                          ("host", lambda: seg.host_activity(samples, 1.0))):
+            fn()
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                out = fn()
+                ts.append(time.perf_counter() - t0)
+            walls[label] = (sorted(ts)[2] * 1e3, out)
+        (h_c, a_c), (h_h, a_h) = walls["card"][1], walls["host"][1]
+        if h_c != h_h or not np.array_equal(a_c, a_h):
+            raise AssertionError(f"{name}: tape_activity {h_c} != "
+                                 f"host_activity {h_h}, or the masks differ")
+        print(f"  {name} (N={n} T={t} step={step}): kernel {t_kern:.4f} ms, "
+              f"plain on the host {t_plain:.1f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), equal (max err 0); tape_activity "
+              f"{walls['card'][0]:.2f} ms against host_activity "
+              f"{walls['host'][0]:.2f} ms (medians of 5), h_est {h_c} and "
+              f"the mask equal", flush=True)
+        res[name] = dict(err=0.0, ms=t_kern, plain_ms=t_plain,
+                         bound_ms=b_ms, bound_by=b_by)
+        del tape, got, want
+    return res
+
+
 # -trace's cells: the bench tapes, each with the command line's mode flag
 # and a window of seconds that holds the start of a block (NRZI also the
 # default -trace, the first 10,000 samples)
@@ -1661,6 +1738,7 @@ def phase_kernel():
     res.update(phase_ww_kernel())
     res.update(phase_zeros_kernel())
     res.update(phase_trace_kernel())
+    res.update(phase_activity_kernel())
     for r in res.values():
         r.pop("out", None)
     torch.cuda.empty_cache()
@@ -1835,9 +1913,9 @@ def phase_main(card):
             runs[k] = (n, wall, msps)
     blocks, hdr, samples = bench_tape()
     opts = tape_options(hdr, tb.MODE_NRZI, 800)
-    n, w, m, fused_out = decode_bench("NRZI bench", ["nrzi_fused_scan"],
-                                      blocks, hdr, samples, opts, card,
-                                      marks=2)
+    n, w, m, fused_out = decode_bench(
+        "NRZI bench", ["nrzi_fused_scan", "activity_scan"], blocks, hdr,
+        samples, opts, card, marks=2)
     keep(n, w, m)
     torch.cuda.reset_peak_memory_stats()
     n, w, m, out = decode_bench(
@@ -1859,7 +1937,8 @@ def phase_main(card):
                         kernel_path="tiered")
     runs["nrzi_track_scan"] = (n["nrzi_track_scan"], None, None)
     blocks, hdr, samples = pe_bench_tape()
-    keep(*decode_bench("PE bench", ["pe_fused_scan"], blocks, hdr, samples,
+    keep(*decode_bench("PE bench", ["pe_fused_scan", "activity_scan"],
+                       blocks, hdr, samples,
                        tape_options(hdr, tb.MODE_PE, 1600), card,
                        marks=0)[:3])
     blocks, hdr, samples = gcr_bench_tape()
@@ -1871,7 +1950,7 @@ def phase_main(card):
     out = decode_bench("GCR bench, float volts", ["gcr_fused_scan"], blocks,
                        hdr, volts, dataclasses.replace(gcr_opts,
                                                        maxvolts=maxvolts),
-                       card, marks=0)[3]
+                       card, marks=0, absent=["activity_scan"])[3]
 
     def summary(blocks_):
         return [(b.kind, b.data, b.parmset, b.errcount, b.warncount)
@@ -2738,7 +2817,7 @@ def time_steps(samples, opts, kernel_path):
     from readtape_tpu_torch.decode import ww as ww_mod
     from readtape_tpu_torch.formats import tbin as tb
     steps = {}
-    spots = [(seg, "host_activity", "host activity scan"),
+    spots = [(seg, "tape_activity", "activity scan (kernel, copy, finish)"),
              (seg, "device_activity", "device activity scan"),
              (tpl, "_prep_volts", "window gather + volts")]
     spots += [(importlib.import_module("readtape_tpu_torch.decode."
@@ -3358,7 +3437,8 @@ def main():
                             ("nrzi_slot_scan -trace", "b6 trace"),
                             ("pe_fused_scan -trace", "pe trace"),
                             ("gcr_fused_scan -trace", "gcr trace"),
-                            ("ww_fused_scan -trace", "ww trace")):
+                            ("ww_fused_scan -trace", "ww trace"),
+                            ("activity_scan", "activity nrzi")):
         r = times[main_case]
         kernel = name.split()[0]
         line.append(dict(

@@ -572,10 +572,11 @@ def permute_heads(samples: np.ndarray, head_to_trk) -> np.ndarray:
 
 def _resident_tape(samples: np.ndarray, maxvolts: float, device, step: int):
     """The tape [T, N] on `device` (int16 samples as they are, or float32
-    volts), its height estimate and activity mask: from the host for
-    int16 (segment.host_activity), from the device for float volts
-    (segment.device_activity over every step-th sample), as the JAX
-    package computes them."""
+    volts), its height estimate and activity mask, as the JAX package
+    computes them: for int16 from the upload in row order
+    (segment.tape_activity, host_activity's subsample step), for float
+    volts from the tape (segment.device_activity over every step-th
+    sample)."""
     with telemetry.span("resident.upload"):
         with warnings.catch_warnings():
             # a read-only memmap of a .tbin file: the tensor is only read
@@ -584,10 +585,12 @@ def _resident_tape(samples: np.ndarray, maxvolts: float, device, step: int):
                                     "not writable")
             tape = torch.from_numpy(np.ascontiguousarray(samples))
         telemetry.count("h2d_bytes", tape.nbytes)
-        tape = tape.to(device).T.contiguous()
+        rows = tape.to(device)
+        tape = rows.T.contiguous()
     with telemetry.span("resident.scan"):
         if samples.dtype == np.int16:
-            h_est, act = seg.host_activity(samples, maxvolts)
+            h_est, act = seg.tape_activity(
+                rows, maxvolts, max(1, samples.size // 2_000_000))
         else:
             h_est, act = seg.device_activity(tape, maxvolts, step)
     return tape, h_est, act
@@ -607,9 +610,9 @@ class TapeDecoder:
     """Holds the device-resident tape and runs decode passes over it.
 
     The tape uploads once, [T, N] on `device`, int16 samples or float32
-    volts; activity and the height estimate come from the host for int16
-    (segment.host_activity), from the device for volts
-    (segment.device_activity). kernel_path: "fused" (B1) or, for NRZI,
+    volts; activity and the height estimate come from the device, for
+    int16 by segment.tape_activity (host_activity's values), for volts by
+    segment.device_activity. kernel_path: "fused" (B1) or, for NRZI,
     "tiered" (B5 then B6).
 
     Under a decode mesh (parallel.mesh.get_decode_mesh, read here) the

@@ -1,6 +1,6 @@
 """Block segmentation: find interblock gaps over the whole sample tensor
-(readtape_tpu/decode/segment.py: the host scan of int16 tapes, the device
-scan of float tapes, and the gap search).
+(readtape_tpu/decode/segment.py: the scan of int16 tapes, the device scan
+of float tapes, and the gap search).
 
 A sample is "active" if any track exceeds a noise-floor threshold; quiet
 runs longer than a mode-dependent gap threshold split the tape, and each
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels, telemetry
 from .common import fma
 
 CHUNK = 16          # gap-resolution granularity in samples: fine enough
@@ -45,6 +46,106 @@ def host_activity(samples_i16: np.ndarray, maxvolts: float):
         chunk_max = (np.abs(samples_i16[: nc * CHUNK].astype(np.int32))
                      .max(axis=1).reshape(nc, CHUNK).max(axis=1))
     amp = np.quantile(sub, 0.999)
+    h_est = float(max(2.0 * amp, 0.05))
+    thresh = np.float32(max(0.04, 0.15 * h_est / 2))
+    act = (chunk_max.astype(np.float32) * scale) > thresh
+    return h_est, act
+
+
+def _check_tape(tape, step):
+    if tape.dim() != 2 or tape.dtype != torch.int16:
+        raise ValueError("tape must be int16 [N, T]")
+    if not tape.is_contiguous():
+        raise ValueError("tape must be contiguous")
+    if step < 1:
+        raise ValueError(f"step {step}")
+
+
+@torch.inference_mode()
+def activity_scan_plain(tape, step: int):
+    """The plain PyTorch version of activity_scan (same arguments and
+    output)."""
+    activity_scan_plain.calls += 1
+    _check_tape(tape, step)
+    n, t = tape.shape
+    nc = n // CHUNK
+    rows = tape[:nc * CHUNK].reshape(nc, CHUNK * t)
+    # max |x| = max(max x, -min x), negated in int32: |-32768| = 32768
+    chunk_max = torch.maximum(rows.amax(dim=1).to(torch.int32),
+                              rows.amin(dim=1).to(torch.int32).neg())
+    sub = tape[::step].to(torch.int32).abs().reshape(-1)
+    hist = torch.bincount(sub, minlength=kernels.ACT_BINS)
+    return torch.cat([chunk_max, hist.to(torch.int32)])
+
+
+activity_scan_plain.calls = 0
+
+
+def activity_scan(tape, step: int):
+    """The int16 tape [N, T] (row order, as uploaded) -> int32 [N // CHUNK
+    + 32769]: the max |x| of each CHUNK rows over every track, then the
+    histogram of |x| over the rows r % step == 0 (the last, partial
+    chunk's rows included): what native tape_scan computes, with its
+    subsample kept as counts. On a CUDA tensor it launches csrc/
+    activity.cu and counts the launch (``.launches``); on a CPU tensor it
+    runs activity_scan_plain. There is no fallback between the two."""
+    dev = tape.device
+    if dev.type == "cpu":
+        return activity_scan_plain(tape, step)
+    if dev.type != "cuda":
+        raise ValueError(f"activity_scan: no kernel for {dev}")
+    _check_tape(tape, step)
+    with telemetry.span("launch.activity_scan"):
+        telemetry.count("launches.activity_scan")
+        out = kernels.activity_scan(tape, step=int(step))
+    activity_scan.launches += 1
+    return out
+
+
+activity_scan.launches = 0
+
+
+def np_quantile(n: int, q: float, at):
+    """np.quantile(a, q) (method "linear") of a float32 array a of n
+    values, from at(k), the k-th smallest value of a as np.float32: the
+    arithmetic of numpy/lib/_function_base_impl.py (quantile, _quantile,
+    _get_indexes, _get_gamma, _lerp) on the two values it reads, with the
+    same types in each operation, so that the result is numpy's bit for
+    bit (tests/test_torch_activity.py holds it to np.quantile)."""
+    # quantile(): a Python float q takes a float array's dtype
+    virtual = np.asanyarray((n - 1) * np.asanyarray(q, dtype=np.float32))
+    prev = np.asanyarray(np.floor(virtual))
+    nxt = np.asanyarray(prev + 1)
+    if virtual >= n - 1:                 # the largest value (index -1)
+        prev[()] = nxt[()] = -1
+    prev, nxt = prev.astype(np.intp), nxt.astype(np.intp)
+    gamma = np.asanyarray(np.asanyarray(virtual - prev), dtype=virtual.dtype)
+    a, b = at(int(prev) % n), at(int(nxt) % n)
+    diff_b_a = np.subtract(b, a)
+    lerp = np.asanyarray(np.add(a, diff_b_a * gamma))
+    np.subtract(b, diff_b_a * (1 - gamma), out=lerp, where=gamma >= 0.5,
+                casting="unsafe", dtype=type(lerp.dtype))
+    return lerp[()]
+
+
+def tape_activity(tape, maxvolts: float, step: int):
+    """host_activity for the int16 tape [N, T] as a tensor (on the card:
+    one activity_scan launch, then one copy to the host): the height
+    estimate and the per-CHUNK activity mask, equal to host_activity's bit
+    for bit when step is its subsample step. The 0.999-quantile's two
+    order statistics come from the histogram's cumulative counts, and
+    np_quantile repeats numpy's arithmetic on them; the rest is
+    host_activity's own expressions."""
+    n = tape.shape[0]
+    out = activity_scan(tape, step)
+    telemetry.count("activity.card" if tape.device.type == "cuda"
+                    else "activity.plain")
+    with telemetry.wait("activity", 1):
+        out = out.cpu().numpy()
+    chunk_max, cum = out[:n // CHUNK], np.cumsum(out[n // CHUNK:])
+    scale = np.float32(maxvolts / 32767.0)
+    amp = np_quantile(int(cum[-1]), 0.999, lambda k: np.float32(
+        np.searchsorted(cum, k, side="right")) * scale)
     h_est = float(max(2.0 * amp, 0.05))
     thresh = np.float32(max(0.04, 0.15 * h_est / 2))
     act = (chunk_max.astype(np.float32) * scale) > thresh

@@ -132,6 +132,16 @@ class ZsArgs(ctypes.Structure):
         ("spb", ctypes.c_float)]
 
 
+class ActivityArgs(ctypes.Structure):
+    """csrc/activity.cu::ActivityArgs, field for field."""
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("N", ctypes.c_int64), ("T", ctypes.c_int32),
+                ("step", ctypes.c_int32)]
+
+
+# csrc/activity.cu's chunk (rows a maximum covers) and histogram bins
+# (|int16| from 0 to 32768)
+ACT_CHUNK, ACT_BINS = 16, 32769
 # the record and scan-buffer widths of pe_core.h and gcr_core.h
 PE_N_PR, PE_N_PRF, PE_N_PS, PE_IDLE_CAP = 6, 4, 4, 510
 # pe_core.h's phase stamps (the PE and GCR kernels): global timer (ns) at
@@ -169,7 +179,8 @@ LAUNCHES = {"nrzi_fused_launch": NrziArgs, "nrzi_scan_launch": NrziScanArgs,
             "nrzi_scan_tracks_launch": NrziScanArgs,
             "nrzi_slot_launch": NrziSlotArgs, "pe_fused_launch": PeArgs,
             "gcr_fused_launch": GcrArgs, "ww_fused_launch": WwArgs,
-            "zerocross_launch": ZcArgs, "gcr_zeros_launch": ZsArgs}
+            "zerocross_launch": ZcArgs, "gcr_zeros_launch": ZsArgs,
+            "activity_scan_launch": ActivityArgs}
 # the parmset knobs every kernel reads: argument field -> ParmArrays field
 _KNOBS = dict(p_agc_window="agc_window", p_clk_window="clk_window",
               p_rise="pkww_rise", p_minp="min_peak",
@@ -740,3 +751,20 @@ def gcr_zeros_stamps(trans, pa, **kw):
     """Z2 with zeros_core.h's walker stamps [B*P*T, ZS_NSTAMP]."""
     return _phase_stamps("gcr_zeros", gcr_zeros_prepare, ZS_NSTAMP,
                          trans["t"], trans, pa, per_track=True, **kw)
+
+
+def activity_prepare(tape, *, step):
+    """The ActivityArgs block and zeroed output of one activity_scan
+    launch over the int16 tape [N, T] (_prepare's return)."""
+    N, T = tape.shape
+    out = torch.zeros(N // ACT_CHUNK + ACT_BINS, dtype=I32,
+                      device=tape.device)
+    args = ActivityArgs(x=tape.data_ptr(), out=out.data_ptr(), N=N, T=T,
+                        step=step)
+    return args, out, tape
+
+
+def activity_scan(tape, **kw):
+    """Launch csrc/activity.cu. Arguments and output as
+    decode.segment.activity_scan."""
+    return _launch("activity_scan", activity_prepare, tape, **kw)

@@ -5,7 +5,9 @@ an NRZI (fused and tiered, and under -adjskew and -correctdbg), PE, GCR
 or Whirlwind decode on the card must equal the plain decode on the CPU
 block for block, the Whirlwind bench tape must decode on the card to
 its ground truth, and -trace's lanes from the kernels' record modes on
-the card must equal the plain versions' on the CPU. Imports no JAX and nothing of
+the card must equal the plain versions' on the CPU; the int16 activity
+scan on the card must equal its plain version, and the height estimate
+and mask of a capture the host scan's. Imports no JAX and nothing of
 the JAX package (the port carries its own synthesizer and formats), so
 the card's machine runs it without the JAX package's test
 configuration:
@@ -21,7 +23,9 @@ import chip_smoke
 from readtape_tpu_torch import kernels
 from readtape_tpu_torch.decode import fused as tfu
 from readtape_tpu_torch.decode import pipeline as tpl
+from readtape_tpu_torch import telemetry
 from readtape_tpu_torch.decode import scan as tsc
+from readtape_tpu_torch.decode import segment as tseg
 from readtape_tpu_torch.decode import slot as tsl
 from readtape_tpu_torch.decode import zeros as tz
 from readtape_tpu_torch.formats import tbin as tb
@@ -312,3 +316,41 @@ def test_trace_on_card_equals_cpu(card, mode):
     np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
     assert got["cuda"][1] == got["cpu"][1]
     assert sum(len(x) for x in got["cpu"][1]["peak"]) > 100
+
+
+@pytest.mark.parametrize("n,t,step", [(16 * 4099 + 7, 9, 1),
+                                      (16 * 2000 + 15, 7, 3),
+                                      (16 * 3000, 6, 20), (5, 9, 1),
+                                      (300_001, 9, 2)])
+def test_activity_scan_equals_plain(card, n, t, step):
+    x = chip_smoke.activity_capture(n, t, seed=n)
+    launches = tseg.activity_scan.launches
+    got = tseg.activity_scan(torch.from_numpy(x).to(card), step)
+    assert tseg.activity_scan.launches == launches + 1
+    want = tseg.activity_scan_plain(torch.from_numpy(x), step)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_tape_activity_on_card_equals_host(card):
+    """One synthesized capture: the decoder's activity scan on the card
+    (one launch, no plain version, counted activity.card) gives
+    host_activity's height estimate and mask."""
+    rng = np.random.default_rng(21)
+    blocks = [bytes(rng.integers(0, 256, 400, dtype=np.uint8))
+              for _ in range(4)]
+    spec = default_spec(tb.MODE_NRZI, noise_rms=0.02, seed=21)
+    hdr, samples = synthesize_tape(
+        spec, [("block", b) for b in blocks] + [("tapemark",)])
+    opts = tpl.DecodeOptions(mode=tb.MODE_NRZI, ntrks=9, bpi=800, ips=50,
+                             deltat=hdr.tdelta_ns * 1e-9,
+                             maxvolts=hdr.maxvolts)
+    plain = tseg.activity_scan_plain.calls
+    with telemetry.recording() as rec:
+        dec = tpl.TapeDecoder(samples, opts, device="cuda")
+    assert tseg.activity_scan_plain.calls == plain
+    assert rec.counters["activity.card"] == 1
+    assert rec.counters["launches.activity_scan"] == 1
+    assert rec.counters["host_waits.activity"] == 1
+    h_est, act = tseg.host_activity(samples, hdr.maxvolts)
+    assert dec.h_est == h_est
+    np.testing.assert_array_equal(dec._act, act)

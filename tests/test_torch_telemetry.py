@@ -111,6 +111,32 @@ def test_on_returns_the_same_and_spans_nest(name):
     assert waits == rec.counters["host_waits"] > 0
     assert rec.counters["h2d_bytes"] == 2 * samples.nbytes
     assert rec.counters["d2h_bytes"] > 0
+    # one TapeDecoder a decode: the activity scan's plain version once,
+    # its one copy to the host a wait
+    assert rec.counters["activity.plain"] == 2
+    assert rec.counters["host_waits.activity"] == 2
+    assert "activity.card" not in rec.counters
+
+
+@pytest.mark.parametrize("name", sorted(MODES))
+def test_activity_scan_counted_once_per_decoder(name):
+    """A TapeDecoder scans its int16 tape once: activity.plain on the
+    CPU, and one wait.activity inside resident.scan."""
+    samples, opts = _tape(name)
+    with telemetry.recording() as rec:
+        dec = pl.TapeDecoder(samples, opts, device="cpu")
+    assert rec.counters["activity.plain"] == 1
+    assert rec.counters["host_waits.activity"] == 1
+    assert "activity.card" not in rec.counters
+    scans = [s for s in rec.spans if s.name == "resident.scan"]
+    waits = [s for s in rec.spans if s.name == "wait.activity"]
+    assert len(scans) == len(waits) == 1
+    assert waits[0].parent == scans[0].id
+    assert scans[0].counters == {"activity.plain": 1, "host_waits": 1,
+                                 "host_waits.activity": 1}
+    h_est, act = pl.seg.host_activity(samples, opts.maxvolts)
+    assert dec.h_est == h_est
+    np.testing.assert_array_equal(dec._act, act)
 
 
 def test_threads_keep_their_own_parent_stacks():
