@@ -166,7 +166,11 @@ non-zero:
               -parmscan the log lines) equal to the one-device run's,
               and the NRZI blocks to the ground truth. With more than one
               card, the NRZI bench tape also over make_decode_mesh() of
-              every card; with one, a line says that part was not run
+              every card, once more with the telemetry recording: one
+              resident.replicate span whose d2d_bytes are the tape's
+              bytes times the other cards, and the blocks equal to the
+              one-card decode's; with one card, a line says that part
+              was not run
 
 Each phase prints the seconds it took. Then one JSON line describing the
 kernels, the card's name and power limit as nvidia-smi reports them, and a
@@ -2723,6 +2727,36 @@ def same_blocks(name, one, got, blocks=None, marks=None):
         raise AssertionError(f"{name}: not the ground truth")
 
 
+def replicated(name, one, samples, opts, mesh):
+    """decode_tape under `mesh` with the telemetry recording: one
+    resident.replicate span, inside resident.upload, whose d2d_bytes are
+    the int16 tape's bytes times the mesh's other cards, and the blocks
+    of `one` (the one-card decode)."""
+    from readtape_tpu_torch import telemetry
+    from readtape_tpu_torch.decode import pipeline as tpl
+    from readtape_tpu_torch.parallel import mesh as pmesh
+    pmesh.set_decode_mesh(mesh)
+    try:
+        with telemetry.recording() as rec:
+            got = tpl.decode_tape(samples, opts, device=DEVICE)
+    finally:
+        pmesh.set_decode_mesh(None)
+    same_blocks(name, one, got)
+    reps = [s for s in rec.spans if s.name == "resident.replicate"]
+    parents = {s.id: s.name for s in rec.spans}
+    want = samples.astype("int16").nbytes * (len(mesh.distinct()) - 1)
+    if (len(reps) != 1 or parents.get(reps[0].parent) != "resident.upload"
+            or reps[0].counters.get("d2d_bytes") != want
+            or rec.counters.get("d2d_bytes") != want):
+        raise AssertionError(
+            f"{name}: resident.replicate {[(s.ns, s.counters) for s in reps]}"
+            f", d2d_bytes {rec.counters.get('d2d_bytes')}, want {want}")
+    print(f"  {name}: resident.replicate {reps[0].ns / 1e6:.3f} ms, "
+          f"d2d_bytes {want} ({len(mesh.distinct()) - 1} other cards); "
+          f"dispatch.pad_lanes {rec.counters.get('dispatch.pad_lanes')}; "
+          f"blocks equal to the one-card decode", flush=True)
+
+
 def phase_mesh(card):
     """-mesh on one card: make_decode_mesh([card] * 4, parm_axis=2), a
     (data 2, parm 2) grid naming the card four times, each entry a shard
@@ -2786,10 +2820,13 @@ def phase_mesh(card):
     cards = torch.cuda.device_count()
     if cards > 1:
         blocks, hdr, samples = bench_tape()
+        every = pmesh.make_decode_mesh()
         one, got, n, shapes = mesh_vs_one(
             f"(d) NRZI bench over all {cards} cards", "nrzi_fused_scan",
-            nrzi, pmesh.make_decode_mesh(), card)
+            nrzi, every, card)
         same_blocks("(d) NRZI bench, every card", one, got, blocks, 2)
+        replicated("(d) NRZI bench, every card, recorded", one, samples,
+                   opts, every)
     else:
         print("  (d) NRZI bench over every card: not run, "
               "torch.cuda.device_count() is 1 (the grids above name the "

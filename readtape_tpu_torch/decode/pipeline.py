@@ -443,11 +443,20 @@ def _nrzi_group_zeros(tape, offsets, seg_lens, leads, maxvolts, invert_sign,
 def _fetch(res) -> dict:
     """Device results -> host numpy, in one round trip: every field packs
     into one int32 and one float32 tensor before the copy. A mesh's grid
-    of shard results comes back one round trip per shard, joined on the
-    host along P, then B."""
+    of shard results comes back one round trip per shard (a fetch.shard
+    span each, with its device), joined on the host along P, then B."""
     if isinstance(res, list):
-        return pmesh.gather([[_fetch(r) for r in row] for row in res],
+        def shard(r):
+            with telemetry.span("fetch.shard",
+                                device=str(r["blktype"].device)):
+                return _fetch_one(r)
+        return pmesh.gather([[shard(r) for r in row] for row in res],
                             lambda parts, axis: np.concatenate(parts, axis))
+    return _fetch_one(res)
+
+
+def _fetch_one(res) -> dict:
+    """_fetch of one device's results."""
     B, P = res["blktype"].shape[:2]
     ints, flts, layout = [], [], []
     for k in sorted(res):
@@ -637,10 +646,12 @@ class TapeDecoder:
         # the other devices of the mesh: a copy of the tape each, and the
         # parmsets copied when a shard first needs them (_pa_on)
         self._tapes = {}
-        if self.mesh:
-            with telemetry.span("resident.upload"):
-                self._tapes = {d: self.tape.to(d)
-                               for d in self.mesh.distinct()[1:]}
+        others = self.mesh.distinct()[1:] if self.mesh else []
+        if others:
+            with telemetry.span("resident.upload"), \
+                    telemetry.span("resident.replicate"):
+                telemetry.count("d2d_bytes", self.tape.nbytes * len(others))
+                self._tapes = {d: self.tape.to(d) for d in others}
         self._pas = {}
         with telemetry.wait("parms", len(dataclasses.fields(ParmArrays))):
             self.pa = ParmArrays.from_parmsets(opts.parmsets, self.device)
@@ -756,10 +767,13 @@ class TapeDecoder:
         mesh = self.mesh
         if mesh is not None:
             spans = list(spans)
-            spans += [spans[-1]] * (-len(spans) % mesh.shape["data"])
+            pad = -len(spans) % mesh.shape["data"]
+            spans += [spans[-1]] * pad
         S = bucket or seg.bucket_length(max(b - max(a - SEG_WARMUP, 0)
                                             for a, b in spans))
         with telemetry.span("dispatch", B=len(spans), P=len(sel), S=S):
+            if mesh is not None:
+                telemetry.count("dispatch.pad_lanes", pad)
             self._tape_padded(max(max(a - SEG_WARMUP, 0)
                                   for a, b in spans) + S)
             Ws = tuple(cm.pkww_width_for(p.pkww_bitfrac, opts.bpi, opts.ips,

@@ -160,12 +160,17 @@ def count(name: str, n: int = 1):
 
 def wait(site: str, n: int = 1):
     """The span ``wait.<site>`` around a host wait on the card, counted
-    as n waits under ``host_waits`` and ``host_waits.<site>``."""
+    as n waits under ``host_waits`` and ``host_waits.<site>``. Inside a
+    span with a ``device`` attribute (a mesh's shard) the wait carries
+    that device too."""
     if not _on:
         return _NULL
     count("host_waits", n)
     count("host_waits." + site, n)
-    return _Live(_rec, "wait." + site, {})
+    dev = next((s.attrs["device"] for s in reversed(_stack())
+                if "device" in s.attrs), None)
+    return _Live(_rec, "wait." + site, {} if dev is None else
+                 {"device": dev})
 
 
 def spanned(name: str):
